@@ -17,7 +17,10 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    computes the same function, that call (``scaled_dot_product_attention``
    with the boolean decode mask, a yardstick the port never calls), with
    CUDA events at the main path's decode and prefill shapes, beside the
-   least time the card could take (the bound).
+   least time the card could take (the bound); then, each checked
+   against the plain version first, at shapes off the TPU kernel's
+   tiling: a 1024-token prefill chunk (C = 1100), a cache of C = 100 and
+   d = 36.
 4. Serve ``transformer_lm`` at GPT-2-small widths (vocab 50257, 768
    units, 12 layers, 12 heads, 1024 positions; seeded random weights)
    through ``serve.register_decode``: 16 greedy requests, checked for
@@ -31,7 +34,8 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    atol = rtol = 1e-4 (TF32 off).  Then its times beside its plain
    version, ``scaled_dot_product_attention`` with the boolean
    key-padding mask (a yardstick the port never calls) and its bound, at
-   the serving shapes B=16, T=512 (varied lengths) and B=8, T=128.
+   the serving shapes B=16, T=512 (varied lengths) and B=8, T=128, and
+   at B=8, T=128 with d = 36.
 7. Serve ``bert_12_768_12`` (vocab 30522, 768 units, FFN 3072, 12
    layers, 12 heads, 512 positions; seeded random weights, f32) through
    ``serve.register`` and ``serve.Server(max_wait_ms=5, max_batch=16)``:
@@ -40,18 +44,26 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    max|ref| of a one-request forward on the card; one padded batch on
    the card within 1e-3 x max|cpu| of the port's plain path on the CPU.
 
-8. The flash-attention backward kernels (dq, dk/dv) against their plain
-   version on the card: B=4, H=12, d in {64, 128, 256}, T in {1, 37,
-   128, 512}, causal off and on, per-row key lengths {0, 1, 63, 64, 65,
+8. The flash-attention backward kernels (dq, dk/dv; tensor cores with a
+   3xTF32 split) against their plain version on the card: B=4, H=12,
+   d in {36, 64, 100, 128, 256}, T in {1, 37, 128, 512}, causal off and
+   on, per-row key lengths {0, 1, 63, 64, 65,
    T} over two calls; NaN in k/v past each row's length, and in q/g of
    the 0-length row (every position of it is past its length).  dq, dk
    and dv within atol = rtol = 1e-4 (TF32 off); dk and dv exactly 0 at
    key positions >= the row's length, dq exactly 0 for the 0-length row.
 9. Times of the dq and dk/dv kernels at the training shape (B=32, H=12,
    T=128, d=64, lengths 64-128 from a seed) and at B=16, T=512, beside
-   the plain version, the bound and SDPA's backward through a retained
-   graph with the boolean key-padding mask (a yardstick the port never
-   calls).
+   the plain version and two bounds (3xTF32 on tensor cores, which the
+   kernels run, and f32 on CUDA cores); then the whole
+   ``flash_attention_bwd`` (dq with its fused delta, dk/dv) and SDPA's
+   backward through a retained graph with the boolean key-padding mask
+   (a yardstick the port never calls), in turns, twice each, with CUDA
+   events; and the device time of each alone (``torch.profiler`` kernel
+   records), since events around back-to-back calls also count host
+   time where a call's host work outlasts its kernels.  The kernels
+   line's ``library_ms`` for the pair is that device time of SDPA's
+   backward; its event median is ``library_events_ms``.
 10. The flat-arena optimizer kernel against its plain version for sgd,
     momentum, nesterov and adam at t in {1, 7}, on a small odd-length
     arena and on one of BERTForPretrain(bert_12_768_12)'s size: delta
@@ -151,6 +163,7 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12         # H100 SXM dense TF32 on tensor cores
 TOL = 1e-4
 B, H, D = 8, 12, 64
 GPT2_SMALL = dict(vocab_size=50257, units=768, hidden_size=3072,
@@ -238,6 +251,23 @@ def cuda_time_ms(fn, nbuf, iters=20, reps=5):
     return statistics.median(out)
 
 
+def device_ms_per_call(fn, nbuf, calls=20):
+    """Device time of one ``fn(i)`` call: every kernel record of
+    ``torch.profiler`` over ``calls`` calls, summed, over ``calls``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(3):
+        fn(i % nbuf)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(i % nbuf)
+        torch.cuda.synchronize()
+    total_us = sum(e.device_time_total for e in prof.key_averages())
+    check(total_us > 0, "the profiler recorded no device time")
+    return total_us / calls / 1e3
+
+
 def bound(b, h, tq, c, d, lens, quantized):
     """Least time (ms) for decode attention on these inputs: each input
     read once (only the cache positions the rows attend), each output
@@ -258,17 +288,17 @@ def bound(b, h, tq, c, d, lens, quantized):
     return max(t_bytes, t_ops), by, nbytes, flops
 
 
-def time_shape(b, tq, c, lens, quantized, dev, label):
+def time_shape(b, tq, c, lens, quantized, dev, label, d=D):
     from mxnet_tpu_torch.ops import attention as att
 
     g = torch.Generator(device="cpu").manual_seed(7)
-    one = b * H * c * D * (1 if quantized else 4) * 2
+    one = b * H * c * d * (1 if quantized else 4) * 2
     nbuf = max(1, math.ceil(200e6 / one)) if one > 4e6 else 1
     bufs = []
     for _ in range(nbuf):
-        q = (torch.rand(b, H, tq, D, generator=g) - 0.5).to(dev)
-        k = (torch.rand(b, H, c, D, generator=g) - 0.5).to(dev)
-        v = (torch.rand(b, H, c, D, generator=g) - 0.5).to(dev)
+        q = (torch.rand(b, H, tq, d, generator=g) - 0.5).to(dev)
+        k = (torch.rand(b, H, c, d, generator=g) - 0.5).to(dev)
+        v = (torch.rand(b, H, c, d, generator=g) - 0.5).to(dev)
         kw = {}
         if quantized:
             k, ks = att.quantize_kv(k)
@@ -277,6 +307,12 @@ def time_shape(b, tq, c, lens, quantized, dev, label):
         bufs.append((q, k, v, kw))
     lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
     mask = att.decode_mask(lens_t, tq, c)
+    got = att.flash_attention_decode(*bufs[0][:3], lens_t, **bufs[0][3])
+    want = att.flash_attention_decode_reference(*bufs[0][:3], lens_t,
+                                                **bufs[0][3])
+    err = (got - want).abs().max().item()
+    check(bool(((got - want).abs() <= TOL + TOL * want.abs()).all()),
+          f"{label}: timed inputs off by {err:.3e} over atol=rtol={TOL}")
     kern = cuda_time_ms(lambda i: att.flash_attention_decode(
         *bufs[i][:3], lens_t, **bufs[i][3]), nbuf)
     plain = cuda_time_ms(lambda i: att.flash_attention_decode_reference(
@@ -285,15 +321,15 @@ def time_shape(b, tq, c, lens, quantized, dev, label):
     if not quantized:
         lib = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
             *bufs[i][:3], attn_mask=mask), nbuf)
-    bnd, by, nbytes, flops = bound(b, H, tq, c, D, lens, quantized)
-    print(f"  time {label}: B={b} Tq={tq} C={c} cache_len~{lens[0]} "
+    bnd, by, nbytes, flops = bound(b, H, tq, c, d, lens, quantized)
+    print(f"  time {label}: B={b} Tq={tq} C={c} d={d} cache_len~{lens[0]} "
           f"kernel {kern:.4f} ms, plain {plain:.4f} ms, library "
           f"{'n/a' if lib is None else f'{lib:.4f} ms'}; bound "
           f"max({nbytes} B / 3.35e12 B/s, {flops} flop / 67e12 flop/s) = "
           f"{bnd:.4f} ms ({by}); {nbuf} input copies")
-    return dict(shape=dict(B=b, H=H, Tq=tq, C=c, d=D, cache_len=lens),
+    return dict(shape=dict(B=b, H=H, Tq=tq, C=c, d=d, cache_len=lens),
                 ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                bound_by=by)
+                bound_by=by, max_abs_err=err)
 
 
 # ------------------------------------------------------------- phases
@@ -360,7 +396,15 @@ def phase_times(dev):
             decode=time_shape(B, 1, 1024, decode_lens, quantized, dev,
                               f"{name} decode"),
             prefill=time_shape(1, 256, 256, [0], quantized, dev,
-                               f"{name} prefill"))
+                               f"{name} prefill"),
+            # shapes beyond the TPU kernel's tiling: a 1024-token prefill
+            # chunk, a cache capacity that is no multiple of 8, d = 36
+            prefill_1024=time_shape(1, 1024, 1100, [0], quantized, dev,
+                                    f"{name} prefill Tq=1024"),
+            decode_c100=time_shape(B, 1, 100, [90 - i for i in range(B)],
+                                   quantized, dev, f"{name} decode C=100"),
+            decode_d36=time_shape(B, 1, 1024, decode_lens, quantized, dev,
+                                  f"{name} decode d=36", d=36))
     return rows
 
 
@@ -499,6 +543,7 @@ def phase_serve_int8(lm, card):
 
 # ------------------------------------------------------- flash attention
 FLASH_B, FLASH_T, FLASH_D = 4, (1, 37, 128, 512), (64, 128, 256)
+BWD_D = (36, 64, 100, 128, 256)   # phase 8: widths off the 8-grid too
 
 
 def flash_case(t, d, lens, seed, device):
@@ -575,13 +620,13 @@ def flash_bound(b, t, d, lens):
     return max(t_bytes, t_ops), by, nbytes, flops
 
 
-def time_flash(b, t, lens, dev, label):
+def time_flash(b, t, lens, dev, label, d=D):
     from mxnet_tpu_torch.ops import attention as att
 
     g = torch.Generator(device="cpu").manual_seed(11)
-    one = 3 * b * H * t * D * 4
+    one = 3 * b * H * t * d * 4
     nbuf = max(1, math.ceil(200e6 / one))
-    bufs = [tuple((torch.rand(b, H, t, D, generator=g) - 0.5).to(dev)
+    bufs = [tuple((torch.rand(b, H, t, d, generator=g) - 0.5).to(dev)
                   for _ in range(3)) for _ in range(nbuf)]
     lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
     mask = (torch.arange(t, device=dev)[None, :]
@@ -592,13 +637,13 @@ def time_flash(b, t, lens, dev, label):
         *bufs[i], kv_valid_length=lens_t), nbuf)
     lib = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
         *bufs[i], attn_mask=mask), nbuf)
-    bnd, by, nbytes, flops = flash_bound(b, t, D, lens)
-    print(f"  time {label}: B={b} H={H} T={t} d={D} kv_len "
+    bnd, by, nbytes, flops = flash_bound(b, t, d, lens)
+    print(f"  time {label}: B={b} H={H} T={t} d={d} kv_len "
           f"{min(lens)}..{max(lens)} kernel {kern:.4f} ms, plain "
           f"{plain:.4f} ms, SDPA {lib:.4f} ms; bound max({nbytes} B / "
           f"3.35e12 B/s, {flops} flop / 67e12 flop/s) = {bnd:.4f} ms "
           f"({by}); {nbuf} input copies")
-    return dict(shape=dict(B=b, H=H, T=t, d=D, kv_len=lens), ms=kern,
+    return dict(shape=dict(B=b, H=H, T=t, d=d, kv_len=lens), ms=kern,
                 plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by)
 
 
@@ -609,7 +654,9 @@ def phase_flash_times(dev):
     lens8 = rs.randint(16, 129, size=8).tolist()
     lens8[0] = 128
     rows = dict(serve_b16=time_flash(16, 512, lens16, dev, "flash B=16"),
-                serve_b8=time_flash(8, 128, lens8, dev, "flash B=8"))
+                serve_b8=time_flash(8, 128, lens8, dev, "flash B=8"),
+                serve_b8_d36=time_flash(8, 128, lens8, dev,
+                                        "flash B=8 d=36", d=36))
     print("phase 6b flash times: done")
     return rows
 
@@ -750,7 +797,7 @@ def phase_bwd_kernels(dev):
     from mxnet_tpu_torch.ops import attention as att
 
     worst, n = {"dq": 0.0, "dkv": 0.0}, 0
-    for d in FLASH_D:
+    for d in BWD_D:
         for t in FLASH_T:
             errs = []
             for causal in (False, True):
@@ -800,21 +847,33 @@ def phase_bwd_kernels(dev):
 
 
 def bwd_bound(b, t, d, lens, kernel):
-    """Least time (ms) for one backward kernel on these inputs: q and g
-    (and lse, delta) read in full, k and v over each row's valid keys,
-    the outputs written once, over the HBM rate; or its flops over the
-    f32 peak, whichever is larger.  Per attended (query, key) pair dq
-    does 6 d flops (s, dp, dq) and dk/dv 8 d (s, dp, dk, dv)."""
+    """Least time (ms) for one backward kernel on these inputs, two ways.
+    Bytes: q and g (and lse; out for dq, which computes delta; delta for
+    dk/dv) read in full, k and v over each row's valid keys, the outputs
+    (dq and delta, or dk and dv) written once, over the HBM rate.  Flops:
+    per attended (query, key) pair dq does 6 d (s, dp, dq) and dk/dv 8 d
+    (s, dp, dk, dv).  ``f32`` is the CUDA-core bound, max(bytes, flops /
+    67e12); ``tf32x3`` the bound of the split the kernels run,
+    max(bytes, 3 flops / 495e12): three TF32 tensor-core products per f32
+    product.  Returns both as ``(ms, by)`` pairs, and bytes and flops."""
     keys = sum(min(x, t) for x in lens) * H        # valid key rows
     rows = b * H * t                                # query rows
     reads = 2 * rows * d * 4 + 2 * rows * 4 + 2 * keys * d * 4 + b * 4
-    writes = rows * d * 4 if kernel == "dq" else 2 * b * H * t * d * 4
-    pairs = t * keys
-    flops = (6 if kernel == "dq" else 8) * d * pairs
+    if kernel == "dq":
+        reads += rows * d * 4                       # out
+        writes = rows * d * 4 + rows * 4            # dq, delta
+    else:
+        writes = 2 * b * H * t * d * 4              # dk, dv
+    flops = (6 if kernel == "dq" else 8) * d * t * keys
     t_bytes = (reads + writes) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops), by, reads + writes, flops
+
+    def pick(t_ops):
+        return (max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    return dict(f32=pick(flops / F32_FLOP_PER_S * 1e3),
+                tf32x3=pick(3 * flops / TF32_FLOP_PER_S * 1e3),
+                nbytes=reads + writes, flops=flops)
 
 
 def time_bwd(b, t, lens, dev, label):
@@ -827,17 +886,17 @@ def time_bwd(b, t, lens, dev, label):
     lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
     mask = (torch.arange(t, device=dev)[None, :]
             < lens_t[:, None])[:, None, None, :]
+    scale = 1.0 / math.sqrt(D)
     bufs = []
     for _ in range(nbuf):
         q, k, v, go = ((torch.rand(b, H, t, D, generator=g) - 0.5).to(dev)
                        for _ in range(4))
         out, lse = att.flash_attention(q, k, v, kv_valid_length=lens_t,
                                        return_lse=True)
-        delta = (go * out).sum(-1).contiguous()
+        _, delta = fb.launch_dq(q, k, v, go, out, lse, lens_t, False, scale)
         bufs.append((q, k, v, go, out, lse, delta))
-    scale = 1.0 / math.sqrt(D)
     dq_ms = cuda_time_ms(lambda i: fb.launch_dq(
-        *bufs[i][:4], bufs[i][5], bufs[i][6], lens_t, False, scale), nbuf)
+        *bufs[i][:6], lens_t, False, scale), nbuf)
     dkv_ms = cuda_time_ms(lambda i: fb.launch_dkv(
         *bufs[i][:4], bufs[i][5], bufs[i][6], lens_t, False, scale), nbuf)
     plain = cuda_time_ms(lambda i: fb.flash_attention_bwd_reference(
@@ -847,20 +906,49 @@ def time_bwd(b, t, lens, dev, label):
         leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
         graphs.append((leaves, F.scaled_dot_product_attention(
             *leaves, attn_mask=mask), go))
-    lib = cuda_time_ms(lambda i: torch.autograd.grad(
+    # the whole backward (delta, dq, dk/dv: wrapper and two launches)
+    # beside SDPA's, in turns
+    whole, lib = [], []
+    for _ in range(2):
+        whole.append(cuda_time_ms(lambda i: fb.flash_attention_bwd(
+            *bufs[i][:6], lens_t, False, scale), nbuf))
+        lib.append(cuda_time_ms(lambda i: torch.autograd.grad(
+            graphs[i][1], graphs[i][0], graphs[i][2], retain_graph=True),
+            nbuf))
+    whole_ms, lib_ms = statistics.median(whole), statistics.median(lib)
+    # device time alone (torch.profiler kernel records, summed per call):
+    # CUDA events around back-to-back calls also count host time when a
+    # call's host work outlasts its kernels, as autograd.grad's can
+    whole_dev = device_ms_per_call(lambda i: fb.flash_attention_bwd(
+        *bufs[i][:6], lens_t, False, scale), nbuf)
+    lib_dev = device_ms_per_call(lambda i: torch.autograd.grad(
         graphs[i][1], graphs[i][0], graphs[i][2], retain_graph=True), nbuf)
     rows = {}
     for kernel, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
-        bnd, by, nbytes, flops = bwd_bound(b, t, D, lens, kernel)
+        bd = bwd_bound(b, t, D, lens, kernel)
+        (bnd, by), (f32_bnd, f32_by) = bd["tf32x3"], bd["f32"]
+        # library_ms is SDPA backward's device time: its CUDA events also
+        # count autograd's host time, which the kernel's events do not
         rows[kernel] = dict(shape=dict(B=b, H=H, T=t, d=D, kv_len=lens),
-                            ms=ms, plain_ms=plain, library_ms=lib,
-                            bound_ms=bnd, bound_by=by)
+                            ms=ms, plain_ms=plain, library_ms=lib_dev,
+                            bound_ms=bnd, bound_by=by,
+                            bound_f32_ms=f32_bnd, bound_f32_by=f32_by,
+                            whole_bwd_ms=whole_ms,
+                            whole_bwd_device_ms=whole_dev,
+                            library_events_ms=lib_ms)
         print(f"  time {label} {kernel}: B={b} H={H} T={t} d={D} kv_len "
               f"{min(lens)}..{max(lens)} kernel {ms:.4f} ms; plain (dq, dk,"
-              f" dv together) {plain:.4f} ms, SDPA backward (all three) "
-              f"{lib:.4f} ms; bound max({nbytes} B / 3.35e12 B/s, {flops} "
-              f"flop / 67e12 flop/s) = {bnd:.4f} ms ({by}); {nbuf} input "
-              "copies")
+              f" dv together) {plain:.4f} ms; bound 3xTF32 max("
+              f"{bd['nbytes']} B / 3.35e12 B/s, 3 x {bd['flops']} flop / "
+              f"495e12 flop/s) = {bnd:.4f} ms ({by}), f32 CUDA cores "
+              f"{f32_bnd:.4f} ms ({f32_by}); {nbuf} input copies")
+    print(f"  time {label} whole flash_attention_bwd (delta, dq, dk/dv): "
+          f"{' / '.join(f'{x:.4f}' for x in whole)} ms, median "
+          f"{whole_ms:.4f}; SDPA backward (all three, its own delta) "
+          f"{' / '.join(f'{x:.4f}' for x in lib)} ms, median {lib_ms:.4f}"
+          f" (ratio {whole_ms / lib_ms:.3f}); device time alone "
+          f"(profiler): {whole_dev:.4f} ms against {lib_dev:.4f} ms "
+          f"(ratio {whole_dev / lib_dev:.3f})")
     return rows
 
 
@@ -1528,8 +1616,8 @@ def ext_lenet(device):
                 nn.MaxPool2D(2, 2),
                 nn.Conv2D(50, 5, activation="tanh", in_channels=20, **kw),
                 nn.MaxPool2D(2, 2), nn.Flatten())
-            self.hidden = nn.Dense(500, 800, **kw)
-            self.output = nn.Dense(10, 500, **kw)
+            self.hidden = nn.Dense(500, in_units=800, **kw)
+            self.output = nn.Dense(10, in_units=500, **kw)
 
         def forward(self, x):
             x = mx.npx.pallas_axpb(x, a=EXT_AB[0][0], b=EXT_AB[0][1])
@@ -1765,7 +1853,10 @@ def main() -> int:
             max_err=worst[name], ms=dec["ms"], kernel_ms=dec["ms"],
             plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"],
             bound_by=dec["bound_by"], library_ms=dec["library_ms"],
-            shape=dec["shape"], prefill=times[name]["prefill"]))
+            shape=dec["shape"], prefill=times[name]["prefill"],
+            prefill_1024=times[name]["prefill_1024"],
+            decode_c100=times[name]["decode_c100"],
+            decode_d36=times[name]["decode_d36"]))
     src, replaces = registry.KERNELS["flash_attention"]
     main_shape = flash_times["serve_b16"]
     train_launches = train["launches"]
@@ -1779,7 +1870,8 @@ def main() -> int:
         ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
         bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],
         library_ms=main_shape["library_ms"], shape=main_shape["shape"],
-        serve_b8=flash_times["serve_b8"]))
+        serve_b8=flash_times["serve_b8"],
+        serve_b8_d36=flash_times["serve_b8_d36"]))
     for name, key in (("flash_attention_bwd_dq", "dq"),
                       ("flash_attention_bwd_dkv", "dkv")):
         src, replaces = registry.KERNELS[name]
@@ -1790,8 +1882,16 @@ def main() -> int:
             launches=train_launches[name], max_abs_err=bwd_worst[key],
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            bound_note="3xTF32 on tensor cores: max(bytes / 3.35e12, "
+                       "3 flops / 495e12)",
+            bound_f32_ms=row["bound_f32_ms"],
+            bound_f32_by=row["bound_f32_by"],
             library_ms=row["library_ms"], shape=row["shape"],
-            library="SDPA backward, dq dk dv together",
+            whole_bwd_ms=row["whole_bwd_ms"],
+            whole_bwd_device_ms=row["whole_bwd_device_ms"],
+            library_events_ms=row["library_events_ms"],
+            library="SDPA backward, dq dk dv together (device time, "
+                    "torch.profiler)",
             plain="dq dk dv together", long=bwd_times["long"][key]))
     src, replaces = registry.KERNELS["opt_arena"]
     kernels.append(dict(

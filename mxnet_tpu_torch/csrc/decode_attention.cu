@@ -17,7 +17,11 @@
 // multiplied by p = 0: cache rows past a row's valid length hold garbage
 // (NaN in the tests), and 0 * NaN = NaN.  Query rows past Tq are neither
 // computed nor written.  The TPU layout choices (8-row sublane padding of
-// the query chunk, 128-lane m/l scratch) are dropped.
+// the query chunk, 128-lane m/l scratch) are dropped.  The grid covers any
+// Tq (a prefill chunk of a 1024-token prompt bucket included), and any
+// C >= 1 and 1 <= d <= 256: cache tiles load as 4-element groups when
+// d % 4 == 0 and the cache is aligned for them, element by element
+// otherwise; the compute loops are scalar over d.
 //
 // What bounds it on an H100.  At Tq = 1 (a decode step) the work is
 // memory-bound: per (b, h) it must read (cache_len + 1) * d * 2 cache
@@ -49,10 +53,24 @@ size_t smem_bytes(int d) {
 
 // Copy n cache rows (row0 .. row0+n-1 of the flattened (B*H*C, d) cache)
 // into a shared tile with row stride ds = d + 1 (conflict-free column
-// reads).  d % 8 == 0, so 4-element groups never cross a row.
-template <bool QUANT>
+// reads).  With VEC (d % 4 == 0 and the cache 16-byte aligned in f32,
+// 4-byte aligned in int8) 4-element groups are loaded at once and never
+// cross a row; otherwise element by element, for any d.  A template
+// parameter, not a runtime flag: the branch cost the vector path 16%.
+template <bool QUANT, bool VEC>
 __device__ void load_tile(float* dst, const void* src, const float* scales,
                           size_t row0, int n, int d, int ds) {
+  if (!VEC) {
+    for (int e = threadIdx.x; e < n * d; e += NT) {
+      const int j = e / d;
+      const int c = e - j * d;
+      const size_t at = (row0 + j) * d + c;
+      dst[j * ds + c] =
+          QUANT ? (float)static_cast<const int8_t*>(src)[at] * scales[row0 + j]
+                : static_cast<const float*>(src)[at];
+    }
+    return;
+  }
   const int nv = n * d / 4;
   for (int i = threadIdx.x; i < nv; i += NT) {
     const int e = i * 4;
@@ -78,7 +96,7 @@ __device__ void load_tile(float* dst, const void* src, const float* scales,
   }
 }
 
-template <bool QUANT>
+template <bool QUANT, bool VEC>
 __global__ void __launch_bounds__(NT)
 decode_attention_kernel(const float* __restrict__ q, const void* __restrict__ k,
                         const float* __restrict__ k_scale,
@@ -121,8 +139,8 @@ decode_attention_kernel(const float* __restrict__ q, const void* __restrict__ k,
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
     const int n = min(BK, kv_end - k0);
     __syncthreads();  // the previous tile's readers are done
-    load_tile<QUANT>(sk, k, k_scale, row_base + k0, n, d, ds);
-    load_tile<QUANT>(sv, v, v_scale, row_base + k0, n, d, ds);
+    load_tile<QUANT, VEC>(sk, k, k_scale, row_base + k0, n, d, ds);
+    load_tile<QUANT, VEC>(sv, v, v_scale, row_base + k0, n, d, ds);
     __syncthreads();
 
     // Scores.  A thread owns key j and rows r0, r0 + NT/BK, ...: the key
@@ -222,10 +240,13 @@ int launch(const void* q, const void* k, const void* k_scale, const void* v,
            const void* v_scale, const void* cache_len, void* out, void* lse,
            int B, int H, int Tq, int C, int d, float scale, void* stream) {
   if (B * H == 0 || Tq == 0) return 0;
-  if (d < 8 || d > DMAX || d % 8 != 0 || Tq > 512 || C < 1)
-    return (int)cudaErrorInvalidValue;
+  if (d < 1 || d > DMAX || C < 1) return (int)cudaErrorInvalidValue;
+  const size_t align = QUANT ? 4 : 16;
+  const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(k) % align == 0 &&
+                  reinterpret_cast<uintptr_t>(v) % align == 0;
   const size_t smem = smem_bytes(d);
-  auto kern = decode_attention_kernel<QUANT>;
+  auto kern = vec ? decode_attention_kernel<QUANT, true>
+                  : decode_attention_kernel<QUANT, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -244,7 +265,8 @@ int launch(const void* q, const void* k, const void* k_scale, const void* v,
 extern "C" {
 
 // q (B,H,Tq,d) f32, k/v (B,H,C,d) f32, cache_len (B,) int32, out (B,H,Tq,d)
-// f32, lse (B,H,Tq) f32 or null.  All contiguous.  Returns cudaGetLastError().
+// f32, lse (B,H,Tq) f32 or null.  All contiguous; any Tq, C >= 1 and
+// 1 <= d <= 256.  Returns cudaGetLastError().
 int mx_decode_attention_f32(const void* q, const void* k, const void* v,
                             const void* cache_len, void* out, void* lse, int B,
                             int H, int Tq, int C, int d, float scale,

@@ -25,7 +25,14 @@
 // tests) never meets a probability, and a masked score is set to -inf by
 // selection, never by arithmetic.  Query rows past Tq are computed on
 // zeros and not written; any Tq, Tk >= 1 works, so nothing needs the TPU
-// kernel's "not tile-able" fallback.
+// kernel's "not tile-able" fallback.  Any 1 <= d <= 256: shared rows are
+// zero-padded to dp = d rounded up to 8, so the float4 compute loops run
+// over dp columns; tiles load as 16-byte vectors when d % 4 == 0 and the
+// inputs are 16-byte aligned, element by element otherwise, and only the
+// d real columns are stored.  The vector path is a template parameter
+// and keeps its one float4 shared store per load: with the element path
+// beside it in one statement, nvcc split that store into four (measured
+// at d = 64: 3.5% slower, 32 scalar STS in place of 8 STS.128).
 //
 // What bounds it on an H100.  At the serving shapes (d = 64, T up to
 // 512) the work is 4 d flops per attended (query, key) pair against
@@ -34,7 +41,7 @@
 // first version keeps the products on CUDA cores and loads each tile
 // with plain loads, no overlap of load and compute; TF32/bf16 tensor
 // cores (wgmma), TMA or cp.async double buffering and a bf16 I/O variant
-// are the later work.  Shared memory is (3 * 64 * (d + 4) + 64 * 68) * 4
+// are the later work.  Shared memory is (3 * 64 * (dp + 4) + 64 * 68) * 4
 // bytes: 68 KB at d = 64, 212 KB at d = 256, above the 48 KB default, so
 // the launch raises the kernel's dynamic shared-memory limit first.
 
@@ -52,27 +59,39 @@ constexpr int CPT = 4;     // score columns per thread (BK / 16)
 constexpr int PS = BK + 4; // row stride of the P tile
 constexpr int DMAX = 256;
 
-size_t smem_bytes(int d) {
-  return sizeof(float) * (3 * (size_t)BQ * (d + 4) + (size_t)BQ * PS);
+size_t smem_bytes(int dp) {
+  return sizeof(float) * (3 * (size_t)BQ * (dp + 4) + (size_t)BQ * PS);
 }
 
 // Copy rows [row0, row0 + BQ) of a (rows, d) matrix into a shared tile
-// with row stride ds; rows at or past `valid` are written as zeros.
+// with row stride ds, columns d..dp zero; rows at or past `valid` are
+// written as zeros.  16-byte loads with VEC (d % 4 == 0, 16-byte
+// aligned source), one element at a time otherwise.
+template <bool VEC>
 __device__ void load_rows(float* dst, const float* src, int row0, int valid,
-                          int d, int ds) {
-  const int n4 = BQ * d / 4;
+                          int d, int dp, int ds) {
+  const int n4 = BQ * dp / 4;
   for (int i = threadIdx.x; i < n4; i += NT) {
     const int e = i * 4;
-    const int r = e / d;
-    const int c = e - r * d;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < valid)
-      x = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * d + c);
-    *reinterpret_cast<float4*>(dst + r * ds + c) = x;
+    const int r = e / dp;
+    const int c = e - r * dp;
+    if (VEC) {  // one float4 store (see the header)
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row0 + r < valid && c < d)
+        x = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * d +
+                                             c);
+      *reinterpret_cast<float4*>(dst + r * ds + c) = x;
+    } else {
+      const bool ok = row0 + r < valid;
+      const float* sr = src + (size_t)(row0 + r) * d + c;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        dst[r * ds + c + k] = ok && c + k < d ? sr[k] : 0.f;
+    }
   }
 }
 
-template <int NCHUNK>
+template <int NCHUNK, bool VEC>
 __global__ void __launch_bounds__(NT, 1)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v,
@@ -80,7 +99,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        float* __restrict__ out, float* __restrict__ lse, int H,
                        int Tq, int Tk, int d, int causal, float scale) {
   extern __shared__ __align__(16) float smem[];
-  const int ds = d + 4;
+  const int dp = (d + 7) & ~7;  // d padded to 8 with zero columns
+  const int ds = dp + 4;
   float* sq = smem;             // BQ x ds   query rows
   float* sk = sq + BQ * ds;     // BK x ds   key tile
   float* sv = sk + BK * ds;     // BK x ds   value tile
@@ -100,7 +120,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* qb = q + (size_t)bh * Tq * d;
   const float* kb = k + (size_t)bh * Tk * d;
   const float* vb = v + (size_t)bh * Tk * d;
-  load_rows(sq, qb, q0, Tq, d, ds);
+  load_rows<VEC>(sq, qb, q0, Tq, d, dp, ds);
 
   float m[RPT], l[RPT], acc[RPT][NCHUNK][4];
 #pragma unroll
@@ -115,8 +135,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done
-    load_rows(sk, kb, k0, kv_end, d, ds);
-    load_rows(sv, vb, k0, kv_end, d, ds);
+    load_rows<VEC>(sk, kb, k0, kv_end, d, dp, ds);
+    load_rows<VEC>(sv, vb, k0, kv_end, d, dp, ds);
     __syncthreads();
 
     // s = q k^T on a 4x4 micro-tile: rows ty + 16 i, keys tx + 16 j.
@@ -126,7 +146,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
 #pragma unroll 2
-    for (int c = 0; c < d; c += 4) {
+    for (int c = 0; c < dp; c += 4) {
       float4 qa[RPT], ka[CPT];
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
@@ -197,7 +217,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int n = 0; n < NCHUNK; ++n) {
           const int c = 4 * tx + 64 * n;
-          if (c < d) {
+          if (c < dp) {
             const float4 x =
                 *reinterpret_cast<const float4*>(sv + (j4 + jj) * ds + c);
 #pragma unroll
@@ -225,10 +245,16 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < NCHUNK; ++n) {
       const int c = 4 * tx + 64 * n;
-      if (c < d)
-        *reinterpret_cast<float4*>(ob + (size_t)(q0 + r) * d + c) =
-            make_float4(acc[i][n][0] * inv, acc[i][n][1] * inv,
-                        acc[i][n][2] * inv, acc[i][n][3] * inv);
+      if (VEC) {
+        if (c < d)
+          *reinterpret_cast<float4*>(ob + (size_t)(q0 + r) * d + c) =
+              make_float4(acc[i][n][0] * inv, acc[i][n][1] * inv,
+                          acc[i][n][2] * inv, acc[i][n][3] * inv);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c + e < d) ob[(size_t)(q0 + r) * d + c + e] = acc[i][n][e] * inv;
+      }
     }
     if (lse != nullptr && tx == 0)
       lse[(size_t)bh * Tq + q0 + r] = m[i] + logf(l[i] == 0.f ? 1.f : l[i]);
@@ -238,9 +264,10 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int NCHUNK>
 int launch(const float* q, const float* k, const float* v, const int* kv_len,
            float* out, float* lse, int B, int H, int Tq, int Tk, int d,
-           int causal, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(d);
-  auto kern = flash_attention_kernel<NCHUNK>;
+           int causal, float scale, int vec, cudaStream_t stream) {
+  const size_t smem = smem_bytes((d + 7) & ~7);
+  auto kern = vec ? flash_attention_kernel<NCHUNK, true>
+                  : flash_attention_kernel<NCHUNK, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -256,17 +283,20 @@ int launch(const float* q, const float* k, const float* v, const int* kv_len,
 
 extern "C" {
 
-// q (B,H,Tq,d), k/v (B,H,Tk,d), out (B,H,Tq,d): f32, contiguous, 16-byte
-// aligned.  kv_len (B,) int32 or null (every row attends all Tk keys);
-// lse (B,H,Tq) f32 or null.  causal: 0 or 1.  8 <= d <= 256, d % 8 == 0.
+// q (B,H,Tq,d), k/v (B,H,Tk,d), out (B,H,Tq,d): f32, contiguous.  kv_len
+// (B,) int32 or null (every row attends all Tk keys); lse (B,H,Tq) f32 or
+// null.  causal: 0 or 1.  1 <= d <= 256.
 // Returns cudaGetLastError() after the launch (0 on success).
 int mx_flash_attention_f32(const void* q, const void* k, const void* v,
                            const void* kv_len, void* out, void* lse, int B,
                            int H, int Tq, int Tk, int d, int causal,
                            float scale, void* stream) {
   if (B * H == 0 || Tq == 0) return 0;
-  if (d < 8 || d > DMAX || d % 8 != 0 || Tk < 1)
-    return (int)cudaErrorInvalidValue;
+  if (d < 1 || d > DMAX || Tk < 1) return (int)cudaErrorInvalidValue;
+  auto a16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int vec = d % 4 == 0 && a16(q) && a16(k) && a16(v) && a16(out);
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);
@@ -277,16 +307,16 @@ int mx_flash_attention_f32(const void* q, const void* k, const void* v,
   switch ((d + 63) / 64) {
     case 1:
       return launch<1>(qf, kf, vf, lens, of, lf, B, H, Tq, Tk, d, causal,
-                       scale, st);
+                       scale, vec, st);
     case 2:
       return launch<2>(qf, kf, vf, lens, of, lf, B, H, Tq, Tk, d, causal,
-                       scale, st);
+                       scale, vec, st);
     case 3:
       return launch<3>(qf, kf, vf, lens, of, lf, B, H, Tq, Tk, d, causal,
-                       scale, st);
+                       scale, vec, st);
     default:
       return launch<4>(qf, kf, vf, lens, of, lf, B, H, Tq, Tk, d, causal,
-                       scale, st);
+                       scale, vec, st);
   }
 }
 

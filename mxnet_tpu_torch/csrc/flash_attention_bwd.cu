@@ -1,10 +1,11 @@
-// Flash-attention backward for Hopper (sm_90a), f32: the dq kernel and the
-// dk/dv kernel.
+// Flash-attention backward for Hopper (sm_90a), f32 in and out: the dq
+// kernel and the dk/dv kernel, their products on tensor cores.
 //
 // Replaces the TPU kernels mxnet_tpu/kernels/flash_bwd.py `_dq_kernel` and
 // `_dkv_kernel` (launched by `flash_attention_bwd_pallas`).  From the
-// forward's row log-sum-exp `lse` and delta_i = sum(g_i * out_i):
+// forward's output `out` and row log-sum-exp `lse`:
 //
+//   delta_i = sum_c g_ic * out_ic                    (dq kernel, prologue)
 //   p_ij  = exp(s_ij - lse_i),  s_ij = scale * q_i . k_j   (masked: 0)
 //   ds_ij = p_ij * (g_i . v_j - delta_i)                   (masked: 0)
 //   dq_i  = scale * sum_j ds_ij k_j          (dq kernel: over key tiles)
@@ -13,42 +14,84 @@
 //
 // The masks are the forward's: key kpos is live for query qpos when
 // kpos < kv_end (Tk, or min(Tk, kv_len[b])) and, with `causal`,
-// kpos <= qpos.  Two kernels, as on the TPU, because the two reductions
-// run over different axes; with two kernels every output element is
-// summed by one thread in a fixed order, so there are no float atomics
-// and the gradients are the same from run to run.
+// kpos <= qpos.  Two kernels, launched in that order on one stream,
+// because the two reductions run over different axes.  The dq kernel
+// writes each row's delta to a (B, H, Tq) f32 buffer that the dk/dv
+// kernel reads.  Every output element is summed by one thread in a fixed
+// order (no float atomics), so the gradients are the same bits from run to
+// run.
 //
-// Design.  256 threads a block, a 16 x 16 grid (ty, tx); tiles of BR rows
-// (64, or 32 when d > 128 so that four tiles of BR x (d + 4) f32 fit the
-// 227 KB of shared memory a block may have).  A thread owns rows
-// ty + 16 i and columns tx + 16 j of each BR x BR score tile, as 4-wide
-// register micro-tiles fed by 16-byte shared loads (row stride d + 4
-// keeps a quarter-warp's loads on distinct banks), and output columns
-// 4 tx + 64 n .. + 3 (n < NCHUNK = ceil(d / 64)) of its rows.
-//  * dq: one block per (b*h, query tile).  It stages q, g and the rows'
-//    lse and delta once, then walks the key tiles up to kv_end (and the
-//    tile's last causal diagonal): S = Q K^T and dP = G V^T as register
-//    micro-tiles, then dS in shared memory, then dQ += dS K in registers.
-//  * dk/dv: one block per (b*h, key tile).  A tile wholly past kv_end is
-//    not computed and writes zeros.  Otherwise it stages k and v, walks
-//    the query tiles (from its own first row with `causal`), forms P^T
-//    and dS^T in shared memory and accumulates dK and dV in registers.
-// Everything runs on CUDA cores in f32.  Rows past kv_end (keys) or past
-// Tq (queries) are loaded as zeros, so garbage there (NaN in the tests)
-// never meets a probability; a masked entry of P or dS is 0 by selection,
-// never by arithmetic (exp(s - lse) with lse = -inf would be NaN).  The
-// outputs of skipped work are written as zeros: dk and dv rows at or past
-// kv_end, and every dq row of a row with nothing to attend.
+// Products.  All five (S = Q K^T, dP = G V^T and dQ += dS K in the dq
+// kernel; S^T = K Q^T, dP^T = V G^T, dV += P^T G and dK += dS^T Q in the
+// dk/dv kernel) run on tensor cores as `mma.sync.m16n8k8` with TF32
+// operands and f32 accumulators, each warp owning 16 rows.  TF32 keeps 10
+// mantissa bits, far from the f32 bar the port holds (atol = rtol = 1e-4
+// against the plain version with TF32 off), so every operand x is split as
+// hi = tf32(x), lo = tf32(x - hi) and each product is three MMAs,
+// lo*hi' + hi*lo' + hi*hi' (the split of CUTLASS's OpMultiplyAddFastF32;
+// lo*lo' is below f32 rounding).  The split is integer adds and masks on
+// the f32 bits, not `cvt`.  Nothing here sets a global TF32 flag.
+// `mma.sync` rather than `wgmma`: its accumulator fragment is an operand
+// fragment after a fixed permutation of the depth axis (a thread holds
+// columns 2t and 2t+1 of its rows; read as depth t and t+4, with the B
+// rows read in the same order), so P and dS go from the score product
+// into the next product in registers, with no shared-memory round trip
+// and no transpose: the dk/dv kernel computes S^T and dP^T directly (keys
+// as rows), so P^T and dS^T are born in the layout their products take.
+// `wgmma` (the card's full rate) needs its B operand in shared memory in
+// a swizzled layout and 64-row warpgroup tiles; it is the later step.
+//
+// Loads.  Tiles stream through shared memory with `cp.async`: 16-byte
+// `.cg` copies when d % 4 == 0 and every input pointer is 16-byte
+// aligned, 4-byte `.ca` copies otherwise (any d).  Rows past kv_end (keys)
+// or Tq (queries) and the columns from d up to the padded width dp (d
+// rounded up to 8, the MMA depth) are zero-filled by the copy itself
+// (source size 0), so garbage there (NaN in the tests) never meets a
+// probability.  The streamed tile (K and V for dq; Q and G with their lse
+// and delta for dk/dv) lands raw, is split once for the whole block into
+// hi and lo arrays, and the copies of the next tile into the raw buffer
+// are in flight while the split tile is multiplied: a two-stage ring
+// (raw, split).  Splitting each B fragment in every warp instead cost
+// more than the MMAs (measured).  A warp splits only its own A rows (the
+// fixed Q/G or K/V rows, and P or dS from registers).  Row stride dp + 4
+// (= 4 mod 32 words) keeps every fragment load of a warp on 32 distinct
+// banks, both for rows-as-columns (K^T, Q^T) and for the permuted reads
+// of the second product.
+//
+// Tiles (rows a block owns BM = 16 WR, streamed tile BN rows, NS warps
+// splitting the output columns; a warp of a column split recomputes its
+// rows' scores, so NS > 1 costs score work and buys registers):
+//   d <= 64:  dq BM 64, BN 32, 128 threads, 87 KB at d = 64 (two blocks
+//             an SM); dk/dv BM 128, BN 32, 256 threads, 122 KB.
+//   d <= 128: BM 64, NS 2, 256 threads; dq BN 16 (118 KB), dk/dv BN 32
+//             (169 KB).
+//   d <= 256: BM 32, BN 16, NS 2 (dq) or 4 (dk/dv); 166 KB, one block.
+// d = 64 (BERT's width, the main path) runs an instantiation with d a
+// constant, so strides and the depth loop fold; every other d runs the
+// runtime-width one.  MX_FLASH_BWD_FIXED_D picks the widths compiled as
+// constants, one bit each for d = 32, 64, 128, 256 (default 0x2: d = 64);
+// tools/torch_flash_bwd_widths.py builds it with 0x0 and 0xF and times
+// the two.
+// The grid is one-dimensional with a head's tiles adjacent, so they run
+// together and share that head's streamed rows through L2.  A warp skips
+// a streamed tile that none of its rows may attend (past kv_end, past Tq,
+// or above the causal diagonal), and nothing finer: inside a tile every
+// score and output tile is multiplied, masked entries being zeros,
+// because an MMA under a condition the compiler cannot prove uniform
+// across the warp gets a WARPSYNC and a branch of its own.  A masked p or
+// ds is 0 by selection, never by arithmetic (exp(s - lse) with lse = -inf
+// would be NaN).  Outputs of skipped work are exact zeros: dk and dv rows
+// at or past kv_end, every dq row of a row with nothing to attend.
 //
 // What bounds it on an H100.  Per attended (query, key) pair the two
-// kernels do 14 d flops (dq: 2 d for s, 2 d for dp, 2 d for dq; dk/dv:
-// the same 4 d again plus 2 d each for dk and dv) against 4 d bytes per
-// row of each of q, k, v, g and the outputs: at the training shape
-// (T = 128, d = 64) about 30 flops a byte, so operations bound it, at the
-// f32 CUDA-core rate (67 TFLOP/s).  This first version loads each tile
-// with plain loads and no overlap of load and compute; tensor cores
-// (wgmma with TF32 or bf16 operands) and cp.async/TMA double buffering are
-// the later work.
+// kernels do 14 d flops of f32 work; 3xTF32 makes it 42 d tensor-core
+// flops, against 495 TFLOP/s dense TF32 (an f32-equivalent 165 TFLOP/s).
+// At the training shape (B=32, H=12, T=128, d=64) that bound is below the
+// bytes each kernel must move (q, g, out, k, v, lse, delta in; dq or dk
+// and dv out) at 3.35 TB/s, so both kernels are bound by bytes, and they
+// run at about four times that bound (PERF.md): loads, barriers and
+// fragment reads with few warps resident (registers cap them) leave
+// latency exposed.  wgmma with TMA and a deeper ring are the levers.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -56,384 +99,658 @@
 
 namespace {
 
-constexpr int NT = 256;   // threads per block: a 16 x 16 grid
 constexpr int DMAX = 256;
 
-template <int BR>
-__device__ void load_rows(float* dst, const float* src, int row0, int valid,
-                          int d, int ds) {
-  const int n4 = BR * d / 4;
-  for (int i = threadIdx.x; i < n4; i += NT) {
-    const int e = i * 4;
-    const int r = e / d;
-    const int c = e - r * d;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < valid)
-      x = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * d + c);
-    *reinterpret_cast<float4*>(dst + r * ds + c) = x;
+#ifndef MX_FLASH_BWD_FIXED_D
+#define MX_FLASH_BWD_FIXED_D 0x2
+#endif
+
+// ------------------------------------------------------------- copies
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + R) of a (rows, d) f32 matrix into a shared tile of
+// row stride ds, columns d..dp zero, rows at or past `valid` zero.  A
+// thread's chunks advance by a fixed (row, column) step: no division in
+// the loop.
+template <int R, int NT>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int row0, int valid, int d, int dp,
+                                          int ds, bool vec) {
+  const int w = vec ? 4 : 1;     // floats a copy moves
+  const int cpr = dp / w;        // copies a row
+  const int rstep = NT / cpr, cstep = NT - rstep * cpr;
+  int r = threadIdx.x / cpr, c = threadIdx.x - r * cpr;
+  while (r < R) {
+    const int col = c * w;
+    const bool ok = row0 + r < valid && col < d;
+    const float* from = ok ? src + (size_t)(row0 + r) * d + col : src;
+    if (vec)
+      cp16(dst + r * ds + col, from, ok);
+    else
+      cp4(dst + r * ds + col, from, ok);
+    r += rstep;
+    c += cstep;
+    if (c >= cpr) {
+      c -= cpr;
+      ++r;
+    }
   }
 }
 
-// out[i][j] = A[ty + 16 i] . B[tx + 16 j] over d, rows of stride ds.
-template <int R>
-__device__ __forceinline__ void micro_dot(float (&out)[R][R], const float* a,
-                                          const float* b, int d, int ds,
-                                          int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < R; ++j) out[i][j] = 0.f;
-#pragma unroll 2
-  for (int c = 0; c < d; c += 4) {
-    float4 x[R], y[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-      x[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * ds + c);
-#pragma unroll
-    for (int j = 0; j < R; ++j)
-      y[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * ds + c);
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        out[i][j] = fmaf(x[i].x, y[j].x, out[i][j]);
-        out[i][j] = fmaf(x[i].y, y[j].y, out[i][j]);
-        out[i][j] = fmaf(x[i].z, y[j].z, out[i][j]);
-        out[i][j] = fmaf(x[i].w, y[j].w, out[i][j]);
-      }
+// n values [row0, row0 + n) of a vector, zero at or past `valid`.
+template <int NT>
+__device__ __forceinline__ void load_vec(float* dst, const float* src,
+                                         int row0, int n, int valid,
+                                         int tid) {
+  for (int i = tid; i < n; i += NT) {
+    const bool ok = row0 + i < valid;
+    cp4(dst + i, ok ? src + row0 + i : src, ok);
   }
 }
 
-__device__ __forceinline__ float lane(const float4& v, int k) {
-  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+// ------------------------------------------------------- 3xTF32 MMA
+// x = hi + lo with hi, lo TF32 values (low 13 bits zero): hi rounds x to
+// nearest on its 10-bit mantissa (add half a TF32 ulp, then mask), lo is
+// the exact rest x - hi truncated to TF32.  |x - hi - lo| <= 2^-21 |x|.
+// Integer and f32 adds and masks, all at full rate; `cvt.rna.tf32.f32`
+// would do the rounding on the conversion unit at a quarter of the rate,
+// twice per split.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
 }
 
-template <int BR>
-size_t dq_smem(int d) {
-  return sizeof(float) * (4 * (size_t)BR * (d + 4) + (size_t)BR * (BR + 4));
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  // not volatile: the compiler may interleave independent MMAs
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <int BR>
-size_t dkv_smem(int d) {
-  return sizeof(float) *
-         (4 * (size_t)BR * (d + 4) + 2 * (size_t)BR * (BR + 4) + 2 * BR);
+// c[j] += a b[j] for every tile j < N, both operands split: the three
+// products lo*hi', hi*lo', hi*hi' (lo*lo' is below f32 rounding) each in
+// its own pass over j, so the MMAs into one accumulator are N issues apart
+// and the tensor pipe never waits on the last one.  No tile is skipped
+// here: an MMA under a condition the compiler cannot prove warp-uniform
+// gets a WARPSYNC and a reconvergence branch of its own (one each, seen in
+// the SASS), which cost more than the MMAs of a dead tile.
+template <int N>
+__device__ __forceinline__ void mma3_row(float (&c)[N][4],
+                                         const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         const uint32_t (&bh)[N][2],
+                                         const uint32_t (&bl)[N][2]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma(c[j], al, bh[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma(c[j], ah, bl[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma(c[j], ah, bh[j]);
 }
 
-template <int BR, int NCHUNK>
-__global__ void __launch_bounds__(NT, 1)
+// Fragments, for lane (g, t) = (lane / 4, lane % 4).  A (16 x 8, rows by
+// depth): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4).  B (8 x 8,
+// depth by columns): b0 (t, g), b1 (t+4, g).  C (16 x 8): c0 (g, 2t),
+// c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1).
+
+// A from a row-major shared f32 tile, split here; `s` points at (row 0,
+// depth 0).  Only a warp's own rows, so each value is split once.
+__device__ __forceinline__ void frag_a(const float* s, int ds, int g, int t,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split(s[g * ds + t], hi[0], lo[0]);
+  split(s[(g + 8) * ds + t], hi[1], lo[1]);
+  split(s[g * ds + t + 4], hi[2], lo[2]);
+  split(s[(g + 8) * ds + t + 4], hi[3], lo[3]);
+}
+
+// An accumulator fragment (16 x 8) as an A fragment over its 8 columns,
+// depth permuted: depth t = column 2t, depth t+4 = column 2t+1.
+__device__ __forceinline__ void frag_c2a(const float (&c)[4],
+                                         uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  split(c[0], hi[0], lo[0]);
+  split(c[2], hi[1], lo[1]);
+  split(c[1], hi[2], lo[2]);
+  split(c[3], hi[3], lo[3]);
+}
+
+// B fragments of the tiles j < N from a tile split in shared memory (hi
+// part `h`, lo part `l`, same layout), either as the tile's rows read as
+// columns, B(k, n) = tile[j * 8 + n][k] (`rows`), or as its columns
+// col0 + j * 8.. in the permuted depth order of frag_c2a, B(k, n) =
+// tile[perm(k)][col0 + j * 8 + n] with depth t at row 2t and t+4 at row
+// 2t+1.  A column block at or past dp reads block dp - 8 instead (a
+// select, not a branch): its products land in accumulators that are never
+// stored.
+template <int N, bool ROWS>
+__device__ __forceinline__ void frags_b(const uint32_t* h, const uint32_t* l,
+                                        int ds, int g, int t,
+                                        uint32_t (&bh)[N][2],
+                                        uint32_t (&bl)[N][2], int col0 = 0,
+                                        int dp = 0) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int a0 = ROWS ? (j * 8 + g) * ds + t
+                        : 2 * t * ds + min(col0 + j * 8, dp - 8) + g;
+    const int a1 = ROWS ? a0 + 4 : a0 + ds;
+    bh[j][0] = h[a0];
+    bh[j][1] = h[a1];
+    bl[j][0] = l[a0];
+    bl[j][1] = l[a1];
+  }
+}
+
+// hi and lo of rows [0, R) x columns [0, dp) of a shared f32 tile, once
+// for the whole block.
+template <int R, int NT>
+__device__ __forceinline__ void split_tile(uint32_t* h, uint32_t* l,
+                                           const float* raw, int dp,
+                                           int ds) {
+  const int cpr = dp >> 2;
+  const int rstep = NT / cpr, cstep = NT - rstep * cpr;
+  int r = threadIdx.x / cpr, c = threadIdx.x - r * cpr;
+  while (r < R) {
+    const int at = r * ds + (c << 2);
+    const float4 x = *reinterpret_cast<const float4*>(raw + at);
+    uint4 xh, xl;
+    split(x.x, xh.x, xl.x);
+    split(x.y, xh.y, xl.y);
+    split(x.z, xh.z, xl.z);
+    split(x.w, xh.w, xl.w);
+    *reinterpret_cast<uint4*>(h + at) = xh;
+    *reinterpret_cast<uint4*>(l + at) = xl;
+    r += rstep;
+    c += cstep;
+    if (c >= cpr) {
+      c -= cpr;
+      ++r;
+    }
+  }
+}
+
+template <int DP_, int WR_, int BN_, int NS_>
+struct Cfg {
+  static constexpr int DP = DP_;          // largest padded d it takes
+  static constexpr int WR = WR_;          // warps along the block's rows
+  static constexpr int BM = 16 * WR_;     // rows a block owns
+  static constexpr int BN = BN_;          // rows of the streamed tile
+  static constexpr int NS = NS_;          // warps splitting output columns
+  static constexpr int NT = 32 * WR_ * NS_;
+  static constexpr int CW = DP_ / NS_;    // output columns per warp
+  static constexpr int NJ = CW / 8;       // their 8-column MMA tiles
+  static constexpr int NB = BN_ / 8;      // 8-column score tiles
+  // d == DP runs the constant-width kernel (MX_FLASH_BWD_FIXED_D's bit)
+  static constexpr bool FIXED =
+      (MX_FLASH_BWD_FIXED_D >> (DP_ == 32 ? 0 : DP_ == 64 ? 1
+                                : DP_ == 128 ? 2 : 3)) & 1;
+};
+
+__device__ __forceinline__ void store_pair(float* p, float x, float y,
+                                           int col, int d, bool vec2) {
+  if (vec2 && col + 1 < d) {
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+  } else {
+    if (col < d) p[0] = x;
+    if (col + 1 < d) p[1] = y;
+  }
+}
+
+// ------------------------------------------------------------ dq kernel
+// Shared memory: Q and G rows as loaded (BM x ds each; the warps split
+// their own A fragments), the next K and V tile as loaded (2 BN x ds),
+// and the current K and V tile split (hi, lo: 4 BN x ds; it first holds
+// the out rows, until delta is known).
+template <class C, bool FIXED>
+__global__ void __launch_bounds__(C::NT)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ g,
+                    const float* __restrict__ out,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta,
                     const int* __restrict__ kv_len, float* __restrict__ dq,
-                    int H, int Tq, int Tk, int d, int causal, float scale) {
-  constexpr int R = BR / 16;   // rows (and score columns) per thread
-  constexpr int PS = BR + 4;   // row stride of the dS tile
+                    float* __restrict__ delta, int H, int Tq, int Tk, int d,
+                    int causal, float scale, int vec) {
+  constexpr int BM = C::BM, BN = C::BN, NT = C::NT;
   extern __shared__ __align__(16) float smem[];
-  const int ds = d + 4;
-  float* sq = smem;            // BR x ds  query rows
-  float* sg = sq + BR * ds;    // BR x ds  their output gradients
-  float* sk = sg + BR * ds;    // BR x ds  key tile
-  float* sv = sk + BR * ds;    // BR x ds  value tile
-  float* sp = sv + BR * ds;    // BR x PS  dS
+  if (FIXED) d = C::DP;  // the width is a constant: strides fold
+  const int dp = (d + 7) & ~7;
+  const int ds = dp + 4;
+  float* sq = smem;
+  float* sg = sq + BM * ds;
+  float* raw = sg + BM * ds;
+  uint32_t* kh = reinterpret_cast<uint32_t*>(raw + 2 * BN * ds);
+  uint32_t* kl = kh + BN * ds;
+  uint32_t* vh = kl + BN * ds;
+  uint32_t* vl = vh + BN * ds;
+  float* so = reinterpret_cast<float*>(kh);
 
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * BR;
-  const int nrows = min(BR, Tq - q0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int rw = warp % C::WR, cw = warp / C::WR;
+  const int r0 = 16 * rw;
+  // one head's query tiles are neighbours in the grid, so they run
+  // together and read its K and V through L2
+  const int ntq = (Tq + BM - 1) / BM;
+  const int bhx = blockIdx.x / ntq;  // b * H + h
+  const int q0 = (blockIdx.x - bhx * ntq) * BM;
+  const int nrows = min(BM, Tq - q0);
 
   int kv_end = Tk;
-  if (kv_len != nullptr) kv_end = min(Tk, max(0, kv_len[bh / H]));
+  if (kv_len != nullptr) kv_end = min(Tk, max(0, kv_len[bhx / H]));
   if (causal) kv_end = min(kv_end, q0 + nrows);  // last row's diagonal + 1
+  const int ntiles = (kv_end + BN - 1) / BN;
 
-  const size_t qoff = (size_t)bh * Tq;
-  const size_t koff = (size_t)bh * Tk;
-  load_rows<BR>(sq, q + qoff * d, q0, Tq, d, ds);
-  load_rows<BR>(sg, g + qoff * d, q0, Tq, d, ds);
-  float row_lse[R], row_delta[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = q0 + ty + 16 * i;
-    row_lse[i] = r < Tq ? lse[qoff + r] : 0.f;
-    row_delta[i] = r < Tq ? delta[qoff + r] : 0.f;
+  const size_t qoff = (size_t)bhx * Tq, koff = (size_t)bhx * Tk;
+  const float* kb = k + koff * d;
+  const float* vb = v + koff * d;
+  load_tile<BM, NT>(sq, q + qoff * d, q0, Tq, d, dp, ds, vec);
+  load_tile<BM, NT>(sg, g + qoff * d, q0, Tq, d, dp, ds, vec);
+  load_tile<BM, NT>(so, out + qoff * d, q0, Tq, d, dp, ds, vec);
+  cp_commit();
+  if (ntiles > 0) {
+    load_tile<BN, NT>(raw, kb, 0, kv_end, d, dp, ds, vec);
+    load_tile<BN, NT>(raw + BN * ds, vb, 0, kv_end, d, dp, ds, vec);
+  }
+  cp_commit();
+  cp_wait<1>();
+  __syncthreads();
+
+  // delta of the warp's 16 rows: lane pair (2r, 2r+1) sums row r, each
+  // half of the columns, in a fixed order; then rows g and g+8 of the
+  // fragments are fetched from lanes 2g and 2g+16.
+  float dl0, dl1, ls0, ls1;
+  {
+    const int rr = lane >> 1, h = lane & 1;
+    const float* gr = sg + (r0 + rr) * ds + h * (dp >> 1);
+    const float* orow = so + (r0 + rr) * ds + h * (dp >> 1);
+    float s = 0.f;
+    for (int c = 0; c < (dp >> 1); c += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(gr + c);
+      const float4 y = *reinterpret_cast<const float4*>(orow + c);
+      s = fmaf(x.x, y.x, s);
+      s = fmaf(x.y, y.y, s);
+      s = fmaf(x.z, y.z, s);
+      s = fmaf(x.w, y.w, s);
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    const int row = q0 + r0 + rr;
+    if (cw == 0 && h == 0 && row < Tq) delta[qoff + row] = s;
+    dl0 = __shfl_sync(0xffffffffu, s, 2 * gq);
+    dl1 = __shfl_sync(0xffffffffu, s, 2 * gq + 16);
+    const int ra = q0 + r0 + gq;
+    ls0 = ra < Tq ? lse[qoff + ra] : 0.f;
+    ls1 = ra + 8 < Tq ? lse[qoff + ra + 8] : 0.f;
   }
 
-  float acc[R][NCHUNK][4];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int n = 0; n < NCHUNK; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][n][c] = 0.f;
+  const int qa = q0 + r0 + gq;  // this thread's rows: qa and qa + 8
+  // keys any row of this warp may attend
+  const int w_end = causal ? min(kv_end, q0 + r0 + 16) : kv_end;
+  const bool warp_live = q0 + r0 < Tq;
 
-  for (int k0 = 0; k0 < kv_end; k0 += BR) {
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<BR>(sk, k + koff * d, k0, kv_end, d, ds);
-    load_rows<BR>(sv, v + koff * d, k0, kv_end, d, ds);
+  float acc[C::NJ][4];
+#pragma unroll
+  for (int n = 0; n < C::NJ; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const int coff = cw * C::CW;  // this warp's first output column
+
+  for (int it = 0; it < ntiles; ++it) {
+    cp_wait<0>();
+    __syncthreads();  // tile `it` landed; the split tile's readers are done
+    split_tile<BN, NT>(kh, kl, raw, dp, ds);
+    split_tile<BN, NT>(vh, vl, raw + BN * ds, dp, ds);
     __syncthreads();
+    if (it + 1 < ntiles) {  // the next tile streams in while this one runs
+      load_tile<BN, NT>(raw, kb, (it + 1) * BN, kv_end, d, dp, ds, vec);
+      load_tile<BN, NT>(raw + BN * ds, vb, (it + 1) * BN, kv_end, d, dp, ds,
+                        vec);
+    }
+    cp_commit();
+    const int k0 = it * BN;
+    const int live = w_end - k0;  // live keys of this tile for the warp
+    if (live <= 0 || !warp_live) continue;
 
-    float s[R][R], dp[R][R];
-    micro_dot<R>(s, sq, sk, d, ds, ty, tx);
-    micro_dot<R>(dp, sg, sv, d, ds, ty, tx);
+    float s[C::NB][4], dpv[C::NB][4];
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int qpos = q0 + ty + 16 * i;
+    for (int j = 0; j < C::NB; ++j)
 #pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const bool live =
+      for (int e = 0; e < 4; ++e) s[j][e] = dpv[j][e] = 0.f;
+    for (int kk = 0; kk < dp; kk += 8) {
+      uint32_t ah[4], al[4], bh[C::NB][2], bl[C::NB][2];
+      frag_a(sq + r0 * ds + kk, ds, gq, tq, ah, al);
+      frags_b<C::NB, true>(kh + kk, kl + kk, ds, gq, tq, bh, bl);
+      mma3_row<C::NB>(s, ah, al, bh, bl);
+      frag_a(sg + r0 * ds + kk, ds, gq, tq, ah, al);
+      frags_b<C::NB, true>(vh + kk, vl + kk, ds, gq, tq, bh, bl);
+      mma3_row<C::NB>(dpv, ah, al, bh, bl);
+    }
+#pragma unroll
+    for (int j = 0; j < C::NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qpos = qa + (e >> 1) * 8;
+        const int kpos = k0 + j * 8 + 2 * tq + (e & 1);
+        const bool ok =
             kpos < kv_end && qpos < Tq && (!causal || qpos >= kpos);
-        const float p = live ? expf(s[i][j] * scale - row_lse[i]) : 0.f;
-        sp[(ty + 16 * i) * PS + tx + 16 * j] =
-            live ? p * (dp[i][j] - row_delta[i]) : 0.f;
+        const float p =
+            ok ? expf(s[j][e] * scale - ((e >> 1) ? ls1 : ls0)) : 0.f;
+        s[j][e] = ok ? p * (dpv[j][e] - ((e >> 1) ? dl1 : dl0)) : 0.f;
       }
-    }
-    __syncthreads();
-
-    // acc += dS K over this tile's live positions (a multiple of 4; rows
-    // past kv_end hold dS = 0 and zero keys)
-    const int jend = min(BR, ((kv_end - k0) + 3) & ~3);
-    for (int j4 = 0; j4 < jend; j4 += 4) {
-      float4 pa[R];
+    // acc += dS K over the tile's keys, 8 at a time (dS is 0 at every
+    // masked key, and masked rows of K are zeros)
 #pragma unroll
-      for (int i = 0; i < R; ++i)
-        pa[i] = *reinterpret_cast<const float4*>(sp + (ty + 16 * i) * PS + j4);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int n = 0; n < NCHUNK; ++n) {
-          const int c = 4 * tx + 64 * n;
-          if (c < d) {
-            const float4 x =
-                *reinterpret_cast<const float4*>(sk + (j4 + jj) * ds + c);
-#pragma unroll
-            for (int i = 0; i < R; ++i) {
-              const float w = lane(pa[i], jj);
-              acc[i][n][0] = fmaf(w, x.x, acc[i][n][0]);
-              acc[i][n][1] = fmaf(w, x.y, acc[i][n][1]);
-              acc[i][n][2] = fmaf(w, x.z, acc[i][n][2]);
-              acc[i][n][3] = fmaf(w, x.w, acc[i][n][3]);
-            }
-          }
-        }
-      }
+    for (int j = 0; j < C::NB; ++j) {
+      uint32_t ah[4], al[4], bh[C::NJ][2], bl[C::NJ][2];
+      frag_c2a(s[j], ah, al);
+      frags_b<C::NJ, false>(kh + j * 8 * ds, kl + j * 8 * ds, ds, gq, tq, bh,
+                            bl, coff, dp);
+      mma3_row<C::NJ>(acc, ah, al, bh, bl);
     }
   }
+  cp_wait<0>();
 
-  float* out = dq + qoff * d;
+  const bool vec2 = (d % 2 == 0) && (reinterpret_cast<uintptr_t>(dq) % 8 == 0);
+  float* ob = dq + qoff * d;
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= nrows) continue;
-#pragma unroll
-    for (int n = 0; n < NCHUNK; ++n) {
-      const int c = 4 * tx + 64 * n;
-      if (c < d)
-        *reinterpret_cast<float4*>(out + (size_t)(q0 + r) * d + c) =
-            make_float4(acc[i][n][0] * scale, acc[i][n][1] * scale,
-                        acc[i][n][2] * scale, acc[i][n][3] * scale);
-    }
+  for (int n = 0; n < C::NJ; ++n) {
+    const int col = coff + n * 8 + 2 * tq;
+    if (col >= d) continue;
+    if (qa < Tq)
+      store_pair(ob + (size_t)qa * d + col, acc[n][0] * scale,
+                 acc[n][1] * scale, col, d, vec2);
+    if (qa + 8 < Tq)
+      store_pair(ob + (size_t)(qa + 8) * d + col, acc[n][2] * scale,
+                 acc[n][3] * scale, col, d, vec2);
   }
 }
 
-template <int BR, int NCHUNK>
-__global__ void __launch_bounds__(NT, 1)
+// --------------------------------------------------------- dk/dv kernel
+// Shared memory: K and V rows as loaded (BM x ds each; A fragments), the
+// next Q and G tile with its lse and delta as loaded (2 BN x ds + 2 BN),
+// and the current one split (hi, lo: 4 BN x ds) with its lse and delta.
+template <class C, bool FIXED>
+__global__ void __launch_bounds__(C::NT)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ g,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
                      const int* __restrict__ kv_len, float* __restrict__ dk,
                      float* __restrict__ dv, int H, int Tq, int Tk, int d,
-                     int causal, float scale) {
-  constexpr int R = BR / 16;   // key rows (and query columns) per thread
-  constexpr int PS = BR + 4;   // row stride of the P^T and dS^T tiles
+                     int causal, float scale, int vec) {
+  constexpr int BM = C::BM, BN = C::BN, NT = C::NT;
   extern __shared__ __align__(16) float smem[];
-  const int ds = d + 4;
-  float* sk = smem;            // BR x ds  key tile
-  float* sv = sk + BR * ds;    // BR x ds  value tile
-  float* sq = sv + BR * ds;    // BR x ds  query rows
-  float* sg = sq + BR * ds;    // BR x ds  their output gradients
-  float* spt = sg + BR * ds;   // BR x PS  P^T   (key row, query column)
-  float* sdt = spt + BR * PS;  // BR x PS  dS^T
-  float* sl = sdt + BR * PS;   // BR       the query rows' lse
-  float* sd = sl + BR;         // BR       and delta
+  if (FIXED) d = C::DP;  // the width is a constant: strides fold
+  const int dp = (d + 7) & ~7;
+  const int ds = dp + 4;
+  float* sk = smem;
+  float* sv = sk + BM * ds;
+  float* raw = sv + BM * ds;         // Q, G (BN x ds each), lse, delta
+  uint32_t* qh = reinterpret_cast<uint32_t*>(raw + 2 * BN * ds + 2 * BN);
+  uint32_t* ql = qh + BN * ds;
+  uint32_t* gh = ql + BN * ds;
+  uint32_t* gl = gh + BN * ds;
+  float* sl = reinterpret_cast<float*>(gl + BN * ds);  // lse, delta
+  float* sd = sl + BN;
 
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * BR;
-  const int nkeys = min(BR, Tk - k0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int rw = warp % C::WR, cw = warp / C::WR;
+  const int r0 = 16 * rw;
+  // one head's key tiles are neighbours in the grid (its Q and G through
+  // L2)
+  const int ntk = (Tk + BM - 1) / BM;
+  const int bhx = blockIdx.x / ntk;  // b * H + h
+  const int k0 = (blockIdx.x - bhx * ntk) * BM;
+  const int nkeys = min(BM, Tk - k0);
 
   int kv_end = Tk;
-  if (kv_len != nullptr) kv_end = min(Tk, max(0, kv_len[bh / H]));
+  if (kv_len != nullptr) kv_end = min(Tk, max(0, kv_len[bhx / H]));
+  const size_t qoff = (size_t)bhx * Tq, koff = (size_t)bhx * Tk;
+  float* dkb = dk + koff * d;
+  float* dvb = dv + koff * d;
 
-  float acck[R][NCHUNK][4], accv[R][NCHUNK][4];
-#pragma unroll
-  for (int a = 0; a < R; ++a)
-#pragma unroll
-    for (int n = 0; n < NCHUNK; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acck[a][n][c] = accv[a][n][c] = 0.f;
+  if (k0 >= kv_end) {  // no live key: exact zeros, nothing loaded
+    for (int i = threadIdx.x; i < nkeys * d; i += NT) {
+      dkb[(size_t)k0 * d + i] = 0.f;
+      dvb[(size_t)k0 * d + i] = 0.f;
+    }
+    return;
+  }
 
-  const size_t qoff = (size_t)bh * Tq;
-  const size_t koff = (size_t)bh * Tk;
-  if (k0 < kv_end) {
-    load_rows<BR>(sk, k + koff * d, k0, kv_end, d, ds);
-    load_rows<BR>(sv, v + koff * d, k0, kv_end, d, ds);
-    // with `causal` no query before the tile's first key attends it
-    for (int i0 = causal ? k0 : 0; i0 < Tq; i0 += BR) {
-      __syncthreads();  // the previous tile's readers are done
-      load_rows<BR>(sq, q + qoff * d, i0, Tq, d, ds);
-      load_rows<BR>(sg, g + qoff * d, i0, Tq, d, ds);
-      if (threadIdx.x < BR) {
-        const int r = i0 + threadIdx.x;
-        sl[threadIdx.x] = r < Tq ? lse[qoff + r] : 0.f;
-        sd[threadIdx.x] = r < Tq ? delta[qoff + r] : 0.f;
+  // with `causal` no query before the tile's first key attends it
+  const int i_begin = causal ? (k0 / BN) * BN : 0;
+  const int ntiles = Tq > i_begin ? (Tq - i_begin + BN - 1) / BN : 0;
+  const float* qb = q + qoff * d;
+  const float* gb = g + qoff * d;
+  const float* lb = lse + qoff;
+  const float* db = delta + qoff;
+  float* rl = raw + 2 * BN * ds;     // lse and delta as loaded
+
+  load_tile<BM, NT>(sk, k + koff * d, k0, kv_end, d, dp, ds, vec);
+  load_tile<BM, NT>(sv, v + koff * d, k0, kv_end, d, dp, ds, vec);
+  if (ntiles > 0) {
+    load_tile<BN, NT>(raw, qb, i_begin, Tq, d, dp, ds, vec);
+    load_tile<BN, NT>(raw + BN * ds, gb, i_begin, Tq, d, dp, ds, vec);
+    load_vec<NT>(rl, lb, i_begin, BN, Tq, threadIdx.x);
+    load_vec<NT>(rl + BN, db, i_begin, BN, Tq, (threadIdx.x + BN) % NT);
+  }
+  cp_commit();
+
+  const int ka = k0 + r0 + gq;  // this thread's key rows: ka and ka + 8
+  const bool warp_live = k0 + r0 < kv_end;
+  float acck[C::NJ][4], accv[C::NJ][4];
+#pragma unroll
+  for (int n = 0; n < C::NJ; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acck[n][e] = accv[n][e] = 0.f;
+  const int coff = cw * C::CW;  // this warp's first output column
+
+  for (int it = 0; it < ntiles; ++it) {
+    cp_wait<0>();
+    __syncthreads();  // tile `it` landed; the split tile's readers are done
+    split_tile<BN, NT>(qh, ql, raw, dp, ds);
+    split_tile<BN, NT>(gh, gl, raw + BN * ds, dp, ds);
+    if (threadIdx.x < 2 * BN) sl[threadIdx.x] = rl[threadIdx.x];
+    __syncthreads();
+    const int i0 = i_begin + it * BN;
+    if (it + 1 < ntiles) {  // the next tile streams in while this one runs
+      const int i1 = i0 + BN;
+      load_tile<BN, NT>(raw, qb, i1, Tq, d, dp, ds, vec);
+      load_tile<BN, NT>(raw + BN * ds, gb, i1, Tq, d, dp, ds, vec);
+      load_vec<NT>(rl, lb, i1, BN, Tq, threadIdx.x);
+      load_vec<NT>(rl + BN, db, i1, BN, Tq, (threadIdx.x + BN) % NT);
+    }
+    cp_commit();
+    // a warp whose keys are all dead, or that no query of this tile may
+    // attend (causal), has nothing to add
+    if (!warp_live || (causal && i0 + BN <= k0 + r0)) continue;
+
+    float s[C::NB][4], dpv[C::NB][4];
+#pragma unroll
+    for (int j = 0; j < C::NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dpv[j][e] = 0.f;
+    for (int kk = 0; kk < dp; kk += 8) {
+      uint32_t ah[4], al[4], bh[C::NB][2], bl[C::NB][2];
+      frag_a(sk + r0 * ds + kk, ds, gq, tq, ah, al);
+      frags_b<C::NB, true>(qh + kk, ql + kk, ds, gq, tq, bh, bl);
+      mma3_row<C::NB>(s, ah, al, bh, bl);
+      frag_a(sv + r0 * ds + kk, ds, gq, tq, ah, al);
+      frags_b<C::NB, true>(gh + kk, gl + kk, ds, gq, tq, bh, bl);
+      mma3_row<C::NB>(dpv, ah, al, bh, bl);
+    }
+#pragma unroll
+    for (int j = 0; j < C::NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = ka + (e >> 1) * 8;
+        const int col = j * 8 + 2 * tq + (e & 1);
+        const int qpos = i0 + col;
+        const bool ok =
+            kpos < kv_end && qpos < Tq && (!causal || qpos >= kpos);
+        const float p = ok ? expf(s[j][e] * scale - sl[col]) : 0.f;
+        dpv[j][e] = ok ? p * (dpv[j][e] - sd[col]) : 0.f;
+        s[j][e] = p;
       }
-      __syncthreads();
-
-      float s[R][R], dp[R][R];
-      micro_dot<R>(s, sk, sq, d, ds, ty, tx);   // s[a][b] = k . q
-      micro_dot<R>(dp, sv, sg, d, ds, ty, tx);  // dp[a][b] = v . g
+    // dV += P^T G and dK += dS^T Q over the tile's queries, 8 at a time
+    // (P and dS are 0 at every masked query; rows past Tq are zeros)
 #pragma unroll
-      for (int a = 0; a < R; ++a) {
-        const int kpos = k0 + ty + 16 * a;
-#pragma unroll
-        for (int b = 0; b < R; ++b) {
-          const int col = tx + 16 * b;
-          const int qpos = i0 + col;
-          const bool live =
-              kpos < kv_end && qpos < Tq && (!causal || qpos >= kpos);
-          const float p = live ? expf(s[a][b] * scale - sl[col]) : 0.f;
-          spt[(ty + 16 * a) * PS + col] = p;
-          sdt[(ty + 16 * a) * PS + col] = live ? p * (dp[a][b] - sd[col])
-                                               : 0.f;
-        }
-      }
-      __syncthreads();
-
-      // dV += P^T G and dK += dS^T Q over the tile's rows before Tq (a
-      // multiple of 4; rows past Tq hold p = dS = 0 and zero q and g)
-      const int iend = min(BR, ((Tq - i0) + 3) & ~3);
-      for (int i4 = 0; i4 < iend; i4 += 4) {
-        float4 pa[R], da[R];
-#pragma unroll
-        for (int a = 0; a < R; ++a) {
-          pa[a] = *reinterpret_cast<const float4*>(spt + (ty + 16 * a) * PS +
-                                                   i4);
-          da[a] = *reinterpret_cast<const float4*>(sdt + (ty + 16 * a) * PS +
-                                                   i4);
-        }
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii) {
-#pragma unroll
-          for (int n = 0; n < NCHUNK; ++n) {
-            const int c = 4 * tx + 64 * n;
-            if (c < d) {
-              const float4 xg =
-                  *reinterpret_cast<const float4*>(sg + (i4 + ii) * ds + c);
-              const float4 xq =
-                  *reinterpret_cast<const float4*>(sq + (i4 + ii) * ds + c);
-#pragma unroll
-              for (int a = 0; a < R; ++a) {
-                const float wp = lane(pa[a], ii);
-                const float wd = lane(da[a], ii);
-                accv[a][n][0] = fmaf(wp, xg.x, accv[a][n][0]);
-                accv[a][n][1] = fmaf(wp, xg.y, accv[a][n][1]);
-                accv[a][n][2] = fmaf(wp, xg.z, accv[a][n][2]);
-                accv[a][n][3] = fmaf(wp, xg.w, accv[a][n][3]);
-                acck[a][n][0] = fmaf(wd, xq.x, acck[a][n][0]);
-                acck[a][n][1] = fmaf(wd, xq.y, acck[a][n][1]);
-                acck[a][n][2] = fmaf(wd, xq.z, acck[a][n][2]);
-                acck[a][n][3] = fmaf(wd, xq.w, acck[a][n][3]);
-              }
-            }
-          }
-        }
-      }
+    for (int j = 0; j < C::NB; ++j) {
+      uint32_t ah[4], al[4], bh[C::NJ][2], bl[C::NJ][2];
+      const int at = j * 8 * ds;
+      frag_c2a(s[j], ah, al);
+      frags_b<C::NJ, false>(gh + at, gl + at, ds, gq, tq, bh, bl, coff, dp);
+      mma3_row<C::NJ>(accv, ah, al, bh, bl);
+      frag_c2a(dpv[j], ah, al);
+      frags_b<C::NJ, false>(qh + at, ql + at, ds, gq, tq, bh, bl, coff, dp);
+      mma3_row<C::NJ>(acck, ah, al, bh, bl);
     }
   }
+  cp_wait<0>();
 
   // rows at or past kv_end get exact zeros, whatever was accumulated
+  const bool vec2 = (d % 2 == 0) &&
+                    (reinterpret_cast<uintptr_t>(dk) % 8 == 0) &&
+                    (reinterpret_cast<uintptr_t>(dv) % 8 == 0);
 #pragma unroll
-  for (int a = 0; a < R; ++a) {
-    const int r = ty + 16 * a;
-    if (r >= nkeys) continue;
-    const bool live = k0 + r < kv_end;
-    const size_t row = (koff + k0 + r) * d;
+  for (int n = 0; n < C::NJ; ++n) {
+    const int col = coff + n * 8 + 2 * tq;
+    if (col >= d) continue;
 #pragma unroll
-    for (int n = 0; n < NCHUNK; ++n) {
-      const int c = 4 * tx + 64 * n;
-      if (c < d) {
-        float4 xk = make_float4(0.f, 0.f, 0.f, 0.f), xv = xk;
-        if (live) {
-          xk = make_float4(acck[a][n][0] * scale, acck[a][n][1] * scale,
-                           acck[a][n][2] * scale, acck[a][n][3] * scale);
-          xv = make_float4(accv[a][n][0], accv[a][n][1], accv[a][n][2],
-                           accv[a][n][3]);
-        }
-        *reinterpret_cast<float4*>(dk + row + c) = xk;
-        *reinterpret_cast<float4*>(dv + row + c) = xv;
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int row = ka + 8 * h;
+      if (row >= k0 + nkeys) continue;
+      const bool ok = row < kv_end;
+      const size_t at = (size_t)row * d + col;
+      store_pair(dkb + at, ok ? acck[n][2 * h] * scale : 0.f,
+                 ok ? acck[n][2 * h + 1] * scale : 0.f, col, d, vec2);
+      store_pair(dvb + at, ok ? accv[n][2 * h] : 0.f,
+                 ok ? accv[n][2 * h + 1] : 0.f, col, d, vec2);
     }
   }
 }
 
+// ------------------------------------------------------------ launches
+// Measured at d = 64 (B=32, H=12, T=128 and B=16, T=512; device time of
+// five shapes each): dq in 64-row blocks streaming 32-row K/V tiles (87 KB,
+// two blocks an SM), dk/dv in 128-key blocks of 8 warps streaming 32-row
+// Q/G tiles (122 KB, one block).
+using DQ32 = Cfg<32, 4, 32, 1>;
+using DQ64 = Cfg<64, 4, 32, 1>;
+using DQ128 = Cfg<128, 4, 16, 2>;
+using DQ256 = Cfg<256, 2, 16, 2>;
+using DKV32 = Cfg<32, 8, 32, 1>;
+using DKV64 = Cfg<64, 8, 32, 1>;
+using DKV128 = Cfg<128, 4, 32, 2>;
+using DKV256 = Cfg<256, 2, 16, 4>;
+
+// Raise a kernel's dynamic shared-memory limit to `smem` on the current
+// device once: the attribute call costs host time on every launch
+// otherwise.  `done` is per kernel (one static per instantiation of the
+// caller) and per device.
 template <typename K>
-int set_smem(K kern, size_t smem) {
+int set_smem(K kern, size_t smem, int (&done)[64]) {
   if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 64 && done[dev] >= (int)smem) return 0;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+
+  if (e == cudaSuccess && dev < 64) done[dev] = (int)smem;
+  return (int)e;
 }
 
-template <int BR, int NCHUNK>
+bool aligned16(const void* p) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <class C>
 int launch_dq(const float* q, const float* k, const float* v, const float* g,
-              const float* lse, const float* delta, const int* kv_len,
-              float* dq, int B, int H, int Tq, int Tk, int d, int causal,
-              float scale, cudaStream_t stream) {
-  const size_t smem = dq_smem<BR>(d);
-  auto kern = flash_bwd_dq_kernel<BR, NCHUNK>;
-  const int e = set_smem(kern, smem);
+              const float* out, const float* lse, const int* kv_len,
+              float* dq, float* delta, int B, int H, int Tq, int Tk, int d,
+              int causal, float scale, int vec, cudaStream_t stream) {
+  // the out rows borrow the split tile (4 BN rows) until delta is known
+  static_assert(4 * C::BN >= C::BM, "the split tile must hold the out rows");
+  const int ds = ((d + 7) & ~7) + 4;
+  const size_t smem = sizeof(float) * (2 * (size_t)C::BM * ds +
+                                       6 * (size_t)C::BN * ds);
+  auto kern = flash_bwd_dq_kernel<C, false>;
+  if constexpr (C::FIXED)
+    if (d == C::DP) kern = flash_bwd_dq_kernel<C, true>;
+  static int done[2][64] = {};  // per kernel: any width, constant width
+  const int e = set_smem(kern, smem, done[C::FIXED && d == C::DP]);
   if (e != 0) return e;
-  const dim3 grid(B * H, (Tq + BR - 1) / BR);
-  kern<<<grid, NT, smem, stream>>>(q, k, v, g, lse, delta, kv_len, dq, H, Tq,
-                                   Tk, d, causal, scale);
+  const unsigned grid = (unsigned)(B * H) * ((Tq + C::BM - 1) / C::BM);
+  kern<<<grid, C::NT, smem, stream>>>(q, k, v, g, out, lse, kv_len, dq, delta,
+                                      H, Tq, Tk, d, causal, scale, vec);
   return (int)cudaGetLastError();
 }
 
-template <int BR, int NCHUNK>
+template <class C>
 int launch_dkv(const float* q, const float* k, const float* v, const float* g,
                const float* lse, const float* delta, const int* kv_len,
                float* dk, float* dv, int B, int H, int Tq, int Tk, int d,
-               int causal, float scale, cudaStream_t stream) {
-  const size_t smem = dkv_smem<BR>(d);
-  auto kern = flash_bwd_dkv_kernel<BR, NCHUNK>;
-  const int e = set_smem(kern, smem);
+               int causal, float scale, int vec, cudaStream_t stream) {
+  static_assert(C::NT >= 2 * C::BN, "one copy per lse and delta value");
+  const int ds = ((d + 7) & ~7) + 4;
+  const size_t smem = sizeof(float) * (2 * (size_t)C::BM * ds +
+                                       6 * (size_t)C::BN * ds + 4 * C::BN);
+  auto kern = flash_bwd_dkv_kernel<C, false>;
+  if constexpr (C::FIXED)
+    if (d == C::DP) kern = flash_bwd_dkv_kernel<C, true>;
+  static int done[2][64] = {};  // per kernel: any width, constant width
+  const int e = set_smem(kern, smem, done[C::FIXED && d == C::DP]);
   if (e != 0) return e;
-  const dim3 grid(B * H, (Tk + BR - 1) / BR);
-  kern<<<grid, NT, smem, stream>>>(q, k, v, g, lse, delta, kv_len, dk, dv, H,
-                                   Tq, Tk, d, causal, scale);
+  const unsigned grid = (unsigned)(B * H) * ((Tk + C::BM - 1) / C::BM);
+  kern<<<grid, C::NT, smem, stream>>>(q, k, v, g, lse, delta, kv_len, dk, dv,
+                                      H, Tq, Tk, d, causal, scale, vec);
   return (int)cudaGetLastError();
 }
 
-bool bad_shape(int d, int Tk) {
-  return d < 8 || d > DMAX || d % 8 != 0 || Tk < 1;
-}
+bool bad_shape(int d, int Tk) { return d < 1 || d > DMAX || Tk < 1; }
 
 }  // namespace
 
 extern "C" {
 
-// q, g (B,H,Tq,d); k, v (B,H,Tk,d); lse, delta (B,H,Tq); dq (B,H,Tq,d):
-// f32, contiguous, 16-byte aligned.  kv_len (B,) int32 or null (every row
-// attends all Tk keys).  causal: 0 or 1.  8 <= d <= 256, d % 8 == 0.
-// Returns cudaGetLastError() after the launch (0 on success).
+// q, g, out (B,H,Tq,d); k, v (B,H,Tk,d); lse (B,H,Tq): f32, contiguous.
+// kv_len (B,) int32 or null (every row attends all Tk keys).  causal: 0
+// or 1.  1 <= d <= 256, any Tq, Tk >= 1.  Writes dq (B,H,Tq,d) and each
+// row's delta = sum(g * out) to delta (B,H,Tq).  Returns
+// cudaGetLastError() after the launch (0 on success).
 int mx_flash_attention_bwd_dq_f32(const void* q, const void* k, const void* v,
-                                  const void* g, const void* lse,
-                                  const void* delta, const void* kv_len,
-                                  void* dq, int B, int H, int Tq, int Tk,
-                                  int d, int causal, float scale,
+                                  const void* g, const void* out,
+                                  const void* lse, const void* kv_len,
+                                  void* dq, void* delta, int B, int H, int Tq,
+                                  int Tk, int d, int causal, float scale,
                                   void* stream) {
   if (B * H == 0 || Tq == 0) return 0;
   if (bad_shape(d, Tk)) return (int)cudaErrorInvalidValue;
@@ -441,29 +758,30 @@ int mx_flash_attention_bwd_dq_f32(const void* q, const void* k, const void* v,
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);
   const auto* gf = static_cast<const float*>(g);
+  const auto* of = static_cast<const float*>(out);
   const auto* lf = static_cast<const float*>(lse);
-  const auto* df = static_cast<const float*>(delta);
   const auto* lens = static_cast<const int*>(kv_len);
-  auto* out = static_cast<float*>(dq);
+  auto* dqf = static_cast<float*>(dq);
+  auto* df = static_cast<float*>(delta);
   auto st = static_cast<cudaStream_t>(stream);
-  switch ((d + 63) / 64) {
-    case 1:
-      return launch_dq<64, 1>(qf, kf, vf, gf, lf, df, lens, out, B, H, Tq, Tk,
-                              d, causal, scale, st);
-    case 2:
-      return launch_dq<64, 2>(qf, kf, vf, gf, lf, df, lens, out, B, H, Tq, Tk,
-                              d, causal, scale, st);
-    case 3:
-      return launch_dq<32, 3>(qf, kf, vf, gf, lf, df, lens, out, B, H, Tq, Tk,
-                              d, causal, scale, st);
-    default:
-      return launch_dq<32, 4>(qf, kf, vf, gf, lf, df, lens, out, B, H, Tq, Tk,
-                              d, causal, scale, st);
-  }
+  const int vec = d % 4 == 0 && aligned16(q) && aligned16(k) &&
+                  aligned16(v) && aligned16(g) && aligned16(out);
+  if (d <= 32)
+    return launch_dq<DQ32>(qf, kf, vf, gf, of, lf, lens, dqf, df, B, H, Tq,
+                           Tk, d, causal, scale, vec, st);
+  if (d <= 64)
+    return launch_dq<DQ64>(qf, kf, vf, gf, of, lf, lens, dqf, df, B, H, Tq,
+                           Tk, d, causal, scale, vec, st);
+  if (d <= 128)
+    return launch_dq<DQ128>(qf, kf, vf, gf, of, lf, lens, dqf, df, B, H, Tq,
+                            Tk, d, causal, scale, vec, st);
+  return launch_dq<DQ256>(qf, kf, vf, gf, of, lf, lens, dqf, df, B, H, Tq,
+                          Tk, d, causal, scale, vec, st);
 }
 
-// As above; writes dk and dv (B,H,Tk,d), zeros at key rows >= the row's
-// length.
+// q, g (B,H,Tq,d); k, v (B,H,Tk,d); lse and the dq kernel's delta
+// (B,H,Tq): as above.  Writes dk and dv (B,H,Tk,d), exact zeros at key
+// rows >= the row's length.
 int mx_flash_attention_bwd_dkv_f32(const void* q, const void* k,
                                    const void* v, const void* g,
                                    const void* lse, const void* delta,
@@ -482,20 +800,19 @@ int mx_flash_attention_bwd_dkv_f32(const void* q, const void* k,
   auto* dkf = static_cast<float*>(dk);
   auto* dvf = static_cast<float*>(dv);
   auto st = static_cast<cudaStream_t>(stream);
-  switch ((d + 63) / 64) {
-    case 1:
-      return launch_dkv<64, 1>(qf, kf, vf, gf, lf, df, lens, dkf, dvf, B, H,
-                               Tq, Tk, d, causal, scale, st);
-    case 2:
-      return launch_dkv<64, 2>(qf, kf, vf, gf, lf, df, lens, dkf, dvf, B, H,
-                               Tq, Tk, d, causal, scale, st);
-    case 3:
-      return launch_dkv<32, 3>(qf, kf, vf, gf, lf, df, lens, dkf, dvf, B, H,
-                               Tq, Tk, d, causal, scale, st);
-    default:
-      return launch_dkv<32, 4>(qf, kf, vf, gf, lf, df, lens, dkf, dvf, B, H,
-                               Tq, Tk, d, causal, scale, st);
-  }
+  const int vec = d % 4 == 0 && aligned16(q) && aligned16(k) &&
+                  aligned16(v) && aligned16(g);
+  if (d <= 32)
+    return launch_dkv<DKV32>(qf, kf, vf, gf, lf, df, lens, dkf, dvf, B, H, Tq,
+                             Tk, d, causal, scale, vec, st);
+  if (d <= 64)
+    return launch_dkv<DKV64>(qf, kf, vf, gf, lf, df, lens, dkf, dvf, B, H, Tq,
+                             Tk, d, causal, scale, vec, st);
+  if (d <= 128)
+    return launch_dkv<DKV128>(qf, kf, vf, gf, lf, df, lens, dkf, dvf, B, H,
+                              Tq, Tk, d, causal, scale, vec, st);
+  return launch_dkv<DKV256>(qf, kf, vf, gf, lf, df, lens, dkf, dvf, B, H, Tq,
+                            Tk, d, causal, scale, vec, st);
 }
 
 }  // extern "C"

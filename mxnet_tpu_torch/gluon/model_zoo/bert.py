@@ -54,8 +54,10 @@ class MultiHeadAttentionCell(HybridBlock):
             raise ValueError(f"units {units} not divisible by heads {num_heads}")
         self._units = units
         self._num_heads = num_heads
-        self.qkv = Dense(3 * units, units, device=device, dtype=dtype)
-        self.proj = Dense(units, units, device=device, dtype=dtype)
+        self.qkv = Dense(3 * units, flatten=False, in_units=units,
+                         device=device, dtype=dtype)
+        self.proj = Dense(units, flatten=False, in_units=units, device=device,
+                          dtype=dtype)
         self.dropout = Dropout(dropout) if dropout else None
 
     def forward(self, x, mask=None, valid_length=None):
@@ -75,8 +77,10 @@ class PositionwiseFFN(HybridBlock):
     def __init__(self, units: int, hidden_size: int, dropout: float = 0.0,
                  device=None, dtype=torch.float32):
         super().__init__()
-        self.ffn1 = Dense(hidden_size, units, device=device, dtype=dtype)
-        self.ffn2 = Dense(units, hidden_size, device=device, dtype=dtype)
+        self.ffn1 = Dense(hidden_size, flatten=False, in_units=units,
+                          device=device, dtype=dtype)
+        self.ffn2 = Dense(units, flatten=False, in_units=hidden_size,
+                          device=device, dtype=dtype)
         self.dropout = Dropout(dropout) if dropout else None
 
     def forward(self, x):
@@ -170,7 +174,8 @@ class BERTModel(HybridBlock):
                                    hidden_size=hidden_size,
                                    num_heads=num_heads, dropout=dropout,
                                    layer_norm_eps=layer_norm_eps, **kw)
-        self.pooler = Dense(units, units, activation="tanh", **kw)
+        self.pooler = Dense(units, activation="tanh", flatten=False,
+                            in_units=units, **kw)
 
     @property
     def device(self) -> torch.device:
@@ -218,10 +223,11 @@ class BERTForPretrain(HybridBlock):
         units = bert._units
         kw = dict(device=bert.device, dtype=bert.position_weight.dtype)
         # exact erf GELU, as in the JAX package (BERT semantics)
-        self.mlm_transform = Dense(units, units, activation="erf_gelu", **kw)
+        self.mlm_transform = Dense(units, activation="erf_gelu",
+                                   flatten=False, in_units=units, **kw)
         self.mlm_layer_norm = LayerNorm(units, 1e-12, **kw)
         self.mlm_bias = nn.Parameter(torch.zeros(self._vocab_size, **kw))
-        self.nsp = Dense(2, units, **kw)
+        self.nsp = Dense(2, flatten=False, in_units=units, **kw)
 
     @property
     def device(self) -> torch.device:

@@ -62,8 +62,10 @@ class CausalSelfAttentionCell(HybridBlock):
         self._units = units
         self._num_heads = num_heads
         self._head_dim = units // num_heads
-        self.qkv = Dense(3 * units, units, device=device, dtype=dtype)
-        self.proj = Dense(units, units, device=device, dtype=dtype)
+        self.qkv = Dense(3 * units, flatten=False, in_units=units,
+                         device=device, dtype=dtype)
+        self.proj = Dense(units, flatten=False, in_units=units, device=device,
+                          dtype=dtype)
 
     def forward(self, x, layer_cache, lens, lens_dev):
         b, t = x.shape[0], x.shape[1]

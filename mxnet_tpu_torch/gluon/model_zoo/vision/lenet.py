@@ -32,8 +32,8 @@ class LeNet(HybridBlock):
             Conv2D(50, 5, activation="tanh", in_channels=20, **kw),
             MaxPool2D(2, 2),
             Flatten(),
-            Dense(500, in_units, activation="tanh", **kw))
-        self.output = Dense(classes, 500, **kw)
+            Dense(500, activation="tanh", in_units=in_units, **kw))
+        self.output = Dense(classes, in_units=500, **kw)
 
     def forward(self, x):
         return self.output(self.features(x))

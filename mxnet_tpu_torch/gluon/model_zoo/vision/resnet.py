@@ -152,7 +152,7 @@ class ResNetV1(HybridBlock):
                                 **kw))
             self.features.add(stage)
         self.features.add(GlobalAvgPool2D(layout=layout))
-        self.output = Dense(classes, channels[-1], flatten=True, **kw)
+        self.output = Dense(classes, in_units=channels[-1], **kw)
 
     @property
     def device(self) -> torch.device:

@@ -33,18 +33,28 @@ def _empty(shape, device, dtype):
 
 
 class Dense(HybridBlock):
-    """Fully-connected layer ``y = act(x W^T + b)`` (``flatten=False``
-    keeps the leading axes, as the transformer layers use it);
-    ``activation`` is an :func:`~mxnet_tpu_torch.ops.nn.activation` name
-    or None."""
+    """Fully-connected layer ``y = act(x W^T + b)``, in the JAX package's
+    signature: ``Dense(units, activation=None, use_bias=True,
+    flatten=True, dtype, in_units=0)``.  ``flatten=True`` collapses all
+    but the batch axis first; ``flatten=False`` keeps the leading axes,
+    as the transformer layers use it.  ``activation`` is an
+    :func:`~mxnet_tpu_torch.ops.nn.activation` name or None.  The port
+    builds the weight at construction, so ``in_units`` must be given:
+    ``in_units=0`` (the reference infers it at the first forward)
+    raises."""
 
-    def __init__(self, units: int, in_units: int, use_bias: bool = True,
-                 flatten: bool = False, activation=None, device=None,
-                 dtype=torch.float32):
+    def __init__(self, units: int, activation=None, use_bias: bool = True,
+                 flatten: bool = True, dtype=torch.float32,
+                 in_units: int = 0, device=None):
         super().__init__()
+        if int(in_units) <= 0:
+            raise MXNetError(
+                f"Dense({units}): in_units must be given; the port builds "
+                "parameters at construction (deferred shape inference is "
+                "ROADMAP A6)")
         self._flatten = flatten
         self._act = activation
-        self.weight = _empty((units, in_units), device, dtype)
+        self.weight = _empty((units, int(in_units)), device, dtype)
         self.bias = _empty((units,), device, dtype) if use_bias else None
 
     def forward(self, x):

@@ -1,9 +1,9 @@
 """Flash-attention backward: the dq kernel and the dk/dv kernel.
 
-The port of ``mxnet_tpu/kernels/flash_bwd.py``.  From the forward's row
-log-sum-exp ``lse`` (B, H, Tq) and ``delta = rowsum(g * out)`` (plain
-torch, as the JAX package computes it in ``jnp``):
+The port of ``mxnet_tpu/kernels/flash_bwd.py``.  From the forward's
+output ``out`` and row log-sum-exp ``lse`` (B, H, Tq):
 
+    delta_i = sum(g_i * out_i)
     p_ij  = exp(s_ij - lse_i),   s_ij = scale * q_i . k_j
     ds    = p * (g v^T - delta)
     dq_i  = scale * sum_j ds_ij k_j            (dq kernel)
@@ -12,9 +12,11 @@ torch, as the JAX package computes it in ``jnp``):
 
 with the forward's masks (per-row ``kv_len``, ``causal``).  CUDA tensors
 launch the two hand-written kernels of ``csrc/flash_attention_bwd.cu``
-(f32, contiguous, any Tq and Tk >= 1, 8 <= d <= 256 with d % 8 == 0) or
-raise; CPU tensors run :func:`flash_attention_bwd_reference`, which
-materializes the score matrix.
+(f32, contiguous, any Tq and Tk >= 1, 1 <= d <= 256; products on tensor
+cores with a 3xTF32 split, no global TF32 flag) or raise: the dq kernel
+computes delta in its prologue and hands it to the dk/dv kernel.  CPU
+tensors run :func:`flash_attention_bwd_reference`, which materializes
+the score matrix.
 """
 from __future__ import annotations
 
@@ -69,10 +71,10 @@ def _check_args(q, k, v, g, out, lse, kv_len):
                          f"{tuple(v.shape)}")
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    if not (8 <= d <= _MAX_D and d % 8 == 0 and tk >= 1):
+    if not (1 <= d <= _MAX_D and tk >= 1):
         raise MXNetError(
-            f"flash_attention_bwd kernels take 8 <= d <= {_MAX_D} with "
-            f"d % 8 == 0 and Tk >= 1; got d={d}, Tk={tk}")
+            f"flash_attention_bwd kernels take 1 <= d <= {_MAX_D} and "
+            f"Tk >= 1; got d={d}, Tk={tk}")
     want = [("q", q, torch.float32, (b, h, tq, d)),
             ("k", k, torch.float32, (b, h, tk, d)),
             ("v", v, torch.float32, (b, h, tk, d)),
@@ -81,7 +83,8 @@ def _check_args(q, k, v, g, out, lse, kv_len):
             ("lse", lse, torch.float32, (b, h, tq))]
     if kv_len is not None:
         want.append(("kv_len", kv_len, torch.int32, (b,)))
-    _kreg.check_tensors("flash_attention_bwd", q.device, want)
+    _kreg.check_tensors("flash_attention_bwd", q.device, want,
+                        aligned=False)
 
 
 def _entry(symbol: str, n_ptr: int):
@@ -95,28 +98,30 @@ def _entry(symbol: str, n_ptr: int):
     return fn
 
 
-def launch_dq(q, k, v, g, lse, delta, kv_len, causal: bool, scale: float):
-    """One launch of the dq kernel on checked CUDA inputs (``delta`` the
-    (B, H, Tq) row sums of ``g * out``); returns dq."""
+def launch_dq(q, k, v, g, out, lse, kv_len, causal: bool, scale: float):
+    """One launch of the dq kernel on checked CUDA inputs; returns
+    ``(dq, delta)``, delta the (B, H, Tq) f32 row sums of ``g * out``
+    that the kernel computes and :func:`launch_dkv` takes."""
     b, h, tq, d = q.shape
     dq = torch.empty_like(q)
+    delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _entry("mx_flash_attention_bwd_dq_f32", 8)(
+        err = _entry("mx_flash_attention_bwd_dq_f32", 9)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(),
+            out.data_ptr(), lse.data_ptr(),
             kv_len.data_ptr() if kv_len is not None else None, dq.data_ptr(),
-            b, h, tq, k.shape[2], d, int(causal), scale,
+            delta.data_ptr(), b, h, tq, k.shape[2], d, int(causal), scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise MXNetError(f"flash_attention_bwd_dq kernel launch failed: "
                          f"CUDA error {err}")
     _kreg.count_launch("flash_attention_bwd_dq")
-    return dq
+    return dq, delta
 
 
 def launch_dkv(q, k, v, g, lse, delta, kv_len, causal: bool, scale: float):
-    """One launch of the dk/dv kernel on checked CUDA inputs; returns
-    ``(dk, dv)``."""
+    """One launch of the dk/dv kernel on checked CUDA inputs and the dq
+    kernel's ``delta``; returns ``(dk, dv)``."""
     b, h, tq, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -140,8 +145,7 @@ def _launch(q, k, v, g, out, lse, kv_len, causal, scale):
     if b * h == 0 or tq == 0:                 # nothing attends: no launch
         return (torch.empty_like(q), torch.zeros_like(k),
                 torch.zeros_like(v))
-    delta = (g * out).sum(-1).contiguous()
-    dq = launch_dq(q, k, v, g, lse, delta, kv_len, causal, scale)
+    dq, delta = launch_dq(q, k, v, g, out, lse, kv_len, causal, scale)
     dk, dv = launch_dkv(q, k, v, g, lse, delta, kv_len, causal, scale)
     return dq, dk, dv
 

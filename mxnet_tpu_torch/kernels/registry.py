@@ -17,7 +17,7 @@ from typing import Dict, Tuple
 from ..base import MXNetError
 
 __all__ = ["KERNELS", "count_launch", "launches", "reset_launches",
-           "pick_block", "check_tensors"]
+           "check_tensors"]
 
 # name -> (CUDA source under mxnet_tpu_torch/csrc, the TPU kernel it replaces)
 KERNELS: Dict[str, Tuple[str, str]] = {
@@ -82,26 +82,20 @@ def reset_launches():
             _LAUNCHES[name] = 0
 
 
-def pick_block(n: int,
-               preferred: Tuple[int, ...] = (512, 256, 128, 64, 32, 16, 8)
-               ) -> int:
-    """Largest ``preferred`` block size dividing ``n`` (0 = not tile-able)."""
-    for b in preferred:
-        if n % b == 0:
-            return b
-    return 0
-
-
-def check_tensors(op: str, device, want):
+def check_tensors(op: str, device, want, aligned: bool = True):
     """Raise unless every ``(name, tensor, dtype, shape)`` of ``want`` lies
-    on ``device`` with that dtype and shape, contiguous and 16-byte
-    aligned: what a kernel's wrapper checks before it passes pointers."""
+    on ``device`` with that dtype and shape, contiguous and (with
+    ``aligned``) 16-byte aligned: what a kernel's wrapper checks before it
+    passes pointers.  A kernel that takes any alignment (it loads with
+    scalar copies where a pointer is not 16-byte aligned) passes
+    ``aligned=False``."""
     for name, t, dtype, shape in want:
         if t.device != device:
             raise MXNetError(f"{op}: {name} on {t.device}, expected {device}")
         if t.dtype != dtype or tuple(t.shape) != tuple(shape):
             raise MXNetError(f"{op}: {name} must be {dtype} {tuple(shape)}, "
                              f"got {t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise MXNetError(f"{op}: {name} must be contiguous and 16-byte "
-                             "aligned")
+        if not t.is_contiguous():
+            raise MXNetError(f"{op}: {name} must be contiguous")
+        if aligned and t.data_ptr() % 16:
+            raise MXNetError(f"{op}: {name} must be 16-byte aligned")

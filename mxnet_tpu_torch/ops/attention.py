@@ -37,7 +37,6 @@ __all__ = ["attention_reference", "flash_attention", "flash_attention_reference"
            "cache_page_copy", "quantize_kv", "dequantize_kv"]
 
 _NEG_INF = float("-inf")
-_MAX_TQ = 512
 _MAX_D = 256
 
 
@@ -99,16 +98,16 @@ def _check_flash_args(q, k, v, kv_len):
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    if not (8 <= d <= _MAX_D and d % 8 == 0 and tk >= 1):
+    if not (1 <= d <= _MAX_D and tk >= 1):
         raise MXNetError(
-            f"flash_attention kernel takes 8 <= d <= {_MAX_D} with "
-            f"d % 8 == 0 and Tk >= 1; got d={d}, Tk={tk}")
+            f"flash_attention kernel takes 1 <= d <= {_MAX_D} and Tk >= 1;"
+            f" got d={d}, Tk={tk}")
     want = [("q", q, torch.float32, (b, h, tq, d)),
             ("k", k, torch.float32, (b, h, tk, d)),
             ("v", v, torch.float32, (b, h, tk, d))]
     if kv_len is not None:
         want.append(("kv_valid_length", kv_len, torch.int32, (b,)))
-    _kreg.check_tensors("flash_attention", q.device, want)
+    _kreg.check_tensors("flash_attention", q.device, want, aligned=False)
 
 
 def _launch_flash(q, k, v, kv_len, causal, scale, return_lse):
@@ -205,7 +204,7 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
 
     Without ``mask``, CUDA tensors launch the hand-written kernel
     (``csrc/flash_attention.cu``: f32, contiguous, any Tq and Tk >= 1,
-    8 <= d <= 256 with d % 8 == 0) or raise; CPU tensors run
+    1 <= d <= 256) or raise; CPU tensors run
     :func:`flash_attention_reference`.  When q, k or v requires grad the
     call goes through :class:`FlashAttentionFunction`, whose backward is
     the dq and dk/dv kernel pair."""
@@ -336,12 +335,10 @@ def flash_attention_decode_reference(q, k, v, cache_len,
 def _check_cuda_args(q, k, v, cache_len, k_scale, v_scale):
     b, h, tq, d = q.shape
     c = k.shape[2]
-    if not (1 <= tq <= _MAX_TQ and 8 <= d <= _MAX_D and d % 8 == 0
-            and _kreg.pick_block(c) > 0):
+    if not (1 <= d <= _MAX_D and c >= 1):
         raise MXNetError(
-            f"flash_attention_decode kernel takes Tq <= {_MAX_TQ}, "
-            f"8 <= d <= {_MAX_D} with d % 8 == 0 and C % 8 == 0; got "
-            f"Tq={tq}, d={d}, C={c}")
+            f"flash_attention_decode kernel takes 1 <= d <= {_MAX_D} and "
+            f"C >= 1; got d={d}, C={c}")
     quant = k_scale is not None
     kv_dtype = torch.int8 if quant else torch.float32
     want = [("q", q, torch.float32, (b, h, tq, d)),
@@ -351,7 +348,8 @@ def _check_cuda_args(q, k, v, cache_len, k_scale, v_scale):
     if quant:
         want += [("k_scale", k_scale, torch.float32, (b, h, c, 1)),
                  ("v_scale", v_scale, torch.float32, (b, h, c, 1))]
-    _kreg.check_tensors("flash_attention_decode", q.device, want)
+    _kreg.check_tensors("flash_attention_decode", q.device, want,
+                        aligned=False)
 
 
 def _entry(symbol: str, n_ptr: int):
@@ -415,8 +413,8 @@ def flash_attention_decode(q, k, v, cache_len, scale: Optional[float] = None,
         the cache stays int8 on the card.  Pass both or neither.
 
     CUDA tensors launch the hand-written kernel (f32 q, contiguous inputs,
-    Tq <= 512, d in 8..256 with d % 8 == 0, C % 8 == 0) or raise; CPU
-    tensors run :func:`flash_attention_decode_reference`."""
+    any Tq and C >= 1, 1 <= d <= 256) or raise; CPU tensors run
+    :func:`flash_attention_decode_reference`."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("flash_attention_decode: pass both k_scale and "
                          "v_scale (quantized cache) or neither")

@@ -9,6 +9,10 @@ Each update performs the operations of the JAX package's jitted kernel
 (``_sgd_kernel``, ``_adam_kernel``, ``_adamw_kernel``) in the same
 order, in float32: the hyperparameters enter as float32 scalars, as the
 jitted kernels receive them, and ``1 - beta**t`` is computed in float32.
+With ``multi_precision=True`` an f16 weight keeps an f32 master copy in
+its state (``create_state_multi_precision``): the update runs on the
+master with the gradient cast to f32, and the weight is written back in
+f16 (``update_multi_precision``), as the JAX package does.
 Plain PyTorch: the JAX package ran these through XLA, not Pallas.  The
 flat-arena update that the trainer runs by default is
 ``kernels/opt_arena.py``; ``gluon.Trainer`` updates per parameter
@@ -63,9 +67,9 @@ class Optimizer:
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=None, lr_scheduler=None,
-                 param_dict=None, **extra):
+                 multi_precision=False, param_dict=None, **extra):
         known_compat = {"sym", "begin_num_update", "allow_np_array",
-                        "multi_precision", "aggregate_num", "use_fused_step"}
+                        "aggregate_num", "use_fused_step"}
         junk = set(extra) - known_compat
         if junk:
             raise TypeError(f"{type(self).__name__} got unknown "
@@ -77,6 +81,7 @@ class Optimizer:
             self.lr_scheduler.base_lr = learning_rate
         self.wd = wd
         self.clip_gradient = clip_gradient
+        self.multi_precision = multi_precision
         self.param_dict = param_dict or {}
         self.idx2name = dict(param_idx2name or {})
         self.lr_mult: Dict[Any, float] = {}
@@ -139,6 +144,28 @@ class Optimizer:
 
     def create_state(self, index, weight: torch.Tensor):
         return None
+
+    def _master(self, weight) -> bool:
+        return bool(self.multi_precision) and weight.dtype == torch.float16
+
+    def create_state_multi_precision(self, index, weight: torch.Tensor):
+        """``(f32 master copy, state of the master)`` for an f16 weight
+        under ``multi_precision``; the plain state otherwise."""
+        if self._master(weight):
+            w32 = weight.detach().float()
+            return (w32, self.create_state(index, w32))
+        return self.create_state(index, weight)
+
+    def update_multi_precision(self, index, weight: torch.Tensor,
+                               grad: torch.Tensor, state):
+        """``update`` on the f32 master with the gradient in f32, then the
+        master written back into the f16 weight; ``update`` otherwise."""
+        if self._master(weight):
+            w32, inner = state
+            self.update(index, w32, grad.float(), inner)
+            weight.copy_(w32)
+        else:
+            self.update(index, weight, grad, state)
 
     def _clip(self):
         return self.clip_gradient if self.clip_gradient is not None else -1.0
@@ -253,9 +280,10 @@ class AdamW(Adam):
 
 class Updater:
     """``updater(index, grad, weight)``: the optimizer's update of one
-    parameter with the state of its index, made at the first update
-    (``mxnet_tpu/optimizer/__init__.py:804``).  Checkpointing the states
-    (``get_states`` / ``set_states``) is not ported (ROADMAP A1.4)."""
+    parameter with the state of its index, made at the first update, both
+    through the multi-precision path (``mxnet_tpu/optimizer/__init__.py:
+    813-817``).  Checkpointing the states (``get_states`` /
+    ``set_states``) is not ported (ROADMAP A1.4)."""
 
     def __init__(self, optimizer: Optimizer):
         self.optimizer = optimizer
@@ -263,8 +291,10 @@ class Updater:
 
     def __call__(self, index, grad: torch.Tensor, weight: torch.Tensor):
         if index not in self.states:
-            self.states[index] = self.optimizer.create_state(index, weight)
-        self.optimizer.update(index, weight, grad, self.states[index])
+            self.states[index] = \
+                self.optimizer.create_state_multi_precision(index, weight)
+        self.optimizer.update_multi_precision(index, weight, grad,
+                                              self.states[index])
 
 
 def get_updater(optimizer: Optimizer) -> Updater:

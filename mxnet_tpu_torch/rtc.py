@@ -10,7 +10,11 @@ with :func:`register`; it is then called like a built-in op, from
     y = op(x, alpha=3.0)         # recorded by autograd.record()
 
 The op's positional arguments are its inputs; its keyword arguments
-are config, passed on every call to ``fn`` and to ``grad``.  A
+are config, passed on every call to ``fn`` and to ``grad``, except
+``out=``: a single-output op given ``out`` computes its result, copies
+it into ``out`` (``copy_``, which casts to ``out``'s dtype and, under
+autograd, records the copy) and returns ``out``, as the JAX op writes
+into its ``out``.  A
 plain-PyTorch ``fn`` is differentiable as it is.  A kernel leaves no
 autograd graph, so an op that must train passes ``grad``:
 ``grad(cotangent, *inputs, **config)`` returns one cotangent per input
@@ -117,10 +121,17 @@ def register(name: str, fn: Callable, grad: Optional[Callable] = None,
     if name in _KERNELS:
         raise MXNetError(f"kernel '{name}' already registered")
 
-    def op(*args, **config):
+    def op(*args, out=None, **config):
         if grad is None:
-            return guard_no_grad(name, fn(*args, **config), args)
-        return _WithGrad.apply((fn, grad, config), *args)
+            res = guard_no_grad(name, fn(*args, **config), args)
+        else:
+            res = _WithGrad.apply((fn, grad, config), *args)
+        if out is None:
+            return res
+        if not torch.is_tensor(res):
+            raise MXNetError(f"op '{name}': out= is only supported for "
+                             "single-output ops")
+        return out.copy_(res)
 
     op.__name__ = name
     if attach_npx:

@@ -212,7 +212,7 @@ def _twin_dense(seed=4):
     jd.initialize()
     jd.collect_params()["weight"].set_data(w)
     jd.collect_params()["bias"].set_data(b)
-    td = Dense(4, 3, device="cpu")
+    td = Dense(4, in_units=3, device="cpu")
     with torch.no_grad():
         td.weight.copy_(torch.from_numpy(w))
         td.bias.copy_(torch.from_numpy(b))

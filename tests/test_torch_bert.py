@@ -133,7 +133,7 @@ def test_activation_and_dropout_layers():
             np.asarray(jnn.activation(x, act)), rtol=1e-6, atol=1e-6)
     with pytest.raises(MXNetError, match="unknown activation"):
         tnn.activation(torch.from_numpy(x), "swish")
-    dense = Dense(2, 13, activation="tanh", device="cpu")
+    dense = Dense(2, "tanh", flatten=False, in_units=13, device="cpu")
     torch.nn.init.ones_(dense.weight)
     torch.nn.init.zeros_(dense.bias)
     with torch.no_grad():

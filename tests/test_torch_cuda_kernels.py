@@ -40,8 +40,10 @@ def dev():
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
-@pytest.mark.parametrize("b,h,tq,c,d", [(2, 3, 1, 64, 8), (3, 2, 19, 96, 40),
-                                        (1, 1, 200, 256, 256)])
+@pytest.mark.parametrize("b,h,tq,c,d", [
+    (2, 3, 1, 64, 8), (3, 2, 19, 96, 40), (1, 1, 200, 256, 256),
+    (2, 2, 5, 64, 4), (3, 2, 17, 100, 36), (2, 3, 1, 100, 100),
+    (2, 2, 1024, 1100, 64), (2, 2, 7, 100, 64), (2, 1, 9, 50, 37)])
 def test_kernel_matches_plain(dev, quantized, b, h, tq, c, d):
     g = torch.Generator().manual_seed(b * 100 + tq)
     q = torch.rand(b, h, tq, d, generator=g) - 0.5
@@ -68,8 +70,8 @@ def test_kernel_matches_plain(dev, quantized, b, h, tq, c, d):
 
 
 def test_kernel_refuses_what_it_does_not_take(dev):
-    q = torch.zeros(1, 1, 1, 12, device=dev)        # d % 8 != 0
-    k = torch.zeros(1, 1, 16, 12, device=dev)
+    q = torch.zeros(1, 1, 1, 264, device=dev)       # d > 256
+    k = torch.zeros(1, 1, 16, 264, device=dev)
     lens = torch.zeros(1, dtype=torch.int32, device=dev)
     with pytest.raises(MXNetError):
         att.flash_attention_decode(q, k, k, lens)
@@ -104,7 +106,9 @@ def _flash_case(b, h, tq, tk, d, lens, seed):
 @pytest.mark.parametrize("b,h,tq,tk,d,lens", [
     (2, 3, 1, 1, 8, None), (2, 2, 37, 37, 64, [0, 37]),
     (3, 2, 70, 130, 40, [1, 64, 129]), (2, 1, 129, 65, 128, [65, 63]),
-    (1, 2, 200, 200, 256, [200]), (4, 2, 64, 64, 64, None)])
+    (1, 2, 200, 200, 256, [200]), (4, 2, 64, 64, 64, None),
+    (2, 2, 37, 37, 4, [0, 37]), (3, 2, 70, 130, 36, [1, 64, 129]),
+    (2, 1, 129, 65, 100, [65, 63]), (2, 2, 33, 33, 7, [5, 33])])
 def test_flash_kernel_matches_plain(dev, causal, b, h, tq, tk, d, lens):
     q, k, v, lens_t = _flash_case(b, h, tq, tk, d, lens, seed=tq * 7 + d)
     q, k, v = (t.to(dev) for t in (q, k, v))
@@ -124,8 +128,7 @@ def test_flash_kernel_matches_plain(dev, causal, b, h, tq, tk, d, lens):
 
 def test_flash_kernel_refuses_what_it_does_not_take(dev):
     ok = torch.zeros(1, 1, 4, 8, device=dev)
-    for bad in (torch.zeros(1, 1, 4, 12, device=dev),       # d % 8 != 0
-                torch.zeros(1, 1, 4, 264, device=dev),      # d > 256
+    for bad in (torch.zeros(1, 1, 4, 264, device=dev),      # d > 256
                 ok.double(),                                # not f32
                 torch.zeros(1, 1, 8, 4, device=dev).transpose(2, 3)):
         with pytest.raises(MXNetError):
@@ -135,34 +138,125 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
                             kv_valid_length=torch.zeros(2, device=dev))
 
 
+def _bwd_lens(t):
+    """Per-row key lengths 0, 1, 63, 64 and T, each at most T."""
+    return [min(n, t) for n in (0, 1, 63, 64, t)]
+
+
+def _bwd_run(q, k, v, g, lens_d, causal):
+    from mxnet_tpu_torch.kernels import flash_bwd as fb
+
+    out, lse = att.flash_attention(q, k, v, causal=causal,
+                                   kv_valid_length=lens_d, return_lse=True)
+    got = fb.flash_attention_bwd(q, k, v, g, out, lse, lens_d, causal)
+    torch.cuda.synchronize()
+    return out, lse, got
+
+
+def _bwd_check(got, ref, lens, again):
+    """Within atol = rtol = 1e-4 of the plain version, exact zeros past
+    each length (dq too for a 0-length row), the same bits again."""
+    for a, r in zip(got, ref):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, r, atol=TOL, rtol=TOL)
+    for row, n in enumerate(lens or []):      # exact zeros past lengths
+        assert not got[1][row, :, n:].any() and not got[2][row, :, n:].any()
+        if n == 0:
+            assert not got[0][row].any()
+    for a, b in zip(got, again):              # the same bits, run to run
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("causal", [False, True], ids=["dense", "causal"])
 @pytest.mark.parametrize("b,h,tq,tk,d,lens", [
     (2, 3, 1, 1, 8, None), (2, 2, 37, 37, 64, [0, 37]),
     (3, 2, 70, 130, 40, [1, 64, 129]), (2, 1, 129, 65, 128, [65, 63]),
-    (1, 2, 200, 200, 256, [200]), (2, 2, 96, 96, 192, [33, 96])])
+    (1, 2, 200, 200, 256, [200]), (2, 2, 96, 96, 192, [33, 96]),
+    (2, 2, 50, 90, 32, [0, 90]), (2, 2, 130, 33, 32, None)])
 def test_flash_bwd_kernels_match_plain(dev, causal, b, h, tq, tk, d, lens):
+    """Tq != Tk, no lengths (every row attends all Tk keys), d = 32 and
+    d = 192 (the runtime-width kernels of the widest class)."""
     from mxnet_tpu_torch.kernels import flash_bwd as fb
 
     q, k, v, lens_t = _flash_case(b, h, tq, tk, d, lens, seed=tq * 5 + d)
     g = torch.rand(b, h, tq, d, generator=torch.Generator().manual_seed(d))
     q, k, v, g = (t.to(dev) for t in (q, k, v, g - 0.5))
     lens_d = None if lens_t is None else lens_t.to(dev)
-    out, lse = att.flash_attention(q, k, v, causal=causal,
-                                   kv_valid_length=lens_d, return_lse=True)
     before = registry.launches()
-    got = fb.flash_attention_bwd(q, k, v, g, out, lse, lens_d, causal)
-    torch.cuda.synchronize()
+    out, lse, got = _bwd_run(q, k, v, g, lens_d, causal)
     after = registry.launches()
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         assert after[name] == before[name] + 1
     ref = fb.flash_attention_bwd_reference(
         q, torch.nan_to_num(k), torch.nan_to_num(v), g, out, lse, lens_d,
         causal)
+    again = fb.flash_attention_bwd(q, k, v, g, out, lse, lens_d, causal)
+    torch.cuda.synchronize()
+    _bwd_check(got, ref, lens, again)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["dense", "causal"])
+@pytest.mark.parametrize("t", [1, 37, 128, 512])
+@pytest.mark.parametrize("d", [8, 36, 64, 100, 128, 256])
+def test_flash_bwd_kernels_grid_match_plain(dev, causal, t, d):
+    """The tensor-core pair against the plain version at atol = rtol =
+    1e-4 (TF32 off globally: the 3xTF32 split is the kernels' own), exact
+    zeros past each length, and the same bits from a second call."""
+    from mxnet_tpu_torch.kernels import flash_bwd as fb
+
+    lens = _bwd_lens(t)
+    q, k, v, lens_t = _flash_case(len(lens), 2, t, t, d, lens,
+                                  seed=t * 5 + d)
+    g = torch.rand(len(lens), 2, t, d,
+                   generator=torch.Generator().manual_seed(d)) - 0.5
+    q, k, v, g = (x.to(dev) for x in (q, k, v, g))
+    lens_d = lens_t.to(dev)
+    before = registry.launches()
+    out, lse, got = _bwd_run(q, k, v, g, lens_d, causal)
+    after = registry.launches()
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[name] == before[name] + 1
+    ref = fb.flash_attention_bwd_reference(
+        q, torch.nan_to_num(k), torch.nan_to_num(v), g, out, lse, lens_d,
+        causal)
+    again = fb.flash_attention_bwd(q, k, v, g, out, lse, lens_d, causal)
+    torch.cuda.synchronize()
+    _bwd_check(got, ref, lens, again)
+
+
+@pytest.mark.parametrize("d", [36, 64])
+def test_attention_kernels_take_unaligned_inputs(dev, d):
+    """Views at storage offset 1 (not 16-byte aligned) take the scalar
+    copies of the forward, backward and decode kernels."""
+    from mxnet_tpu_torch.kernels import flash_bwd as fb
+
+    def view(x):
+        flat = torch.empty(x.numel() + 1, device=dev)
+        flat[1:] = x.reshape(-1)
+        return flat[1:].view(x.shape)
+
+    lens = [0, 1, 63, 64]
+    q, k, v, lens_t = _flash_case(4, 2, 64, 64, d, lens, seed=d)
+    g = torch.rand(4, 2, 64, d, generator=torch.Generator().manual_seed(1))
+    q, k, v, g = (view(x.to(dev)) for x in (q, k, v, g - 0.5))
+    assert q.data_ptr() % 16
+    lens_d = lens_t.to(dev)
+    out, lse, got = _bwd_run(q, k, v, g, lens_d, True)
+    ref_out, ref_lse = att.flash_attention_reference(
+        q, k, torch.nan_to_num(v), causal=True, kv_valid_length=lens_d,
+        return_lse=True)
+    torch.testing.assert_close(out, ref_out, atol=TOL, rtol=TOL)
+    ref = fb.flash_attention_bwd_reference(
+        q, torch.nan_to_num(k), torch.nan_to_num(v), g, out, lse, lens_d,
+        True)
     for a, r in zip(got, ref):
-        assert torch.isfinite(a).all()
         torch.testing.assert_close(a, r, atol=TOL, rtol=TOL)
-    for row, n in enumerate(lens or []):    # exact zeros past lengths
-        assert not got[1][row, :, n:].any() and not got[2][row, :, n:].any()
+    qd = view(q[:, :, :3].contiguous())
+    cache = view(torch.nan_to_num(v))
+    cache_len = torch.tensor([5, 0, 20, 61], dtype=torch.int32, device=dev)
+    dec = att.flash_attention_decode(qd, cache, cache, cache_len)
+    torch.testing.assert_close(dec, att.flash_attention_decode_reference(
+        qd, cache, cache, cache_len), atol=TOL, rtol=TOL)
 
 
 def test_autograd_through_flash_attention_launches_both_kernels(dev):
@@ -190,7 +284,7 @@ def test_flash_bwd_refuses_what_it_does_not_take(dev):
 
     ok = torch.zeros(1, 1, 4, 8, device=dev)
     lse = torch.zeros(1, 1, 4, device=dev)
-    for bad in (torch.zeros(1, 1, 4, 12, device=dev),       # d % 8 != 0
+    for bad in (torch.zeros(1, 1, 4, 264, device=dev),      # d > 256
                 ok.double(),                                # not f32
                 torch.zeros(1, 1, 8, 4, device=dev).transpose(2, 3)):
         with pytest.raises(MXNetError):

@@ -77,6 +77,26 @@ def test_decode_attention_matches_jax(c, tq, quantized):
                                        **TOL, err_msg=f"{what} lse, {lens}")
 
 
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("d,c,tq", [(4, 37, 3), (36, 100, 7), (100, 21, 1),
+                                    (4, 530, 520)])
+def test_decode_attention_any_width_and_chunk_matches_jax(d, c, tq,
+                                                          quantized):
+    """Shapes the decode kernel now takes: d not a multiple of 8, a cache
+    capacity C not a multiple of 8, a chunk of Tq > 512 queries; against
+    the JAX package's jnp path."""
+    q, k, v, ks, vs = _inputs(c, tq, quantized, d=d)
+    lens = np.asarray([0, c - tq], np.int32)
+    got, got_lse = tatt.flash_attention_decode(
+        _t(q), _t(k), _t(v), _t(lens), return_lse=True,
+        k_scale=_t(ks), v_scale=_t(vs))
+    want, want_lse = jatt.flash_attention_decode(
+        _j(q), _j(k), _j(v), _j(lens), return_lse=True,
+        k_scale=_j(ks), v_scale=_j(vs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), **TOL)
+
+
 def test_decode_attention_inert_row_with_nan_garbage():
     # a freed serve slot: cache_len = 0, NaN keys past position 0 — the
     # fresh token attends only itself and the result IS row 0's value
@@ -101,6 +121,32 @@ def test_decode_attention_argument_rules():
     with pytest.raises(ValueError):
         tatt.flash_attention_decode(q, k, k, torch.zeros(1, dtype=torch.int32),
                                     k_scale=torch.ones(1, 1, 8, 1))
+
+
+@pytest.mark.parametrize("d", [1, 4, 36, 100, 256])
+def test_kernel_wrappers_take_every_width_to_256(d):
+    """The checks each wrapper runs before it launches: 1 <= d <= 256, any
+    chunk length Tq (1024, a prompt bucket's prefill) and cache capacity C
+    (100, not a multiple of 8), and views that are not 16-byte aligned;
+    d > 256 raises (four 64 x 256 f32 tiles fill shared memory)."""
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.kernels import flash_bwd as tfb
+
+    lens = torch.zeros(2, dtype=torch.int32)
+    for tq, c in ((1024, 1100), (7, 100)):
+        q, k = torch.zeros(2, 1, tq, d), torch.zeros(2, 1, c, d)
+        tatt._check_cuda_args(q, k, k, lens, None, None)
+        k8, ks = torch.zeros(2, 1, c, d, dtype=torch.int8), \
+            torch.ones(2, 1, c, 1)
+        tatt._check_cuda_args(q, k8, k8, lens, ks, ks)
+    x = torch.zeros(2 * 1 * 37 * d + 1)[1:].view(2, 1, 37, d)
+    tatt._check_flash_args(x, x, x, lens)
+    tfb._check_args(x, x, x, x, x, torch.zeros(2, 1, 37), lens)
+    big = torch.zeros(2, 1, 8, 264)
+    with pytest.raises(MXNetError):
+        tatt._check_cuda_args(big, big, big, lens, None, None)
+    with pytest.raises(MXNetError):
+        tatt._check_flash_args(big, big, big, lens)
 
 
 @pytest.mark.parametrize("lens", [[0, 0], [1, 5], [3, 0]])

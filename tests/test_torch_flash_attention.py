@@ -13,6 +13,7 @@ the one JAX function that returns it.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -90,6 +91,25 @@ def test_flash_attention_untileable_lengths_match_dispatch(tq, tk, causal):
     want = jatt.flash_attention(_j(q), _j(k), _j(v), causal=causal,
                                 kv_valid_length=_j(lens))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["dense", "causal"])
+@pytest.mark.parametrize("d", [4, 36, 100])
+def test_flash_attention_any_head_width_matches_jax(d, causal):
+    """d not a multiple of 8 (the JAX package runs its jnp path there, the
+    port's kernel pads its shared rows): output and lse against JAX."""
+    q, k, v = _qkv(3, 2, 19, 19, d, seed=d + causal)
+    lens = np.asarray([19, 0, 7], np.int32)
+    got, got_lse = tatt.flash_attention(_t(q), _t(k), _t(v), causal=causal,
+                                        kv_valid_length=_t(lens),
+                                        return_lse=True)
+    want = jatt.flash_attention(_j(q), _j(k), _j(v), causal=causal,
+                                kv_valid_length=_j(lens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    m = jatt._merge_mask(None, _j(lens), 19, 19, causal)
+    logits = jnp.einsum("bhqd,bhkd->bhqk", _j(q), _j(k)) / np.sqrt(d)
+    want_lse = jax.nn.logsumexp(jnp.where(m, logits, -jnp.inf), axis=-1)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), **TOL)
 
 
 def test_flash_attention_general_mask_runs_the_reference():

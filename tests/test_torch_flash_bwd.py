@@ -103,6 +103,35 @@ def test_bwd_reference_ragged_t_matches_jax_grad(causal):
         np.testing.assert_allclose(a.numpy(), np.asarray(w), **TOL)
 
 
+@pytest.mark.parametrize("causal", [False, True], ids=["dense", "causal"])
+@pytest.mark.parametrize("d", [4, 36, 100])
+def test_bwd_reference_any_head_width_matches_jax_grad(d, causal):
+    """d not a multiple of 8, which the JAX kernels do not take: the
+    reference is ``jax.grad`` of ``attention_reference`` (its jnp path),
+    with an empty row and a short one."""
+    t = 21
+    q, k, v, g = _inputs(3, 2, t, d, seed=d + causal)
+    lens = np.asarray([t, 0, 6], np.int32)
+    scale = 1.0 / np.sqrt(d)
+    m = jatt._merge_mask(None, jnp.asarray(lens), t, t, causal)
+
+    def f(q_, k_, v_):
+        return (jatt.attention_reference(q_, k_, v_, mask=m, scale=scale)
+                * jnp.asarray(g)).sum()
+
+    want = jax.grad(f, (0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v))
+    tq, tk, tv = _t(q), _t(k), _t(v)
+    out, lse = tatt.flash_attention(tq, tk, tv, causal=causal,
+                                    kv_valid_length=_t(lens),
+                                    return_lse=True)
+    got = tfb.flash_attention_bwd(tq, tk, tv, _t(g), out, lse, _t(lens),
+                                  causal)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), **TOL)
+    assert not got[0][1].any() and not got[1][1].any()   # the empty row
+
+
 @pytest.mark.parametrize("causal,with_len", [(False, False), (True, False),
                                              (False, True), (True, True)])
 def test_autograd_through_flash_attention_matches_jax(causal, with_len):
@@ -147,6 +176,6 @@ def test_bwd_refuses_other_devices_and_bad_shapes():
     lse = torch.zeros(1, 1, 4, device="meta")
     with pytest.raises(MXNetError):
         tfb.flash_attention_bwd(x, x, x, x, x, lse)
-    bad = torch.zeros(1, 1, 4, 12)
+    bad = torch.zeros(1, 1, 4, 264)                  # d > 256
     with pytest.raises(MXNetError):
         tfb._check_args(bad, bad, bad, bad, bad, torch.zeros(1, 1, 4), None)

@@ -193,8 +193,8 @@ class _TExtLeNet(gluon.HybridBlock):
             tnn.MaxPool2D(2, 2),
             tnn.Conv2D(50, 5, activation="tanh", in_channels=20, **kw),
             tnn.MaxPool2D(2, 2), tnn.Flatten())
-        self.hidden = tnn.Dense(500, 800, **kw)
-        self.output = tnn.Dense(10, 500, **kw)
+        self.hidden = tnn.Dense(500, in_units=800, **kw)
+        self.output = tnn.Dense(10, in_units=500, **kw)
 
     def forward(self, x):
         x = tmx.npx.pallas_axpb(x, a=MNIST_AB[0], b=MNIST_AB[1])
@@ -235,9 +235,9 @@ def test_batchnorm_and_dropout_train_under_record_in_both_packages():
     jnet.add(mx.gluon.nn.Dense(8, in_units=6), mx.gluon.nn.BatchNorm(),
              mx.gluon.nn.Dropout(0.0), mx.gluon.nn.Dense(4, in_units=8))
     tnet = tnn.HybridSequential().add(
-        tnn.Dense(8, 6, device="cpu"),
+        tnn.Dense(8, in_units=6, device="cpu"),
         tnn.BatchNorm(axis=1, in_channels=8, device="cpu"),
-        tnn.Dropout(0.0), tnn.Dense(4, 8, device="cpu"))
+        tnn.Dropout(0.0), tnn.Dense(4, in_units=8, device="cpu"))
     jnet.initialize(mx.init.Xavier())
     jnet(mx.np.array(x[:2]))
     params = {n: p.data().asnumpy() for n, p in jnet.collect_params().items()}
@@ -272,6 +272,85 @@ def test_batchnorm_and_dropout_train_under_record_in_both_packages():
     before = state["1.running_mean"].clone()
     tnet(torch.from_numpy(x[:8]))               # outside record(): inference
     assert torch.equal(state["1.running_mean"], before)
+
+
+# ---------------------------------------- multi_precision master weights
+def test_multi_precision_keeps_an_f32_master_as_jax_does():
+    """A ``.half()`` Dense under ``Trainer("sgd", lr 1e-4,
+    multi_precision=True)`` with gradient 1e-3: each update (1e-7) rounds
+    away in f16 but not in the f32 master that both packages keep, update
+    and write back.  Over 20 steps the f16 weights move, bit for bit as
+    JAX's do, and the masters match JAX's."""
+    rs = np.random.RandomState(5)
+    w = ((rs.rand(3, 4) - 0.5) * 4e-3).astype("f2")
+    b = ((rs.rand(3) - 0.5) * 4e-3).astype("f2")
+    jd = mx.gluon.nn.Dense(3, in_units=4)
+    jd.initialize()
+    jd.cast("float16")
+    jd.weight.set_data(w)
+    jd.bias.set_data(b)
+    td = tnn.Dense(3, in_units=4, device="cpu").half()
+    with torch.no_grad():
+        td.weight.copy_(torch.from_numpy(w))
+        td.bias.copy_(torch.from_numpy(b))
+    opt = {"learning_rate": 1e-4, "multi_precision": True}
+    jtr = mx.gluon.Trainer(jd.collect_params(), "sgd", dict(opt))
+    ttr = gluon.Trainer(td.collect_params(), "sgd", dict(opt))
+    for p in jd.collect_params().values():
+        p.grad()._set_data(mx.np.full(p.shape, 1e-3, "float16")._data)
+    for p in td.parameters():
+        p.grad = torch.full_like(p, 1e-3)
+    names = sorted(td.collect_params())
+    for _ in range(20):
+        jtr.step(1)
+        ttr.step(1)
+        for n in names:
+            np.testing.assert_array_equal(
+                td.collect_params()[n].detach().numpy(),
+                jd.collect_params()[n].data().asnumpy(), err_msg=n)
+    assert td.weight.dtype == torch.float16
+    assert not np.array_equal(td.weight.detach().numpy(), w)   # moved
+    jstates, tstates = jtr._updaters[0].states, ttr._updater.states
+    assert sorted(jstates) == sorted(tstates) == [0, 1]
+    for i in tstates:
+        master, inner = tstates[i]
+        assert master.dtype == torch.float32 and inner is None
+        np.testing.assert_allclose(master.numpy(),
+                                   jstates[i][0].asnumpy(), rtol=1e-6,
+                                   atol=0)
+
+
+# ------------------------------------------- Dense's reference signature
+def test_dense_takes_the_reference_signature():
+    """``Dense(units, activation=None, use_bias=True, flatten=True, ...,
+    in_units=0)`` as the reference orders it: ``Dense(10, "relu")`` right
+    after a convolution, with no ``Flatten``, matches JAX; ``flatten=False``
+    keeps the leading axes; ``in_units=0`` raises (deferred shapes)."""
+    x = np.random.RandomState(3).rand(4, 2, 8, 8).astype("f4") - 0.5
+    jnet = mx.gluon.nn.HybridSequential()
+    jnet.add(mx.gluon.nn.Conv2D(3, 3, in_channels=2),
+             mx.gluon.nn.Dense(10, "relu", in_units=3 * 6 * 6),
+             mx.gluon.nn.Dense(5, in_units=10))
+    tnet = tnn.HybridSequential().add(
+        tnn.Conv2D(3, 3, in_channels=2, device="cpu"),
+        tnn.Dense(10, "relu", in_units=3 * 6 * 6, device="cpu"),
+        tnn.Dense(5, in_units=10, device="cpu"))
+    mx.random.seed(0)
+    jnet.initialize(mx.init.Xavier())
+    want = jnet(mx.np.array(x)).asnumpy()
+    convert.load_into(tnet, {n: p.data().asnumpy()
+                             for n, p in jnet.collect_params().items()})
+    with torch.no_grad():
+        got = tnet(torch.from_numpy(x)).numpy()
+        hidden = tnet[1](tnet[0](torch.from_numpy(x)))
+    assert got.shape == want.shape == (4, 5)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert hidden.shape == (4, 10) and (hidden >= 0).all()
+    keep = tnn.Dense(7, flatten=False, in_units=6, use_bias=False,
+                     device="cpu")
+    assert keep.bias is None and keep(torch.ones(2, 3, 6)).shape == (2, 3, 7)
+    with pytest.raises(MXNetError, match="A6"):
+        tnn.Dense(10, "relu", device="cpu")
 
 
 # ----------------------------------------------------- Trainer surface

@@ -230,6 +230,32 @@ def _rtc_ops_match_the_jax_ops(ext):
         rtc.CudaKernel()
 
 
+def test_rtc_op_writes_its_result_into_out(ext):
+    """``out=``: the op computes its one result, copies it into ``out``
+    and returns ``out``, as the JAX op writes into its ``out``; a
+    multi-output op refuses ``out``."""
+    x = np.array([-2.0, 0.5, 3.0, 7.25], "f4")
+    with jax_pallas_ops():
+        jy = mx.nd.array(np.zeros(4, "f4"))
+        jr = mx.npx.pallas_axpb(mx.nd.array(x), a=3.0, b=1.0, out=jy)
+    ty = torch.zeros(4)
+    tr = tmx.npx.pallas_axpb(torch.from_numpy(x), a=3.0, b=1.0, out=ty)
+    assert tr is ty and jr is jy
+    np.testing.assert_array_equal(ty.numpy(), jy.asnumpy())
+    np.testing.assert_allclose(ty.numpy(), 3 * x + 1, atol=1e-6)
+    sq = torch.zeros(4)
+    assert tmx.npx.pallas_squared_relu(torch.from_numpy(x), out=sq) is sq
+    np.testing.assert_allclose(sq.numpy(), np.maximum(x, 0) ** 2, atol=1e-6)
+    _forget("_two_out")
+    try:
+        two = rtc.register("_two_out", lambda v: (v, v + 1),
+                           attach_npx=False)
+        with pytest.raises(MXNetError, match="single-output"):
+            two(torch.from_numpy(x), out=torch.zeros(4))
+    finally:
+        _forget("_two_out")
+
+
 def test_failed_npx_attach_leaves_no_registry_entry():
     assert hasattr(tnpx, "convolution")
     with pytest.raises(MXNetError, match="already exists in npx"):

@@ -64,8 +64,8 @@ def _jax_mlp():
 
 
 def _torch_mlp(params):
-    net = torch.nn.Sequential(Dense(32, 12, activation="relu", device="cpu"),
-                              Dense(10, 32, device="cpu"))
+    net = torch.nn.Sequential(Dense(32, "relu", in_units=12, device="cpu"),
+                              Dense(10, in_units=32, device="cpu"))
     return convert.load_into(net, params)
 
 
