@@ -20,7 +20,13 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    least time the card could take (the bound); then, each checked
    against the plain version first, at shapes off the TPU kernel's
    tiling: a 1024-token prefill chunk (C = 1100), a cache of C = 100 and
-   d = 36.
+   d = 36.  The decode row and the 1024-token row also give the device
+   time of the kernel and of SDPA (``torch.profiler`` kernel records;
+   where three profiles in a row record no device time, CUDA events
+   around calls queued behind a spin kernel, which the kernel's time on
+   these rows is also taken with every run, to hold one to the other),
+   the decode row the split count of the plan, and every row two bounds:
+   f32 on CUDA cores and 3xTF32 on tensor cores (the chunk path's).
 4. Serve ``transformer_lm`` at GPT-2-small widths (vocab 50257, 768
    units, 12 layers, 12 heads, 1024 positions; seeded random weights)
    through ``serve.register_decode``: 16 greedy requests, checked for
@@ -28,11 +34,13 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    with an unbatched greedy loop.
 5. The same model with the int8 KV cache: 8 requests.
 6. The flash-attention kernel against its plain version on the card:
-   B=4, H=12, d in {64, 128, 256}, T in {1, 37, 128, 512}, causal off
-   and on, per-row key lengths {0, 1, 63, 64, 65, T} over two calls,
-   NaN garbage in k/v past each row's length; output and lse within
-   atol = rtol = 1e-4 (TF32 off).  Then its times beside its plain
-   version, ``scaled_dot_product_attention`` with the boolean
+   B=4, H=12, d in {64, 128, 256, 264, 320, 512}, T in {1, 37, 128,
+   512}, causal off and on, per-row key lengths {0, 1, 63, 64, 65, T}
+   over two calls, NaN garbage in k/v past each row's length; then
+   Tq != Tk (70 x 130, 129 x 65) at d in {64, 320} on views at storage
+   offset 1 (not 16-byte aligned); output and lse within atol = rtol =
+   1e-4 (TF32 off), the same bits on a second call.  Then its times
+   beside its plain version, ``scaled_dot_product_attention`` with the boolean
    key-padding mask (a yardstick the port never calls) and its bound, at
    the serving shapes B=16, T=512 (varied lengths) and B=8, T=128, and
    at B=8, T=128 with d = 36.
@@ -46,7 +54,8 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
 
 8. The flash-attention backward kernels (dq, dk/dv; tensor cores with a
    3xTF32 split) against their plain version on the card: B=4, H=12,
-   d in {36, 64, 100, 128, 256}, T in {1, 37, 128, 512}, causal off and
+   d in {36, 64, 100, 128, 256, 264, 320, 512}, T in {1, 37, 128, 512},
+   causal off and
    on, per-row key lengths {0, 1, 63, 64, 65,
    T} over two calls; NaN in k/v past each row's length, and in q/g of
    the 0-length row (every position of it is past its length).  dq, dk
@@ -251,28 +260,102 @@ def cuda_time_ms(fn, nbuf, iters=20, reps=5):
     return statistics.median(out)
 
 
-def device_ms_per_call(fn, nbuf, calls=20):
-    """Device time of one ``fn(i)`` call: every kernel record of
-    ``torch.profiler`` over ``calls`` calls, summed, over ``calls``."""
+DEVICE_TIME_BY = {"torch.profiler": 0, "events behind a spin": 0}
+PROFILER_TRIES = 3
+
+
+def profiled_ms_per_call(fn, nbuf, calls):
+    """Every kernel record of ``torch.profiler`` over ``calls`` calls of
+    ``fn(i)``, summed, over ``calls`` (ms); None when the profiler
+    recorded no device time (CUPTI now and then hands back no kernel
+    records)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for i in range(3):
-        fn(i % nbuf)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(calls):
             fn(i % nbuf)
         torch.cuda.synchronize()
     total_us = sum(e.device_time_total for e in prof.key_averages())
-    check(total_us > 0, "the profiler recorded no device time")
-    return total_us / calls / 1e3
+    return total_us / calls / 1e3 if total_us > 0 else None
+
+
+def spun_ms_per_call(fn, nbuf, calls):
+    """Device time of one ``fn(i)`` call by CUDA events: a spin kernel
+    (``torch.cuda._sleep``) holds the stream while the host queues all
+    ``calls`` calls, so the events bracket the calls' kernels run back to
+    back and none of the host's launch time.  The spin is lengthened until
+    the start event is still pending once the last call is queued."""
+    t0 = time.perf_counter()
+    for i in range(calls):
+        fn(i % nbuf)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    torch.cuda._sleep(1_000_000)
+    e.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 1_000_000 / s.elapsed_time(e)
+    spin_ms = max(5.0, 4 * host_ms)
+    for _ in range(4):
+        torch.cuda._sleep(int(spin_ms * cycles_per_ms))
+        s.record()
+        for i in range(calls):
+            fn(i % nbuf)
+        e.record()
+        covered = not s.query()      # the spin outlasted the host's queueing
+        torch.cuda.synchronize()
+        if covered:
+            return s.elapsed_time(e) / calls
+        spin_ms *= 4
+    check(False, f"a spin of {spin_ms:.0f} ms did not outlast the host's "
+          f"queueing of {calls} calls")
+
+
+def device_ms_per_call(fn, nbuf, calls=20):
+    """Device time of one ``fn(i)`` call: ``torch.profiler``'s kernel
+    records (up to ``PROFILER_TRIES`` profiles); where every profile
+    records no device time, CUDA events behind a spin
+    (``spun_ms_per_call``).  ``DEVICE_TIME_BY`` counts which one gave each
+    time; the kernels line reports it."""
+    for i in range(3):
+        fn(i % nbuf)
+    torch.cuda.synchronize()
+    for _ in range(PROFILER_TRIES):
+        ms = profiled_ms_per_call(fn, nbuf, calls)
+        if ms is not None:
+            DEVICE_TIME_BY["torch.profiler"] += 1
+            return ms
+    ms = spun_ms_per_call(fn, nbuf, calls)
+    print(f"  device time by events behind a spin: {ms:.4f} ms (the "
+          f"profiler recorded no device time in {PROFILER_TRIES} profiles)")
+    DEVICE_TIME_BY["events behind a spin"] += 1
+    check(ms > 0, "no device time by either the profiler or events")
+    return ms
+
+
+def two_bounds(nbytes, flops):
+    """The least time (ms) for ``nbytes`` of HBM traffic and ``flops`` of
+    f32 work, two ways: ``f32`` on CUDA cores, max(bytes / 3.35e12,
+    flops / 67e12); ``tf32x3`` as the tensor-core kernels run it,
+    max(bytes / 3.35e12, 3 flops / 495e12) (three TF32 products per f32
+    product).  Each an ``(ms, "bytes" or "operations")`` pair."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+
+    def pick(t_ops):
+        return (max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    return dict(f32=pick(flops / F32_FLOP_PER_S * 1e3),
+                tf32x3=pick(3 * flops / TF32_FLOP_PER_S * 1e3))
 
 
 def bound(b, h, tq, c, d, lens, quantized):
     """Least time (ms) for decode attention on these inputs: each input
     read once (only the cache positions the rows attend), each output
-    written once, over the HBM rate; or the multiply-adds over the f32
-    peak; whichever is larger."""
+    written once, over the HBM rate; or the multiply-adds over the peak
+    (f32 CUDA cores, and 3xTF32 tensor cores: ``two_bounds``)."""
     kv_pos = sum(min(l + tq, c) for l in lens) * h     # attended positions
     elt = 1 if quantized else 4
     nbytes = (b * h * tq * d * 4              # q
@@ -280,15 +363,12 @@ def bound(b, h, tq, c, d, lens, quantized):
               + (2 * kv_pos * 4 if quantized else 0)   # their scales
               + b * 4                         # cache_len
               + b * h * tq * d * 4)           # out
-    attended = sum(l + i + 1 for l in lens for i in range(tq)) * h
+    attended = sum(min(l + i + 1, c) for l in lens for i in range(tq)) * h
     flops = 4 * d * attended                  # q.k and p.v, 2 flops each
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops), by, nbytes, flops
+    return two_bounds(nbytes, flops), nbytes, flops
 
 
-def time_shape(b, tq, c, lens, quantized, dev, label, d=D):
+def time_shape(b, tq, c, lens, quantized, dev, label, d=D, device=False):
     from mxnet_tpu_torch.ops import attention as att
 
     g = torch.Generator(device="cpu").manual_seed(7)
@@ -313,23 +393,48 @@ def time_shape(b, tq, c, lens, quantized, dev, label, d=D):
     err = (got - want).abs().max().item()
     check(bool(((got - want).abs() <= TOL + TOL * want.abs()).all()),
           f"{label}: timed inputs off by {err:.3e} over atol=rtol={TOL}")
-    kern = cuda_time_ms(lambda i: att.flash_attention_decode(
-        *bufs[i][:3], lens_t, **bufs[i][3]), nbuf)
+
+    def kern_fn(i):
+        return att.flash_attention_decode(*bufs[i][:3], lens_t, **bufs[i][3])
+
+    def lib_fn(i):
+        return F.scaled_dot_product_attention(*bufs[i][:3], attn_mask=mask)
+
+    kern = cuda_time_ms(kern_fn, nbuf)
     plain = cuda_time_ms(lambda i: att.flash_attention_decode_reference(
         *bufs[i][:3], lens_t, **bufs[i][3]), nbuf)
-    lib = None
-    if not quantized:
-        lib = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
-            *bufs[i][:3], attn_mask=mask), nbuf)
-    bnd, by, nbytes, flops = bound(b, H, tq, c, d, lens, quantized)
+    lib = None if quantized else cuda_time_ms(lib_fn, nbuf)
+    kern_dev = lib_dev = None
+    kern_spun = None
+    if device:   # device time alone: events count a wrapper's host time
+        kern_dev = device_ms_per_call(kern_fn, nbuf)
+        lib_dev = None if quantized else device_ms_per_call(lib_fn, nbuf)
+        # the profiler's fallback, run on every such row to hold it to
+        # the profiler's reading
+        kern_spun = spun_ms_per_call(kern_fn, nbuf, 20)
+    bd, nbytes, flops = bound(b, H, tq, c, d, lens, quantized)
+    length, splits = att.split_plan(
+        b * H, tq, c, d, torch.cuda.get_device_properties(dev)
+        .multi_processor_count)
+    path = f"split-K S={splits} L={length}" if splits else "chunk"
+    (bnd, by), (t3, t3_by) = bd["f32"], bd["tf32x3"]
+    dev_note = "" if not device else (
+        f"; device time kernel {kern_dev:.4f} ms (events behind a spin "
+        f"{kern_spun:.4f} ms), SDPA "
+        f"{'n/a' if lib_dev is None else f'{lib_dev:.4f} ms'}")
     print(f"  time {label}: B={b} Tq={tq} C={c} d={d} cache_len~{lens[0]} "
-          f"kernel {kern:.4f} ms, plain {plain:.4f} ms, library "
-          f"{'n/a' if lib is None else f'{lib:.4f} ms'}; bound "
+          f"({path}) kernel {kern:.4f} ms, plain {plain:.4f} ms, library "
+          f"{'n/a' if lib is None else f'{lib:.4f} ms'}{dev_note}; bound "
           f"max({nbytes} B / 3.35e12 B/s, {flops} flop / 67e12 flop/s) = "
-          f"{bnd:.4f} ms ({by}); {nbuf} input copies")
+          f"{bnd:.4f} ms ({by}), 3xTF32 {t3:.4f} ms ({t3_by}); {nbuf} "
+          f"input copies")
     return dict(shape=dict(B=b, H=H, Tq=tq, C=c, d=d, cache_len=lens),
                 ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                bound_by=by, max_abs_err=err)
+                bound_by=by, bound_f32_ms=bnd, bound_f32_by=by,
+                bound_tf32x3_ms=t3, bound_tf32x3_by=t3_by,
+                device_ms=kern_dev, device_spun_ms=kern_spun,
+                library_device_ms=lib_dev, splits=splits, split_len=length,
+                max_abs_err=err)
 
 
 # ------------------------------------------------------------- phases
@@ -386,6 +491,85 @@ def phase_kernels(dev):
     return worst
 
 
+def split_case(b, tq, c, d, lens, quantized, seed, device):
+    """B x H x Tq x d queries against a (B, H, C, d) cache with NaN past
+    each row's window (in the values, or in an int8 cache's scales).
+    Returns the kernel's inputs and the plain version's (garbage zeroed
+    where the plain version multiplies it by 0)."""
+    from mxnet_tpu_torch.ops import attention as att
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.rand(b, H, tq, d, generator=g) - 0.5
+    k = torch.rand(b, H, c, d, generator=g) - 0.5
+    v = torch.rand(b, H, c, d, generator=g) - 0.5
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    past = (torch.arange(c)[None, :] >= lens_t[:, None] + tq)
+    past = past[:, None, :, None]
+    if quantized:
+        k, ks = att.quantize_kv(k)
+        v, vs = att.quantize_kv(v)
+        ks = ks.masked_fill(past, float("nan"))
+        vs = vs.masked_fill(past, float("nan"))
+        kern = dict(q=q, k=k, v=v, cache_len=lens_t, k_scale=ks, v_scale=vs)
+        plain = dict(kern, v_scale=torch.nan_to_num(vs))
+    else:
+        k = k.masked_fill(past, float("nan"))
+        v = v.masked_fill(past, float("nan"))
+        kern = dict(q=q, k=k, v=v, cache_len=lens_t)
+        plain = dict(kern, v=torch.nan_to_num(v))
+    move = (lambda x: {n: t.to(device) for n, t in x.items()})
+    return move(kern), move(plain)
+
+
+def phase_decode_splits(dev, worst):
+    """Phase 2b: the split-K plan's edges against the plain version."""
+    from mxnet_tpu_torch.ops import attention as att
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = 0
+    for quantized in (False, True):
+        name = "flash_attention_decode_int8" if quantized else \
+            "flash_attention_decode"
+        for d in (36, 64, 264, 320):
+            errs, plans = [], set()
+            for c in (100, 1024, 4096):
+                for tq in (1, 4, 7):
+                    length, splits = att.split_plan(4 * H, tq, c, d, sms)
+                    plans.add((length, splits))
+                    step = length if splits else 64
+                    lens = [0, 1, min(c - tq, step + step // 2),
+                            max(0, min(c, 2 * step) - tq)]
+                    kern_in, plain_in = split_case(4, tq, c, d, lens,
+                                                   quantized,
+                                                   seed=c + 10 * tq + d,
+                                                   device=dev)
+                    out, lse = att.flash_attention_decode(**kern_in,
+                                                          return_lse=True)
+                    again = att.flash_attention_decode(**kern_in)
+                    torch.cuda.synchronize()
+                    ref, ref_lse = att.flash_attention_decode_reference(
+                        **plain_in, return_lse=True)
+                    check(bool(torch.isfinite(out).all()),
+                          f"{name} split C={c} Tq={tq} d={d}: non-finite")
+                    check(bool(torch.equal(out, again)),
+                          f"{name} split C={c} Tq={tq} d={d}: two calls "
+                          "differ")
+                    for got, want in ((out, ref), (lse, ref_lse)):
+                        diff = (got - want).abs()
+                        check(bool((diff <= TOL + TOL * want.abs()).all()),
+                              f"{name} split C={c} Tq={tq} d={d} lens="
+                              f"{lens}: max err {diff.max().item():.3e} over"
+                              f" atol=rtol={TOL}")
+                        errs.append(diff.max().item())
+                    n += 1
+            worst[name] = max(worst[name], max(errs))
+            print(f"  {name} d={d:3d}: 9 cases (C 100/1024/4096 x Tq "
+                  f"1/4/7), plans (L, S) {sorted(plans)}, max abs err "
+                  f"{max(errs):.3e}, same bits twice")
+    print(f"phase 2b split-K decode vs plain: {n} cases within "
+          f"atol=rtol={TOL}, NaN past every window never read")
+
+
 def phase_times(dev):
     rows = {}
     decode_lens = [1000 - 3 * i for i in range(B)]
@@ -394,13 +578,13 @@ def phase_times(dev):
             "flash_attention_decode"
         rows[name] = dict(
             decode=time_shape(B, 1, 1024, decode_lens, quantized, dev,
-                              f"{name} decode"),
+                              f"{name} decode", device=True),
             prefill=time_shape(1, 256, 256, [0], quantized, dev,
                                f"{name} prefill"),
             # shapes beyond the TPU kernel's tiling: a 1024-token prefill
             # chunk, a cache capacity that is no multiple of 8, d = 36
             prefill_1024=time_shape(1, 1024, 1100, [0], quantized, dev,
-                                    f"{name} prefill Tq=1024"),
+                                    f"{name} prefill Tq=1024", device=True),
             decode_c100=time_shape(B, 1, 100, [90 - i for i in range(B)],
                                    quantized, dev, f"{name} decode C=100"),
             decode_d36=time_shape(B, 1, 1024, decode_lens, quantized, dev,
@@ -542,8 +726,9 @@ def phase_serve_int8(lm, card):
 
 
 # ------------------------------------------------------- flash attention
-FLASH_B, FLASH_T, FLASH_D = 4, (1, 37, 128, 512), (64, 128, 256)
-BWD_D = (36, 64, 100, 128, 256)   # phase 8: widths off the 8-grid too
+FLASH_B, FLASH_T = 4, (1, 37, 128, 512)
+FLASH_D = (64, 128, 256, 264, 320, 512)
+BWD_D = (36, 64, 100, 128, 256, 264, 320, 512)  # phase 8: off the 8-grid too
 
 
 def flash_case(t, d, lens, seed, device):
@@ -579,12 +764,16 @@ def phase_flash_kernel(dev):
                         t, d, lens, seed=d * 1000 + t * 2 + part, device=dev)
                     out, lse = att.flash_attention(**kern_in, causal=causal,
                                                    return_lse=True)
+                    again = att.flash_attention(**kern_in, causal=causal)
                     torch.cuda.synchronize()
                     ref, ref_lse = att.flash_attention_reference(
                         **plain_in, causal=causal, return_lse=True)
                     check(bool(torch.isfinite(out).all()),
                           f"flash d={d} T={t} causal={causal}: non-finite "
                           "output")
+                    check(bool(torch.equal(out, again)),
+                          f"flash d={d} T={t} causal={causal}: two calls "
+                          "differ")
                     for got, want in ((out, ref), (lse, ref_lse)):
                         # lse is -inf on an empty row in both versions
                         same_inf = torch.isinf(want) & (got == want)
@@ -599,8 +788,41 @@ def phase_flash_kernel(dev):
             worst = max(worst, max(errs))
             print(f"  flash_attention d={d:3d} T={t:3d}: 4 cases (causal "
                   f"off/on x 2 length sets), max abs err {max(errs):.3e}")
+    # Tq != Tk on views at storage offset 1 (not 16-byte aligned)
+    for d in (64, 320):
+        for tq, tk in ((70, 130), (129, 65)):
+            for causal in (False, True):
+                g = torch.Generator(device="cpu").manual_seed(tq + d)
+                x = [torch.rand(FLASH_B, H, t_, d, generator=g) - 0.5
+                     for t_ in (tq, tk, tk)]
+                views = []
+                for t_ in x:
+                    flat = torch.empty(t_.numel() + 1, device=dev)
+                    flat[1:] = t_.reshape(-1).to(dev)
+                    views.append(flat[1:].view(t_.shape))
+                check(views[0].data_ptr() % 16 != 0, "view is aligned")
+                lens = torch.tensor([min(tk, n_) for n_ in (0, 1, 63, tk)],
+                                    dtype=torch.int32, device=dev)
+                out, lse = att.flash_attention(*views, causal=causal,
+                                               kv_valid_length=lens,
+                                               return_lse=True)
+                torch.cuda.synchronize()
+                ref, ref_lse = att.flash_attention_reference(
+                    *views, causal=causal, kv_valid_length=lens,
+                    return_lse=True)
+                for got, want in ((out, ref), (lse, ref_lse)):
+                    same_inf = torch.isinf(want) & (got == want)
+                    diff = torch.where(same_inf, torch.zeros_like(got),
+                                       (got - want).abs())
+                    check(bool((diff <= TOL + TOL * want.abs()).all()),
+                          f"flash d={d} Tq={tq} Tk={tk} causal={causal} "
+                          f"unaligned: max err {diff.max().item():.3e}")
+                    worst = max(worst, diff.max().item())
+                n += 1
+    print("  flash_attention Tq != Tk (70 x 130, 129 x 65), d 64 / 320, "
+          "unaligned views: 8 cases")
     print(f"phase 6a flash kernel vs plain: {n} cases within atol=rtol={TOL}"
-          " (TF32 off)")
+          " (TF32 off), the same bits on two calls")
     return worst
 
 
@@ -608,19 +830,16 @@ def flash_bound(b, t, d, lens):
     """Least time (ms) for the flash forward on these inputs: q read and
     out written in full, k and v read only over each row's valid keys,
     over the HBM rate; or 4 d flops per attended (query, key) pair over
-    the f32 peak; whichever is larger."""
+    the peak (``two_bounds``: f32 CUDA cores, 3xTF32 tensor cores)."""
     keys = sum(min(x, t) for x in lens) * H        # valid key rows
     nbytes = (2 * b * H * t * d * 4              # q and out
               + 2 * keys * d * 4                 # k and v
               + b * 4)                           # lengths
     flops = 4 * d * t * keys                     # q.k and p.v, 2 each
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops), by, nbytes, flops
+    return two_bounds(nbytes, flops), nbytes, flops
 
 
-def time_flash(b, t, lens, dev, label, d=D):
+def time_flash(b, t, lens, dev, label, d=D, device=False):
     from mxnet_tpu_torch.ops import attention as att
 
     g = torch.Generator(device="cpu").manual_seed(11)
@@ -631,20 +850,35 @@ def time_flash(b, t, lens, dev, label, d=D):
     lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
     mask = (torch.arange(t, device=dev)[None, :]
             < lens_t[:, None])[:, None, None, :]
-    kern = cuda_time_ms(lambda i: att.flash_attention(
-        *bufs[i], kv_valid_length=lens_t), nbuf)
+
+    def kern_fn(i):
+        return att.flash_attention(*bufs[i], kv_valid_length=lens_t)
+
+    def lib_fn(i):
+        return F.scaled_dot_product_attention(*bufs[i], attn_mask=mask)
+
+    kern = cuda_time_ms(kern_fn, nbuf)
     plain = cuda_time_ms(lambda i: att.flash_attention_reference(
         *bufs[i], kv_valid_length=lens_t), nbuf)
-    lib = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
-        *bufs[i], attn_mask=mask), nbuf)
-    bnd, by, nbytes, flops = flash_bound(b, t, d, lens)
+    lib = cuda_time_ms(lib_fn, nbuf)
+    kern_dev = lib_dev = None
+    if device:
+        kern_dev = device_ms_per_call(kern_fn, nbuf)
+        lib_dev = device_ms_per_call(lib_fn, nbuf)
+    bd, nbytes, flops = flash_bound(b, t, d, lens)
+    (bnd, by), (f32, f32_by) = bd["tf32x3"], bd["f32"]
+    dev_note = "" if not device else (
+        f"; device time kernel {kern_dev:.4f} ms, SDPA {lib_dev:.4f} ms")
     print(f"  time {label}: B={b} H={H} T={t} d={d} kv_len "
           f"{min(lens)}..{max(lens)} kernel {kern:.4f} ms, plain "
-          f"{plain:.4f} ms, SDPA {lib:.4f} ms; bound max({nbytes} B / "
-          f"3.35e12 B/s, {flops} flop / 67e12 flop/s) = {bnd:.4f} ms "
-          f"({by}); {nbuf} input copies")
+          f"{plain:.4f} ms, SDPA {lib:.4f} ms{dev_note}; bound 3xTF32 "
+          f"max({nbytes} B / 3.35e12 B/s, 3 x {flops} flop / 495e12 "
+          f"flop/s) = {bnd:.4f} ms ({by}), f32 CUDA cores {f32:.4f} ms "
+          f"({f32_by}); {nbuf} input copies")
     return dict(shape=dict(B=b, H=H, T=t, d=d, kv_len=lens), ms=kern,
-                plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by)
+                plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
+                bound_f32_ms=f32, bound_f32_by=f32_by, device_ms=kern_dev,
+                library_device_ms=lib_dev)
 
 
 def phase_flash_times(dev):
@@ -653,7 +887,8 @@ def phase_flash_times(dev):
     lens16[0] = 512
     lens8 = rs.randint(16, 129, size=8).tolist()
     lens8[0] = 128
-    rows = dict(serve_b16=time_flash(16, 512, lens16, dev, "flash B=16"),
+    rows = dict(serve_b16=time_flash(16, 512, lens16, dev, "flash B=16",
+                                     device=True),
                 serve_b8=time_flash(8, 128, lens8, dev, "flash B=8"),
                 serve_b8_d36=time_flash(8, 128, lens8, dev,
                                         "flash B=8 d=36", d=36))
@@ -865,15 +1100,8 @@ def bwd_bound(b, t, d, lens, kernel):
     else:
         writes = 2 * b * H * t * d * 4              # dk, dv
     flops = (6 if kernel == "dq" else 8) * d * t * keys
-    t_bytes = (reads + writes) / HBM_BYTES_PER_S * 1e3
-
-    def pick(t_ops):
-        return (max(t_bytes, t_ops),
-                "bytes" if t_bytes >= t_ops else "operations")
-
-    return dict(f32=pick(flops / F32_FLOP_PER_S * 1e3),
-                tf32x3=pick(3 * flops / TF32_FLOP_PER_S * 1e3),
-                nbytes=reads + writes, flops=flops)
+    return dict(two_bounds(reads + writes, flops), nbytes=reads + writes,
+                flops=flops)
 
 
 def time_bwd(b, t, lens, dev, label):
@@ -1817,6 +2045,7 @@ def main() -> int:
     phase_build()
     card = card_line()
     worst = phase_kernels(dev)
+    phase_decode_splits(dev, worst)
     times = phase_times(dev)
     print("phase 3 times: done")
     lm, f32 = phase_serve_f32(dev, card)
@@ -1851,8 +2080,18 @@ def main() -> int:
             source=f"mxnet_tpu_torch/csrc/{src}", replaces=replaces,
             launches=launches[name], max_abs_err=worst[name],
             max_err=worst[name], ms=dec["ms"], kernel_ms=dec["ms"],
-            plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"],
-            bound_by=dec["bound_by"], library_ms=dec["library_ms"],
+            device_ms=dec["device_ms"], device_spun_ms=dec["device_spun_ms"],
+            plain_ms=dec["plain_ms"],
+            bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
+            bound_note="f32 on CUDA cores, which the split-K path runs: "
+                       "max(bytes / 3.35e12, flops / 67e12)",
+            bound_f32_ms=dec["bound_f32_ms"],
+            bound_tf32x3_ms=dec["bound_tf32x3_ms"],
+            library_ms=dec["library_ms"],
+            library_device_ms=dec["library_device_ms"],
+            library="scaled_dot_product_attention with the boolean decode "
+                    "mask" if variant == "f32" else None,
+            splits=dec["splits"], split_len=dec["split_len"],
             shape=dec["shape"], prefill=times[name]["prefill"],
             prefill_1024=times[name]["prefill_1024"],
             decode_c100=times[name]["decode_c100"],
@@ -1867,9 +2106,17 @@ def main() -> int:
         launches_serving=bert["launches"],
         launches_training=train_launches["flash_attention"],
         max_abs_err=flash_worst,
-        ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
+        ms=main_shape["ms"], device_ms=main_shape["device_ms"],
+        plain_ms=main_shape["plain_ms"],
         bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],
-        library_ms=main_shape["library_ms"], shape=main_shape["shape"],
+        bound_note="3xTF32 on tensor cores: max(bytes / 3.35e12, "
+                   "3 flops / 495e12)",
+        bound_f32_ms=main_shape["bound_f32_ms"],
+        bound_f32_by=main_shape["bound_f32_by"],
+        library_ms=main_shape["library_ms"],
+        library_device_ms=main_shape["library_device_ms"],
+        library="scaled_dot_product_attention with the boolean key-padding "
+                "mask", shape=main_shape["shape"],
         serve_b8=flash_times["serve_b8"],
         serve_b8_d36=flash_times["serve_b8_d36"]))
     for name, key in (("flash_attention_bwd_dq", "dq"),
@@ -1945,6 +2192,7 @@ def main() -> int:
                                 "resnet_card_vs_cpu": resnet_cpu,
                                 "lenet": lenet, "extension_block": ext_drive,
                                 "resnet50_eager": resnet_eager},
+                      "device_time_by": DEVICE_TIME_BY,
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -40,6 +40,8 @@
 // as rows), so P^T and dS^T are born in the layout their products take.
 // `wgmma` (the card's full rate) needs its B operand in shared memory in
 // a swizzled layout and 64-row warpgroup tiles; it is the later step.
+// The copies, the split, the MMA and the fragment loaders live in
+// tf32x3.cuh, shared with the forward and the decode kernels.
 //
 // Loads.  Tiles stream through shared memory with `cp.async`: 16-byte
 // `.cg` copies when d % 4 == 0 and every input pointer is 16-byte
@@ -66,6 +68,7 @@
 //   d <= 128: BM 64, NS 2, 256 threads; dq BN 16 (118 KB), dk/dv BN 32
 //             (169 KB).
 //   d <= 256: BM 32, BN 16, NS 2 (dq) or 4 (dk/dv); 166 KB, one block.
+//   d > 256:  the wide kernels below (slabs of d, groups of columns).
 // d = 64 (BERT's width, the main path) runs an instantiation with d a
 // constant, so strides and the depth loop fold; every other d runs the
 // runtime-width one.  MX_FLASH_BWD_FIXED_D picks the widths compiled as
@@ -93,207 +96,13 @@
 // fragment reads with few warps resident (registers cap them) leave
 // latency exposed.  wgmma with TMA and a deeper ring are the levers.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "tf32x3.cuh"
 
 namespace {
-
-constexpr int DMAX = 256;
 
 #ifndef MX_FLASH_BWD_FIXED_D
 #define MX_FLASH_BWD_FIXED_D 0x2
 #endif
-
-// ------------------------------------------------------------- copies
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Rows [row0, row0 + R) of a (rows, d) f32 matrix into a shared tile of
-// row stride ds, columns d..dp zero, rows at or past `valid` zero.  A
-// thread's chunks advance by a fixed (row, column) step: no division in
-// the loop.
-template <int R, int NT>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int row0, int valid, int d, int dp,
-                                          int ds, bool vec) {
-  const int w = vec ? 4 : 1;     // floats a copy moves
-  const int cpr = dp / w;        // copies a row
-  const int rstep = NT / cpr, cstep = NT - rstep * cpr;
-  int r = threadIdx.x / cpr, c = threadIdx.x - r * cpr;
-  while (r < R) {
-    const int col = c * w;
-    const bool ok = row0 + r < valid && col < d;
-    const float* from = ok ? src + (size_t)(row0 + r) * d + col : src;
-    if (vec)
-      cp16(dst + r * ds + col, from, ok);
-    else
-      cp4(dst + r * ds + col, from, ok);
-    r += rstep;
-    c += cstep;
-    if (c >= cpr) {
-      c -= cpr;
-      ++r;
-    }
-  }
-}
-
-// n values [row0, row0 + n) of a vector, zero at or past `valid`.
-template <int NT>
-__device__ __forceinline__ void load_vec(float* dst, const float* src,
-                                         int row0, int n, int valid,
-                                         int tid) {
-  for (int i = tid; i < n; i += NT) {
-    const bool ok = row0 + i < valid;
-    cp4(dst + i, ok ? src + row0 + i : src, ok);
-  }
-}
-
-// ------------------------------------------------------- 3xTF32 MMA
-// x = hi + lo with hi, lo TF32 values (low 13 bits zero): hi rounds x to
-// nearest on its 10-bit mantissa (add half a TF32 ulp, then mask), lo is
-// the exact rest x - hi truncated to TF32.  |x - hi - lo| <= 2^-21 |x|.
-// Integer and f32 adds and masks, all at full rate; `cvt.rna.tf32.f32`
-// would do the rounding on the conversion unit at a quarter of the rate,
-// twice per split.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  // not volatile: the compiler may interleave independent MMAs
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c[j] += a b[j] for every tile j < N, both operands split: the three
-// products lo*hi', hi*lo', hi*hi' (lo*lo' is below f32 rounding) each in
-// its own pass over j, so the MMAs into one accumulator are N issues apart
-// and the tensor pipe never waits on the last one.  No tile is skipped
-// here: an MMA under a condition the compiler cannot prove warp-uniform
-// gets a WARPSYNC and a reconvergence branch of its own (one each, seen in
-// the SASS), which cost more than the MMAs of a dead tile.
-template <int N>
-__device__ __forceinline__ void mma3_row(float (&c)[N][4],
-                                         const uint32_t (&ah)[4],
-                                         const uint32_t (&al)[4],
-                                         const uint32_t (&bh)[N][2],
-                                         const uint32_t (&bl)[N][2]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) mma(c[j], al, bh[j]);
-#pragma unroll
-  for (int j = 0; j < N; ++j) mma(c[j], ah, bl[j]);
-#pragma unroll
-  for (int j = 0; j < N; ++j) mma(c[j], ah, bh[j]);
-}
-
-// Fragments, for lane (g, t) = (lane / 4, lane % 4).  A (16 x 8, rows by
-// depth): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4).  B (8 x 8,
-// depth by columns): b0 (t, g), b1 (t+4, g).  C (16 x 8): c0 (g, 2t),
-// c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1).
-
-// A from a row-major shared f32 tile, split here; `s` points at (row 0,
-// depth 0).  Only a warp's own rows, so each value is split once.
-__device__ __forceinline__ void frag_a(const float* s, int ds, int g, int t,
-                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  split(s[g * ds + t], hi[0], lo[0]);
-  split(s[(g + 8) * ds + t], hi[1], lo[1]);
-  split(s[g * ds + t + 4], hi[2], lo[2]);
-  split(s[(g + 8) * ds + t + 4], hi[3], lo[3]);
-}
-
-// An accumulator fragment (16 x 8) as an A fragment over its 8 columns,
-// depth permuted: depth t = column 2t, depth t+4 = column 2t+1.
-__device__ __forceinline__ void frag_c2a(const float (&c)[4],
-                                         uint32_t (&hi)[4],
-                                         uint32_t (&lo)[4]) {
-  split(c[0], hi[0], lo[0]);
-  split(c[2], hi[1], lo[1]);
-  split(c[1], hi[2], lo[2]);
-  split(c[3], hi[3], lo[3]);
-}
-
-// B fragments of the tiles j < N from a tile split in shared memory (hi
-// part `h`, lo part `l`, same layout), either as the tile's rows read as
-// columns, B(k, n) = tile[j * 8 + n][k] (`rows`), or as its columns
-// col0 + j * 8.. in the permuted depth order of frag_c2a, B(k, n) =
-// tile[perm(k)][col0 + j * 8 + n] with depth t at row 2t and t+4 at row
-// 2t+1.  A column block at or past dp reads block dp - 8 instead (a
-// select, not a branch): its products land in accumulators that are never
-// stored.
-template <int N, bool ROWS>
-__device__ __forceinline__ void frags_b(const uint32_t* h, const uint32_t* l,
-                                        int ds, int g, int t,
-                                        uint32_t (&bh)[N][2],
-                                        uint32_t (&bl)[N][2], int col0 = 0,
-                                        int dp = 0) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    const int a0 = ROWS ? (j * 8 + g) * ds + t
-                        : 2 * t * ds + min(col0 + j * 8, dp - 8) + g;
-    const int a1 = ROWS ? a0 + 4 : a0 + ds;
-    bh[j][0] = h[a0];
-    bh[j][1] = h[a1];
-    bl[j][0] = l[a0];
-    bl[j][1] = l[a1];
-  }
-}
-
-// hi and lo of rows [0, R) x columns [0, dp) of a shared f32 tile, once
-// for the whole block.
-template <int R, int NT>
-__device__ __forceinline__ void split_tile(uint32_t* h, uint32_t* l,
-                                           const float* raw, int dp,
-                                           int ds) {
-  const int cpr = dp >> 2;
-  const int rstep = NT / cpr, cstep = NT - rstep * cpr;
-  int r = threadIdx.x / cpr, c = threadIdx.x - r * cpr;
-  while (r < R) {
-    const int at = r * ds + (c << 2);
-    const float4 x = *reinterpret_cast<const float4*>(raw + at);
-    uint4 xh, xl;
-    split(x.x, xh.x, xl.x);
-    split(x.y, xh.y, xl.y);
-    split(x.z, xh.z, xl.z);
-    split(x.w, xh.w, xl.w);
-    *reinterpret_cast<uint4*>(h + at) = xh;
-    *reinterpret_cast<uint4*>(l + at) = xl;
-    r += rstep;
-    c += cstep;
-    if (c >= cpr) {
-      c -= cpr;
-      ++r;
-    }
-  }
-}
 
 template <int DP_, int WR_, int BN_, int NS_>
 struct Cfg {
@@ -311,16 +120,6 @@ struct Cfg {
       (MX_FLASH_BWD_FIXED_D >> (DP_ == 32 ? 0 : DP_ == 64 ? 1
                                 : DP_ == 128 ? 2 : 3)) & 1;
 };
-
-__device__ __forceinline__ void store_pair(float* p, float x, float y,
-                                           int col, int d, bool vec2) {
-  if (vec2 && col + 1 < d) {
-    *reinterpret_cast<float2*>(p) = make_float2(x, y);
-  } else {
-    if (col < d) p[0] = x;
-    if (col + 1 < d) p[1] = y;
-  }
-}
 
 // ------------------------------------------------------------ dq kernel
 // Shared memory: Q and G rows as loaded (BM x ds each; the warps split
@@ -369,13 +168,17 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t qoff = (size_t)bhx * Tq, koff = (size_t)bhx * Tk;
   const float* kb = k + koff * d;
   const float* vb = v + koff * d;
-  load_tile<BM, NT>(sq, q + qoff * d, q0, Tq, d, dp, ds, vec);
-  load_tile<BM, NT>(sg, g + qoff * d, q0, Tq, d, dp, ds, vec);
-  load_tile<BM, NT>(so, out + qoff * d, q0, Tq, d, dp, ds, vec);
+  load_tile<BM, NT>(sq, q + qoff * d, q0, Tq, d, 0, d, dp, ds,
+                    vec, threadIdx.x);
+  load_tile<BM, NT>(sg, g + qoff * d, q0, Tq, d, 0, d, dp, ds,
+                    vec, threadIdx.x);
+  load_tile<BM, NT>(so, out + qoff * d, q0, Tq, d, 0, d, dp, ds,
+                    vec, threadIdx.x);
   cp_commit();
   if (ntiles > 0) {
-    load_tile<BN, NT>(raw, kb, 0, kv_end, d, dp, ds, vec);
-    load_tile<BN, NT>(raw + BN * ds, vb, 0, kv_end, d, dp, ds, vec);
+    load_tile<BN, NT>(raw, kb, 0, kv_end, d, 0, d, dp, ds, vec, threadIdx.x);
+    load_tile<BN, NT>(raw + BN * ds, vb, 0, kv_end, d, 0, d, dp, ds,
+                      vec, threadIdx.x);
   }
   cp_commit();
   cp_wait<1>();
@@ -427,9 +230,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     split_tile<BN, NT>(vh, vl, raw + BN * ds, dp, ds);
     __syncthreads();
     if (it + 1 < ntiles) {  // the next tile streams in while this one runs
-      load_tile<BN, NT>(raw, kb, (it + 1) * BN, kv_end, d, dp, ds, vec);
-      load_tile<BN, NT>(raw + BN * ds, vb, (it + 1) * BN, kv_end, d, dp, ds,
-                        vec);
+      load_tile<BN, NT>(raw, kb, (it + 1) * BN, kv_end, d, 0, d, dp, ds,
+                        vec, threadIdx.x);
+      load_tile<BN, NT>(raw + BN * ds, vb, (it + 1) * BN, kv_end, d, 0, d,
+                        dp, ds, vec, threadIdx.x);
     }
     cp_commit();
     const int k0 = it * BN;
@@ -552,11 +356,14 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* db = delta + qoff;
   float* rl = raw + 2 * BN * ds;     // lse and delta as loaded
 
-  load_tile<BM, NT>(sk, k + koff * d, k0, kv_end, d, dp, ds, vec);
-  load_tile<BM, NT>(sv, v + koff * d, k0, kv_end, d, dp, ds, vec);
+  load_tile<BM, NT>(sk, k + koff * d, k0, kv_end, d, 0, d, dp, ds,
+                    vec, threadIdx.x);
+  load_tile<BM, NT>(sv, v + koff * d, k0, kv_end, d, 0, d, dp, ds,
+                    vec, threadIdx.x);
   if (ntiles > 0) {
-    load_tile<BN, NT>(raw, qb, i_begin, Tq, d, dp, ds, vec);
-    load_tile<BN, NT>(raw + BN * ds, gb, i_begin, Tq, d, dp, ds, vec);
+    load_tile<BN, NT>(raw, qb, i_begin, Tq, d, 0, d, dp, ds, vec, threadIdx.x);
+    load_tile<BN, NT>(raw + BN * ds, gb, i_begin, Tq, d, 0, d, dp, ds,
+                      vec, threadIdx.x);
     load_vec<NT>(rl, lb, i_begin, BN, Tq, threadIdx.x);
     load_vec<NT>(rl + BN, db, i_begin, BN, Tq, (threadIdx.x + BN) % NT);
   }
@@ -581,8 +388,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int i0 = i_begin + it * BN;
     if (it + 1 < ntiles) {  // the next tile streams in while this one runs
       const int i1 = i0 + BN;
-      load_tile<BN, NT>(raw, qb, i1, Tq, d, dp, ds, vec);
-      load_tile<BN, NT>(raw + BN * ds, gb, i1, Tq, d, dp, ds, vec);
+      load_tile<BN, NT>(raw, qb, i1, Tq, d, 0, d, dp, ds, vec, threadIdx.x);
+      load_tile<BN, NT>(raw + BN * ds, gb, i1, Tq, d, 0, d, dp, ds,
+                        vec, threadIdx.x);
       load_vec<NT>(rl, lb, i1, BN, Tq, threadIdx.x);
       load_vec<NT>(rl + BN, db, i1, BN, Tq, (threadIdx.x + BN) % NT);
     }
@@ -656,6 +464,317 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ------------------------------------------------- widths above 256
+// d > 256: every contraction over d (S, dP, and delta in the dq kernel)
+// streams through shared memory in slabs of WSW = 64 columns summed in
+// registers, and the outputs (dq, or dk and dv) are split over the grid's
+// second axis into groups of WSW columns, each group recomputing its
+// scores.  Loads are synchronous: load, barrier, split, barrier, multiply.
+// Block: WBM = 64 owned rows (4 warps of 16), streamed tiles of WBN = 32.
+// Shared memory: two owned slabs (WBM x WDS each), two streamed slabs as
+// loaded (2 WBN x WDS) and split (hi, lo: 4 WBN x WDS).
+constexpr int WSW = 64, WDS = WSW + 4;
+constexpr int WBM = 64, WBN = 32, WNT = 128;
+constexpr int WNB = WBN / 8, WNJ = WSW / 8;
+constexpr size_t WIDE_SMEM =
+    sizeof(float) * (2 * (size_t)WBM * WDS + 6 * (size_t)WBN * WDS);
+
+// s += A1 B1^T and s2 += A2 B2^T over every slab of d: A rows [a0, a0 +
+// WBM) (valid below av), B rows [b0, b0 + WBN) (valid below bv); the warp
+// multiplies only when `live` (warp-uniform), every thread loads.
+__device__ __forceinline__ void wide_scores(
+    float (&s)[WNB][4], float (&s2)[WNB][4], const float* a1, const float* a2,
+    int a0, int av, const float* b1, const float* b2, int b0, int bv, int d,
+    bool vec, bool live, float* sa, float* sb, float* raw, uint32_t* h1,
+    uint32_t* l1, uint32_t* h2, uint32_t* l2, int r0, int g, int t) {
+  const int tid = threadIdx.x;
+  for (int cs = 0; cs < d; cs += WSW) {
+    const int n = min(WSW, d - cs), np = (n + 7) & ~7;
+    __syncthreads();  // the previous slab's readers are done
+    load_tile<WBM, WNT>(sa, a1, a0, av, d, cs, n, np, WDS, vec, tid);
+    load_tile<WBM, WNT>(sb, a2, a0, av, d, cs, n, np, WDS, vec, tid);
+    load_tile<WBN, WNT>(raw, b1, b0, bv, d, cs, n, np, WDS, vec, tid);
+    load_tile<WBN, WNT>(raw + WBN * WDS, b2, b0, bv, d, cs, n, np, WDS, vec,
+                        tid);
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+    split_tile<WBN, WNT>(h1, l1, raw, np, WDS);
+    split_tile<WBN, WNT>(h2, l2, raw + WBN * WDS, np, WDS);
+    __syncthreads();
+    if (!live) continue;
+    for (int kk = 0; kk < np; kk += 8) {
+      uint32_t ah[4], al[4], bh[WNB][2], bl[WNB][2];
+      frag_a(sa + r0 * WDS + kk, WDS, g, t, ah, al);
+      frags_b<WNB, true>(h1 + kk, l1 + kk, WDS, g, t, bh, bl);
+      mma3_row<WNB>(s, ah, al, bh, bl);
+      frag_a(sb + r0 * WDS + kk, WDS, g, t, ah, al);
+      frags_b<WNB, true>(h2 + kk, l2 + kk, WDS, g, t, bh, bl);
+      mma3_row<WNB>(s2, ah, al, bh, bl);
+    }
+  }
+}
+
+// Columns [c0, c0 + nc) of the streamed rows [b0, b0 + WBN) of b1 (and
+// b2) loaded and split into (h1, l1) (and (h2, l2)).
+__device__ __forceinline__ void wide_group(const float* b1, const float* b2,
+                                           int b0, int bv, int d, int c0,
+                                           int nc, bool vec, float* raw,
+                                           uint32_t* h1, uint32_t* l1,
+                                           uint32_t* h2, uint32_t* l2) {
+  const int tid = threadIdx.x, npc = (nc + 7) & ~7;
+  __syncthreads();
+  load_tile<WBN, WNT>(raw, b1, b0, bv, d, c0, nc, npc, WDS, vec, tid);
+  if (b2 != nullptr)
+    load_tile<WBN, WNT>(raw + WBN * WDS, b2, b0, bv, d, c0, nc, npc, WDS, vec,
+                        tid);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  split_tile<WBN, WNT>(h1, l1, raw, npc, WDS);
+  if (b2 != nullptr) split_tile<WBN, WNT>(h2, l2, raw + WBN * WDS, npc, WDS);
+  __syncthreads();
+}
+
+// acc += P (16 x WBN, from the score accumulators) times the split group.
+__device__ __forceinline__ void wide_pv(float (&acc)[WNJ][4],
+                                        const float (&p)[WNB][4],
+                                        const uint32_t* h, const uint32_t* l,
+                                        int npc, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < WNB; ++j) {
+    uint32_t ah[4], al[4], bh[WNJ][2], bl[WNJ][2];
+    frag_c2a(p[j], ah, al);
+    frags_b<WNJ, false>(h + j * 8 * WDS, l + j * 8 * WDS, WDS, g, t, bh, bl,
+                        0, npc);
+    mma3_row<WNJ>(acc, ah, al, bh, bl);
+  }
+}
+
+__global__ void __launch_bounds__(WNT)
+flash_bwd_dq_wide_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ g,
+                         const float* __restrict__ out,
+                         const float* __restrict__ lse,
+                         const int* __restrict__ kv_len,
+                         float* __restrict__ dq, float* __restrict__ delta,
+                         int H, int Tq, int Tk, int d, int causal,
+                         float scale, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* sa = smem;
+  float* sb = sa + WBM * WDS;
+  float* raw = sb + WBM * WDS;
+  uint32_t* kh = reinterpret_cast<uint32_t*>(raw + 2 * WBN * WDS);
+  uint32_t* kl = kh + WBN * WDS;
+  uint32_t* vh = kl + WBN * WDS;
+  uint32_t* vl = vh + WBN * WDS;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int r0 = 16 * warp;
+  const int ntq = (Tq + WBM - 1) / WBM;
+  const int bhx = blockIdx.x / ntq;
+  const int q0 = (blockIdx.x - bhx * ntq) * WBM;
+  const int nrows = min(WBM, Tq - q0);
+  const int c0 = blockIdx.y * WSW, nc = min(WSW, d - c0);
+
+  int kv_end = Tk;
+  if (kv_len != nullptr) kv_end = min(Tk, max(0, kv_len[bhx / H]));
+  if (causal) kv_end = min(kv_end, q0 + nrows);
+  const int ntiles = (kv_end + WBN - 1) / WBN;
+  const size_t qoff = (size_t)bhx * Tq, koff = (size_t)bhx * Tk;
+  const float* qb = q + qoff * d;
+  const float* gb = g + qoff * d;
+  const float* kb = k + koff * d;
+  const float* vb = v + koff * d;
+
+  // delta of rows qa and qa + 8: a quad's lanes over columns t, t + 4, ..
+  const int qa = q0 + r0 + gq;
+  float dl0 = 0.f, dl1 = 0.f;
+  if (qa < Tq)
+    for (int c = tq; c < d; c += 4)
+      dl0 = fmaf(gb[(size_t)qa * d + c], out[(qoff + qa) * d + c], dl0);
+  if (qa + 8 < Tq)
+    for (int c = tq; c < d; c += 4)
+      dl1 = fmaf(gb[(size_t)(qa + 8) * d + c], out[(qoff + qa + 8) * d + c],
+                 dl1);
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    dl0 += __shfl_xor_sync(0xffffffffu, dl0, o);
+    dl1 += __shfl_xor_sync(0xffffffffu, dl1, o);
+  }
+  if (blockIdx.y == 0 && tq == 0) {
+    if (qa < Tq) delta[qoff + qa] = dl0;
+    if (qa + 8 < Tq) delta[qoff + qa + 8] = dl1;
+  }
+  const float ls0 = qa < Tq ? lse[qoff + qa] : 0.f;
+  const float ls1 = qa + 8 < Tq ? lse[qoff + qa + 8] : 0.f;
+  const int w_end = causal ? min(kv_end, q0 + r0 + 16) : kv_end;
+  const bool warp_live = q0 + r0 < Tq;
+
+  float acc[WNJ][4];
+#pragma unroll
+  for (int n = 0; n < WNJ; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * WBN;
+    const bool live = warp_live && k0 < w_end;
+    float s[WNB][4], dpv[WNB][4];
+#pragma unroll
+    for (int j = 0; j < WNB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dpv[j][e] = 0.f;
+    wide_scores(s, dpv, qb, gb, q0, Tq, kb, vb, k0, kv_end, d, vec, live, sa,
+                sb, raw, kh, kl, vh, vl, r0, gq, tq);
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < WNB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qpos = qa + (e >> 1) * 8;
+          const int kpos = k0 + j * 8 + 2 * tq + (e & 1);
+          const bool ok =
+              kpos < kv_end && qpos < Tq && (!causal || qpos >= kpos);
+          const float p =
+              ok ? expf(s[j][e] * scale - ((e >> 1) ? ls1 : ls0)) : 0.f;
+          s[j][e] = ok ? p * (dpv[j][e] - ((e >> 1) ? dl1 : dl0)) : 0.f;
+        }
+    }
+    wide_group(kb, nullptr, k0, kv_end, d, c0, nc, vec, raw, kh, kl, nullptr,
+               nullptr);
+    if (live) wide_pv(acc, s, kh, kl, (nc + 7) & ~7, gq, tq);
+  }
+
+  const bool vec2 = (d % 2 == 0) && (reinterpret_cast<uintptr_t>(dq) % 8 == 0);
+  float* ob = dq + qoff * d + c0;
+#pragma unroll
+  for (int n = 0; n < WNJ; ++n) {
+    const int col = n * 8 + 2 * tq;
+    if (col >= nc) continue;
+    if (qa < Tq)
+      store_pair(ob + (size_t)qa * d + col, acc[n][0] * scale,
+                 acc[n][1] * scale, col, nc, vec2);
+    if (qa + 8 < Tq)
+      store_pair(ob + (size_t)(qa + 8) * d + col, acc[n][2] * scale,
+                 acc[n][3] * scale, col, nc, vec2);
+  }
+}
+
+__global__ void __launch_bounds__(WNT)
+flash_bwd_dkv_wide_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ g,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          const int* __restrict__ kv_len,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int H, int Tq, int Tk, int d, int causal,
+                          float scale, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* sa = smem;
+  float* sb = sa + WBM * WDS;
+  float* raw = sb + WBM * WDS;
+  uint32_t* qh = reinterpret_cast<uint32_t*>(raw + 2 * WBN * WDS);
+  uint32_t* ql = qh + WBN * WDS;
+  uint32_t* gh = ql + WBN * WDS;
+  uint32_t* gl = gh + WBN * WDS;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int r0 = 16 * warp;
+  const int ntk = (Tk + WBM - 1) / WBM;
+  const int bhx = blockIdx.x / ntk;
+  const int k0 = (blockIdx.x - bhx * ntk) * WBM;
+  const int nkeys = min(WBM, Tk - k0);
+  const int c0 = blockIdx.y * WSW, nc = min(WSW, d - c0);
+
+  int kv_end = Tk;
+  if (kv_len != nullptr) kv_end = min(Tk, max(0, kv_len[bhx / H]));
+  const size_t qoff = (size_t)bhx * Tq, koff = (size_t)bhx * Tk;
+  float* dkb = dk + koff * d + c0;
+  float* dvb = dv + koff * d + c0;
+  if (k0 >= kv_end) {  // no live key: exact zeros, nothing loaded
+    for (int i = threadIdx.x; i < nkeys * nc; i += WNT) {
+      const size_t at = (size_t)(k0 + i / nc) * d + i % nc;
+      dkb[at] = 0.f;
+      dvb[at] = 0.f;
+    }
+    return;
+  }
+  // with `causal` no query before the block's first key attends it
+  const int i_begin = causal ? (k0 / WBN) * WBN : 0;
+  const int ntiles = Tq > i_begin ? (Tq - i_begin + WBN - 1) / WBN : 0;
+  const float* qb = q + qoff * d;
+  const float* gb = g + qoff * d;
+  const float* kb = k + koff * d;
+  const float* vb = v + koff * d;
+
+  const int ka = k0 + r0 + gq;  // this thread's key rows: ka and ka + 8
+  const bool warp_live = k0 + r0 < kv_end;
+  float acck[WNJ][4], accv[WNJ][4];
+#pragma unroll
+  for (int n = 0; n < WNJ; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acck[n][e] = accv[n][e] = 0.f;
+  for (int it = 0; it < ntiles; ++it) {
+    const int i0 = i_begin + it * WBN;
+    const bool live = warp_live && !(causal && i0 + WBN <= k0 + r0);
+    float s[WNB][4], dpv[WNB][4];
+#pragma unroll
+    for (int j = 0; j < WNB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dpv[j][e] = 0.f;
+    wide_scores(s, dpv, kb, vb, k0, kv_end, qb, gb, i0, Tq, d, vec, live, sa,
+                sb, raw, qh, ql, gh, gl, r0, gq, tq);
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < WNB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = ka + (e >> 1) * 8;
+          const int qpos = i0 + j * 8 + 2 * tq + (e & 1);
+          const bool ok =
+              kpos < kv_end && qpos < Tq && (!causal || qpos >= kpos);
+          const float p =
+              ok ? expf(s[j][e] * scale - lse[qoff + qpos]) : 0.f;
+          dpv[j][e] = ok ? p * (dpv[j][e] - delta[qoff + qpos]) : 0.f;
+          s[j][e] = p;
+        }
+    }
+    // dV += P^T G and dK += dS^T Q over the group's columns
+    wide_group(gb, qb, i0, Tq, d, c0, nc, vec, raw, gh, gl, qh, ql);
+    if (live) {
+      wide_pv(accv, s, gh, gl, (nc + 7) & ~7, gq, tq);
+      wide_pv(acck, dpv, qh, ql, (nc + 7) & ~7, gq, tq);
+    }
+  }
+
+  // rows at or past kv_end get exact zeros, whatever was accumulated
+  const bool vec2 = (d % 2 == 0) &&
+                    (reinterpret_cast<uintptr_t>(dk) % 8 == 0) &&
+                    (reinterpret_cast<uintptr_t>(dv) % 8 == 0);
+#pragma unroll
+  for (int n = 0; n < WNJ; ++n) {
+    const int col = n * 8 + 2 * tq;
+    if (col >= nc) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = ka + 8 * h;
+      if (row >= k0 + nkeys) continue;
+      const bool ok = row < kv_end;
+      const size_t at = (size_t)row * d + col;
+      store_pair(dkb + at, ok ? acck[n][2 * h] * scale : 0.f,
+                 ok ? acck[n][2 * h + 1] * scale : 0.f, col, nc, vec2);
+      store_pair(dvb + at, ok ? accv[n][2 * h] : 0.f,
+                 ok ? accv[n][2 * h + 1] : 0.f, col, nc, vec2);
+    }
+  }
+}
+
 // ------------------------------------------------------------ launches
 // Measured at d = 64 (B=32, H=12, T=128 and B=16, T=512; device time of
 // five shapes each): dq in 64-row blocks streaming 32-row K/V tiles (87 KB,
@@ -669,28 +788,6 @@ using DKV32 = Cfg<32, 8, 32, 1>;
 using DKV64 = Cfg<64, 8, 32, 1>;
 using DKV128 = Cfg<128, 4, 32, 2>;
 using DKV256 = Cfg<256, 2, 16, 4>;
-
-// Raise a kernel's dynamic shared-memory limit to `smem` on the current
-// device once: the attribute call costs host time on every launch
-// otherwise.  `done` is per kernel (one static per instantiation of the
-// caller) and per device.
-template <typename K>
-int set_smem(K kern, size_t smem, int (&done)[64]) {
-  if (smem <= 48 * 1024) return 0;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 64 && done[dev] >= (int)smem) return 0;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-
-  if (e == cudaSuccess && dev < 64) done[dev] = (int)smem;
-  return (int)e;
-}
-
-bool aligned16(const void* p) {
-  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
 
 template <class C>
 int launch_dq(const float* q, const float* k, const float* v, const float* g,
@@ -735,7 +832,19 @@ int launch_dkv(const float* q, const float* k, const float* v, const float* g,
   return (int)cudaGetLastError();
 }
 
-bool bad_shape(int d, int Tk) { return d < 1 || d > DMAX || Tk < 1; }
+// d > 256: the slab and group kernels (one launch each, 87 KB).
+template <typename K, typename... A>
+int launch_wide(K kern, int (&done)[64], int B, int H, int T, int d,
+                cudaStream_t stream, A... args) {
+  const int e = set_smem(kern, WIDE_SMEM, done);
+  if (e != 0) return e;
+  const dim3 grid((unsigned)(B * H) * ((T + WBM - 1) / WBM),
+                  (d + WSW - 1) / WSW);
+  kern<<<grid, WNT, WIDE_SMEM, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+bool bad_shape(int d, int Tk) { return d < 1 || Tk < 1; }
 
 }  // namespace
 
@@ -743,7 +852,7 @@ extern "C" {
 
 // q, g, out (B,H,Tq,d); k, v (B,H,Tk,d); lse (B,H,Tq): f32, contiguous.
 // kv_len (B,) int32 or null (every row attends all Tk keys).  causal: 0
-// or 1.  1 <= d <= 256, any Tq, Tk >= 1.  Writes dq (B,H,Tq,d) and each
+// or 1.  Any d >= 1, any Tq, Tk >= 1.  Writes dq (B,H,Tq,d) and each
 // row's delta = sum(g * out) to delta (B,H,Tq).  Returns
 // cudaGetLastError() after the launch (0 on success).
 int mx_flash_attention_bwd_dq_f32(const void* q, const void* k, const void* v,
@@ -775,6 +884,12 @@ int mx_flash_attention_bwd_dq_f32(const void* q, const void* k, const void* v,
   if (d <= 128)
     return launch_dq<DQ128>(qf, kf, vf, gf, of, lf, lens, dqf, df, B, H, Tq,
                             Tk, d, causal, scale, vec, st);
+  if (d > 256) {
+    static int done[64] = {};
+    return launch_wide(flash_bwd_dq_wide_kernel, done, B, H, Tq, d, st, qf,
+                       kf, vf, gf, of, lf, lens, dqf, df, H, Tq, Tk, d,
+                       causal, scale, vec);
+  }
   return launch_dq<DQ256>(qf, kf, vf, gf, of, lf, lens, dqf, df, B, H, Tq,
                           Tk, d, causal, scale, vec, st);
 }
@@ -811,6 +926,12 @@ int mx_flash_attention_bwd_dkv_f32(const void* q, const void* k,
   if (d <= 128)
     return launch_dkv<DKV128>(qf, kf, vf, gf, lf, df, lens, dkf, dvf, B, H,
                               Tq, Tk, d, causal, scale, vec, st);
+  if (d > 256) {
+    static int done[64] = {};
+    return launch_wide(flash_bwd_dkv_wide_kernel, done, B, H, Tk, d, st, qf,
+                       kf, vf, gf, lf, df, lens, dkf, dvf, H, Tq, Tk, d,
+                       causal, scale, vec);
+  }
   return launch_dkv<DKV256>(qf, kf, vf, gf, lf, df, lens, dkf, dvf, B, H, Tq,
                             Tk, d, causal, scale, vec, st);
 }

@@ -1,0 +1,334 @@
+// Shared building blocks of the port's attention kernels on Hopper tensor
+// cores (sm_90a): `cp.async` copies into shared memory, the 3xTF32 split
+// and `mma.sync.m16n8k8` products, and the fragment loaders around them.
+// Included by flash_attention.cu, decode_attention.cu (through
+// flash_fwd.cuh) and flash_attention_bwd.cu.
+//
+// 3xTF32.  TF32 keeps 10 mantissa bits, far from the f32 bar the port
+// holds (atol = rtol = 1e-4 against the plain version with TF32 off), so
+// every operand x is split as hi = tf32(x), lo = tf32(x - hi) and each
+// product is three MMAs, lo*hi' + hi*lo' + hi*hi' (the split of CUTLASS's
+// OpMultiplyAddFastF32; lo*lo' is below f32 rounding).  The split is
+// integer adds and masks on the f32 bits, not `cvt`.  Nothing sets a
+// global TF32 flag.
+//
+// `mma.sync` rather than `wgmma`: its accumulator fragment is an operand
+// fragment after a fixed permutation of the depth axis (a thread holds
+// columns 2t and 2t+1 of its rows; read as depth t and t+4, with the B rows
+// read in the same order), so a probability tile goes from the score
+// product into the next product in registers, with no shared-memory round
+// trip and no transpose.
+//
+// Tiles.  A streamed tile lands raw (f32, or int8 bytes with one f32 scale
+// a row), is split once for the whole block into hi and lo arrays (int8
+// dequantized on the way), and the warps read their B fragments from the
+// split arrays.  Row stride dp + 4 (= 4 mod 32 words, dp the width padded
+// to 8) keeps every fragment load of a warp on 32 distinct banks, both for
+// rows-as-columns and for the permuted reads of the second product.
+// Columns past the real width and rows past the valid count are zero-filled
+// by the copy itself (source size 0), so garbage there (NaN in the tests)
+// never meets a probability.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+// ------------------------------------------------------------- copies
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + R) x columns [col0, col0 + n) of a row-major f32
+// matrix of row stride ld into a shared tile of row stride ds: tile column
+// c is source column col0 + c for c < n, zero for n <= c < np (np a
+// multiple of 4); rows at or past `valid` zero.  16-byte copies with `vec`
+// (n, col0 and ld multiples of 4, the base 16-byte aligned), 4-byte copies
+// otherwise.  Thread `tid` of NT; a thread's chunks advance by a fixed
+// (row, column) step: no division in the loop.
+template <int R, int NT>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int row0, int valid, int ld,
+                                          int col0, int n, int np, int ds,
+                                          bool vec, int tid) {
+  const int w = vec ? 4 : 1;     // floats a copy moves
+  const int cpr = np / w;        // copies a row
+  const int rstep = NT / cpr, cstep = NT - rstep * cpr;
+  int r = tid / cpr, c = tid - r * cpr;
+  while (r < R) {
+    const int col = c * w;
+    const bool ok = row0 + r < valid && col < n;
+    const float* from =
+        ok ? src + (size_t)(row0 + r) * ld + col0 + col : src;
+    if (vec)
+      cp16(dst + r * ds + col, from, ok);
+    else
+      cp4(dst + r * ds + col, from, ok);
+    r += rstep;
+    c += cstep;
+    if (c >= cpr) {
+      c -= cpr;
+      ++r;
+    }
+  }
+}
+
+// The same for int8 rows into a shared byte tile of row stride dsb (a
+// multiple of 16): `mode` 16 copies 16 bytes (n, col0, ld multiples of 16,
+// the base 16-byte aligned), 4 copies 4 bytes (multiples of 4), 1 loads
+// and stores byte by byte (any width; visible after the next barrier).
+// np is a multiple of 16 in mode 16, of 4 otherwise.
+template <int R, int NT>
+__device__ __forceinline__ void load_tile_i8(int8_t* dst, const int8_t* src,
+                                             int row0, int valid, int ld,
+                                             int col0, int n, int np,
+                                             int dsb, int mode, int tid) {
+  const int cpr = np / mode;
+  const int rstep = NT / cpr, cstep = NT - rstep * cpr;
+  int r = tid / cpr, c = tid - r * cpr;
+  while (r < R) {
+    const int col = c * mode;
+    const bool ok = row0 + r < valid && col < n;
+    const int8_t* from =
+        ok ? src + (size_t)(row0 + r) * ld + col0 + col : src;
+    if (mode == 16)
+      cp16(dst + r * dsb + col, from, ok);
+    else if (mode == 4)
+      cp4(dst + r * dsb + col, from, ok);
+    else
+      dst[r * dsb + col] = ok ? *from : (int8_t)0;
+    r += rstep;
+    c += cstep;
+    if (c >= cpr) {
+      c -= cpr;
+      ++r;
+    }
+  }
+}
+
+// n values [row0, row0 + n) of an f32 vector, zero at or past `valid`.
+template <int NT>
+__device__ __forceinline__ void load_vec(float* dst, const float* src,
+                                         int row0, int n, int valid,
+                                         int tid) {
+  for (int i = tid; i < n; i += NT) {
+    const bool ok = row0 + i < valid;
+    cp4(dst + i, ok ? src + row0 + i : src, ok);
+  }
+}
+
+// ------------------------------------------------------- 3xTF32 MMA
+// x = hi + lo with hi, lo TF32 values (low 13 bits zero): hi rounds x to
+// nearest on its 10-bit mantissa (add half a TF32 ulp, then mask), lo is
+// the exact rest x - hi truncated to TF32.  |x - hi - lo| <= 2^-21 |x|.
+// Integer and f32 adds and masks, all at full rate; `cvt.rna.tf32.f32`
+// would do the rounding on the conversion unit at a quarter of the rate,
+// twice per split.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  // not volatile: the compiler may interleave independent MMAs
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c[j] += a b[j] for every tile j < N, both operands split: the three
+// products lo*hi', hi*lo', hi*hi' (lo*lo' is below f32 rounding) each in
+// its own pass over j, so the MMAs into one accumulator are N issues apart
+// and the tensor pipe never waits on the last one.  No tile is skipped
+// here: an MMA under a condition the compiler cannot prove warp-uniform
+// gets a WARPSYNC and a reconvergence branch of its own (one each, seen in
+// the SASS), which cost more than the MMAs of a dead tile.
+template <int N>
+__device__ __forceinline__ void mma3_row(float (&c)[N][4],
+                                         const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         const uint32_t (&bh)[N][2],
+                                         const uint32_t (&bl)[N][2]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma(c[j], al, bh[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma(c[j], ah, bl[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma(c[j], ah, bh[j]);
+}
+
+// Fragments, for lane (g, t) = (lane / 4, lane % 4).  A (16 x 8, rows by
+// depth): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4).  B (8 x 8,
+// depth by columns): b0 (t, g), b1 (t+4, g).  C (16 x 8): c0 (g, 2t),
+// c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1).
+
+// A from a row-major shared f32 tile, split here; `s` points at (row 0,
+// depth 0).  Only a warp's own rows, so each value is split once.
+__device__ __forceinline__ void frag_a(const float* s, int ds, int g, int t,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split(s[g * ds + t], hi[0], lo[0]);
+  split(s[(g + 8) * ds + t], hi[1], lo[1]);
+  split(s[g * ds + t + 4], hi[2], lo[2]);
+  split(s[(g + 8) * ds + t + 4], hi[3], lo[3]);
+}
+
+// An accumulator fragment (16 x 8) as an A fragment over its 8 columns,
+// depth permuted: depth t = column 2t, depth t+4 = column 2t+1.
+__device__ __forceinline__ void frag_c2a(const float (&c)[4],
+                                         uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  split(c[0], hi[0], lo[0]);
+  split(c[2], hi[1], lo[1]);
+  split(c[1], hi[2], lo[2]);
+  split(c[3], hi[3], lo[3]);
+}
+
+// B fragments of the tiles j < N from a tile split in shared memory (hi
+// part `h`, lo part `l`, same layout), either as the tile's rows read as
+// columns, B(k, n) = tile[j * 8 + n][k] (`rows`), or as its columns
+// col0 + j * 8.. in the permuted depth order of frag_c2a, B(k, n) =
+// tile[perm(k)][col0 + j * 8 + n] with depth t at row 2t and t+4 at row
+// 2t+1.  A column block at or past dp reads block dp - 8 instead (a
+// select, not a branch): its products land in accumulators that are never
+// stored.
+template <int N, bool ROWS>
+__device__ __forceinline__ void frags_b(const uint32_t* h, const uint32_t* l,
+                                        int ds, int g, int t,
+                                        uint32_t (&bh)[N][2],
+                                        uint32_t (&bl)[N][2], int col0 = 0,
+                                        int dp = 0) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int a0 = ROWS ? (j * 8 + g) * ds + t
+                        : 2 * t * ds + min(col0 + j * 8, dp - 8) + g;
+    const int a1 = ROWS ? a0 + 4 : a0 + ds;
+    bh[j][0] = h[a0];
+    bh[j][1] = h[a1];
+    bl[j][0] = l[a0];
+    bl[j][1] = l[a1];
+  }
+}
+
+// hi and lo of rows [0, R) x columns [0, dp) of a shared f32 tile, once
+// for the whole block (dp a multiple of 4).
+template <int R, int NT>
+__device__ __forceinline__ void split_tile(uint32_t* h, uint32_t* l,
+                                           const float* raw, int dp,
+                                           int ds) {
+  const int cpr = dp >> 2;
+  const int rstep = NT / cpr, cstep = NT - rstep * cpr;
+  int r = threadIdx.x / cpr, c = threadIdx.x - r * cpr;
+  while (r < R) {
+    const int at = r * ds + (c << 2);
+    const float4 x = *reinterpret_cast<const float4*>(raw + at);
+    uint4 xh, xl;
+    split(x.x, xh.x, xl.x);
+    split(x.y, xh.y, xl.y);
+    split(x.z, xh.z, xl.z);
+    split(x.w, xh.w, xl.w);
+    *reinterpret_cast<uint4*>(h + at) = xh;
+    *reinterpret_cast<uint4*>(l + at) = xl;
+    r += rstep;
+    c += cstep;
+    if (c >= cpr) {
+      c -= cpr;
+      ++r;
+    }
+  }
+}
+
+// The same from an int8 byte tile (row stride dsb) and its row scales:
+// each value dequantized as (float)x * scale, the rounding of the plain
+// version's `q.float() * scale`, then split.
+template <int R, int NT>
+__device__ __forceinline__ void split_tile_i8(uint32_t* h, uint32_t* l,
+                                              const int8_t* raw,
+                                              const float* sc, int dp,
+                                              int dsb, int ds) {
+  const int cpr = dp >> 2;
+  const int rstep = NT / cpr, cstep = NT - rstep * cpr;
+  int r = threadIdx.x / cpr, c = threadIdx.x - r * cpr;
+  while (r < R) {
+    const char4 x =
+        *reinterpret_cast<const char4*>(raw + r * dsb + (c << 2));
+    const float s = sc[r];
+    const int at = r * ds + (c << 2);
+    uint4 xh, xl;
+    split((float)x.x * s, xh.x, xl.x);
+    split((float)x.y * s, xh.y, xl.y);
+    split((float)x.z * s, xh.z, xl.z);
+    split((float)x.w * s, xh.w, xl.w);
+    *reinterpret_cast<uint4*>(h + at) = xh;
+    *reinterpret_cast<uint4*>(l + at) = xl;
+    r += rstep;
+    c += cstep;
+    if (c >= cpr) {
+      c -= cpr;
+      ++r;
+    }
+  }
+}
+
+// ------------------------------------------------------------ stores
+__device__ __forceinline__ void store_pair(float* p, float x, float y,
+                                           int col, int d, bool vec2) {
+  if (vec2 && col + 1 < d) {
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+  } else {
+    if (col < d) p[0] = x;
+    if (col + 1 < d) p[1] = y;
+  }
+}
+
+// ------------------------------------------------------------ launches
+// Raise a kernel's dynamic shared-memory limit to `smem` on the current
+// device once: the attribute call costs host time on every launch
+// otherwise.  `done` is per kernel (one static per instantiation of the
+// caller) and per device.
+template <typename K>
+int set_smem(K kern, size_t smem, int (&done)[64]) {
+  if (smem <= 48 * 1024) return 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 64 && done[dev] >= (int)smem) return 0;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e == cudaSuccess && dev < 64) done[dev] = (int)smem;
+  return (int)e;
+}
+
+inline bool aligned_to(const void* p, size_t n) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % n == 0;
+}
+
+inline bool aligned16(const void* p) { return aligned_to(p, 16); }
+
+}  // namespace

@@ -12,7 +12,7 @@ output ``out`` and row log-sum-exp ``lse`` (B, H, Tq):
 
 with the forward's masks (per-row ``kv_len``, ``causal``).  CUDA tensors
 launch the two hand-written kernels of ``csrc/flash_attention_bwd.cu``
-(f32, contiguous, any Tq and Tk >= 1, 1 <= d <= 256; products on tensor
+(f32, contiguous, any Tq and Tk >= 1, any d >= 1; products on tensor
 cores with a 3xTF32 split, no global TF32 flag) or raise: the dq kernel
 computes delta in its prologue and hands it to the dk/dv kernel.  CPU
 tensors run :func:`flash_attention_bwd_reference`, which materializes
@@ -31,8 +31,6 @@ from . import registry as _kreg
 
 __all__ = ["flash_attention_bwd", "flash_attention_bwd_reference",
            "launch_dq", "launch_dkv"]
-
-_MAX_D = 256
 
 
 def flash_attention_bwd_reference(q, k, v, g, out, lse, kv_len=None,
@@ -71,10 +69,10 @@ def _check_args(q, k, v, g, out, lse, kv_len):
                          f"{tuple(v.shape)}")
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    if not (1 <= d <= _MAX_D and tk >= 1):
+    if not (d >= 1 and tk >= 1):
         raise MXNetError(
-            f"flash_attention_bwd kernels take 1 <= d <= {_MAX_D} and "
-            f"Tk >= 1; got d={d}, Tk={tk}")
+            f"flash_attention_bwd kernels take d >= 1 and Tk >= 1; got "
+            f"d={d}, Tk={tk}")
     want = [("q", q, torch.float32, (b, h, tq, d)),
             ("k", k, torch.float32, (b, h, tk, d)),
             ("v", v, torch.float32, (b, h, tk, d)),

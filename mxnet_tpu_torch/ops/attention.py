@@ -34,10 +34,17 @@ from ..kernels import registry as _kreg
 __all__ = ["attention_reference", "flash_attention", "flash_attention_reference",
            "FlashAttentionFunction", "flash_attention_decode",
            "flash_attention_decode_reference", "decode_mask", "cache_append",
-           "cache_page_copy", "quantize_kv", "dequantize_kv"]
+           "cache_page_copy", "quantize_kv", "dequantize_kv", "split_plan",
+           "SPLIT_TQ"]
 
 _NEG_INF = float("-inf")
-_MAX_D = 256
+
+# The decode kernel's split-K path takes Tq <= SPLIT_TQ query rows and
+# d <= 256; longer chunks and wider heads run its tensor-core chunk path.
+SPLIT_TQ = 8
+_SPLIT_MIN = 128      # positions a split holds at least, and their multiple
+_SPLIT_WAVES = 3      # blocks aimed at, in multiples of the card's SMs
+_SPLIT_MAX = 32       # splits at most (the combine's lanes)
 
 
 def attention_reference(q, k, v, mask=None, scale: Optional[float] = None):
@@ -98,10 +105,10 @@ def _check_flash_args(q, k, v, kv_len):
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    if not (1 <= d <= _MAX_D and tk >= 1):
+    if not (d >= 1 and tk >= 1):
         raise MXNetError(
-            f"flash_attention kernel takes 1 <= d <= {_MAX_D} and Tk >= 1;"
-            f" got d={d}, Tk={tk}")
+            f"flash_attention kernel takes d >= 1 and Tk >= 1; got d={d}, "
+            f"Tk={tk}")
     want = [("q", q, torch.float32, (b, h, tq, d)),
             ("k", k, torch.float32, (b, h, tk, d)),
             ("v", v, torch.float32, (b, h, tk, d))]
@@ -204,7 +211,7 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
 
     Without ``mask``, CUDA tensors launch the hand-written kernel
     (``csrc/flash_attention.cu``: f32, contiguous, any Tq and Tk >= 1,
-    1 <= d <= 256) or raise; CPU tensors run
+    any d >= 1) or raise; CPU tensors run
     :func:`flash_attention_reference`.  When q, k or v requires grad the
     call goes through :class:`FlashAttentionFunction`, whose backward is
     the dq and dk/dv kernel pair."""
@@ -335,10 +342,10 @@ def flash_attention_decode_reference(q, k, v, cache_len,
 def _check_cuda_args(q, k, v, cache_len, k_scale, v_scale):
     b, h, tq, d = q.shape
     c = k.shape[2]
-    if not (1 <= d <= _MAX_D and c >= 1):
+    if not (d >= 1 and c >= 1):
         raise MXNetError(
-            f"flash_attention_decode kernel takes 1 <= d <= {_MAX_D} and "
-            f"C >= 1; got d={d}, C={c}")
+            f"flash_attention_decode kernel takes d >= 1 and C >= 1; got "
+            f"d={d}, C={c}")
     quant = k_scale is not None
     kv_dtype = torch.int8 if quant else torch.float32
     want = [("q", q, torch.float32, (b, h, tq, d)),
@@ -352,21 +359,51 @@ def _check_cuda_args(q, k, v, cache_len, k_scale, v_scale):
                         aligned=False)
 
 
+def split_plan(bh: int, tq: int, c: int, d: int, sms: int):
+    """``(L, S)``: the decode kernel's split of a cache of capacity ``c``
+    into ``S`` splits of ``L`` positions for ``bh`` = B * H heads on a card
+    of ``sms`` SMs, or ``(0, 0)`` for the tensor-core chunk path (Tq >
+    ``SPLIT_TQ`` or d > 256).  Enough splits that B * H * S blocks cover
+    the SMs ``_SPLIT_WAVES`` times (at most ``_SPLIT_MAX``), each a
+    multiple of ``_SPLIT_MIN`` positions; the lengths live on the card, so the plan reads only
+    shapes and a split past a row's length does no work."""
+    if tq > SPLIT_TQ or d > 256:
+        return 0, 0
+    want = min(_SPLIT_MAX, max(1, -(-(_SPLIT_WAVES * sms) // max(1, bh))))
+    length = max(_SPLIT_MIN, -(-c // want))
+    length = -(-length // _SPLIT_MIN) * _SPLIT_MIN
+    return length, -(-c // length)
+
+
+_SMS = {}
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
 def _entry(symbol: str, n_ptr: int):
     """The C entry ``symbol`` of ``csrc/decode_attention.cu`` with its
-    argtypes set: ``n_ptr`` pointers, then B, H, Tq, C, d, scale, stream
-    (every pointer and the stream as ``c_void_p``)."""
+    argtypes set: ``n_ptr`` pointers, then B, H, Tq, C, d, L, S, scale,
+    stream (every pointer and the stream as ``c_void_p``)."""
     from ..kernels import _build
 
     fn = getattr(_build.load("decode_attention.cu"), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + \
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + \
             [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch_cuda(q, k, v, cache_len, scale, return_lse, k_scale, v_scale):
+def _launch_cuda(q, k, v, cache_len, scale, return_lse, k_scale, v_scale,
+                 plan=None):
+    """One call of the decode kernel on CUDA tensors; ``plan`` overrides
+    :func:`split_plan`'s ``(L, S)`` (``(0, 0)``: the chunk path)."""
     _check_cuda_args(q, k, v, cache_len, k_scale, v_scale)
     b, h, tq, d = q.shape
     c = k.shape[2]
@@ -375,21 +412,27 @@ def _launch_cuda(q, k, v, cache_len, scale, return_lse, k_scale, v_scale):
         if return_lse else None
     if out.numel() == 0:                      # nothing to launch
         return (out, lse) if return_lse else out
+    length, splits = plan if plan is not None else \
+        split_plan(b * h, tq, c, d, _sm_count(q.device))
+    # S > 1: (max, sum, output) partials of every split for the combine
+    part = torch.empty(b * h * splits * tq * (d + 2), dtype=torch.float32,
+                       device=q.device) if splits > 1 else None
     with torch.cuda.device(q.device):
-        tail = (b, h, tq, c, d, scale,
+        tail = (b, h, tq, c, d, length, splits, scale,
                 torch.cuda.current_stream(q.device).cuda_stream)
         lse_ptr = lse.data_ptr() if lse is not None else None
+        part_ptr = part.data_ptr() if part is not None else None
         if k_scale is None:
             name = "flash_attention_decode"
-            err = _entry("mx_decode_attention_f32", 6)(
+            err = _entry("mx_decode_attention_f32", 7)(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), cache_len.data_ptr(),
-                out.data_ptr(), lse_ptr, *tail)
+                out.data_ptr(), lse_ptr, part_ptr, *tail)
         else:
             name = "flash_attention_decode_int8"
-            err = _entry("mx_decode_attention_int8", 8)(
+            err = _entry("mx_decode_attention_int8", 9)(
                 q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
                 v_scale.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
-                lse_ptr, *tail)
+                lse_ptr, part_ptr, *tail)
     if err != 0:
         raise MXNetError(f"{name} kernel launch failed: CUDA error {err}")
     _kreg.count_launch(name)
@@ -413,8 +456,9 @@ def flash_attention_decode(q, k, v, cache_len, scale: Optional[float] = None,
         the cache stays int8 on the card.  Pass both or neither.
 
     CUDA tensors launch the hand-written kernel (f32 q, contiguous inputs,
-    any Tq and C >= 1, 1 <= d <= 256) or raise; CPU tensors run
-    :func:`flash_attention_decode_reference`."""
+    any Tq, C and d >= 1: split-K over the cache for Tq <= ``SPLIT_TQ``
+    and d <= 256, the tensor-core chunk path otherwise) or raise; CPU
+    tensors run :func:`flash_attention_decode_reference`."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("flash_attention_decode: pass both k_scale and "
                          "v_scale (quantized cache) or neither")

@@ -43,7 +43,8 @@ def dev():
 @pytest.mark.parametrize("b,h,tq,c,d", [
     (2, 3, 1, 64, 8), (3, 2, 19, 96, 40), (1, 1, 200, 256, 256),
     (2, 2, 5, 64, 4), (3, 2, 17, 100, 36), (2, 3, 1, 100, 100),
-    (2, 2, 1024, 1100, 64), (2, 2, 7, 100, 64), (2, 1, 9, 50, 37)])
+    (2, 2, 1024, 1100, 64), (2, 2, 7, 100, 64), (2, 1, 9, 50, 37),
+    (2, 3, 1, 300, 264), (2, 2, 4, 100, 320), (2, 2, 19, 96, 512)])
 def test_kernel_matches_plain(dev, quantized, b, h, tq, c, d):
     g = torch.Generator().manual_seed(b * 100 + tq)
     q = torch.rand(b, h, tq, d, generator=g) - 0.5
@@ -70,8 +71,8 @@ def test_kernel_matches_plain(dev, quantized, b, h, tq, c, d):
 
 
 def test_kernel_refuses_what_it_does_not_take(dev):
-    q = torch.zeros(1, 1, 1, 264, device=dev)       # d > 256
-    k = torch.zeros(1, 1, 16, 264, device=dev)
+    q = torch.zeros(1, 1, 1, 264, device=dev)
+    k = torch.zeros(1, 1, 0, 264, device=dev)       # an empty cache
     lens = torch.zeros(1, dtype=torch.int32, device=dev)
     with pytest.raises(MXNetError):
         att.flash_attention_decode(q, k, k, lens)
@@ -83,6 +84,59 @@ def test_kernel_refuses_what_it_does_not_take(dev):
         att.flash_attention_decode(
             torch.zeros(1, 1, 8, 2, device=dev).transpose(2, 3)[..., :1, :],
             k, k, lens)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("tq", [1, 4, 7, 8, 9])
+@pytest.mark.parametrize("c,d", [(100, 36), (1024, 64), (4096, 64),
+                                 (1024, 264), (300, 320)])
+def test_decode_split_cases_match_plain(dev, quantized, tq, c, d):
+    """Split-K at the threshold's edges (Tq 8 splits, 9 takes the chunk
+    path; d > 256 always the chunk path): lengths 0, 1, ending mid-split
+    and on a split boundary, NaN past each row's window (in the values, or
+    in an int8 cache's scales); within 1e-4 of the plain version, the same
+    bits on a second call, one launch a call."""
+    b, h = 4, 3
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    length, splits = att.split_plan(b * h, tq, c, d, sms)
+    step = length if splits else 64
+    lens = [0, 1, min(c - tq, step + step // 2),
+            max(0, min(c, 2 * step) - tq)]
+    g = torch.Generator().manual_seed(c + tq + d)
+    q = torch.rand(b, h, tq, d, generator=g) - 0.5
+    k = torch.rand(b, h, c, d, generator=g) - 0.5
+    v = torch.rand(b, h, c, d, generator=g) - 0.5
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    past = (torch.arange(c)[None, :] >= lens_t[:, None] + tq)[:, None, :, None]
+    kw, ref_kw = {}, {}
+    if quantized:
+        k, ks = att.quantize_kv(k)
+        v, vs = att.quantize_kv(v)
+        kw = dict(k_scale=ks.masked_fill(past, float("nan")).to(dev),
+                  v_scale=vs.masked_fill(past, float("nan")).to(dev))
+        ref_kw = dict(k_scale=kw["k_scale"],
+                      v_scale=torch.nan_to_num(kw["v_scale"]))
+        ref_v = v
+    else:
+        k = k.masked_fill(past, float("nan"))
+        v = v.masked_fill(past, float("nan"))
+        ref_v = torch.nan_to_num(v)
+    q, k, v, ref_v, lens_d = (t.to(dev) for t in (q, k, v, ref_v, lens_t))
+    name = "flash_attention_decode_int8" if quantized \
+        else "flash_attention_decode"
+    before = registry.launches()[name]
+    out, lse = att.flash_attention_decode(q, k, v, lens_d, return_lse=True,
+                                          **kw)
+    again, again_lse = att.flash_attention_decode(q, k, v, lens_d,
+                                                  return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert registry.launches()[name] == before + 2
+    ref, ref_lse = att.flash_attention_decode_reference(
+        q, k, ref_v, lens_d, return_lse=True, **ref_kw)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=TOL, rtol=TOL)
+    torch.testing.assert_close(lse, ref_lse, atol=TOL, rtol=TOL)
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
 
 
 def _flash_case(b, h, tq, tk, d, lens, seed):
@@ -108,7 +162,9 @@ def _flash_case(b, h, tq, tk, d, lens, seed):
     (3, 2, 70, 130, 40, [1, 64, 129]), (2, 1, 129, 65, 128, [65, 63]),
     (1, 2, 200, 200, 256, [200]), (4, 2, 64, 64, 64, None),
     (2, 2, 37, 37, 4, [0, 37]), (3, 2, 70, 130, 36, [1, 64, 129]),
-    (2, 1, 129, 65, 100, [65, 63]), (2, 2, 33, 33, 7, [5, 33])])
+    (2, 1, 129, 65, 100, [65, 63]), (2, 2, 33, 33, 7, [5, 33]),
+    (2, 2, 37, 37, 264, [0, 37]), (3, 1, 70, 130, 320, [1, 64, 129]),
+    (2, 2, 65, 33, 512, [33, 17])])
 def test_flash_kernel_matches_plain(dev, causal, b, h, tq, tk, d, lens):
     q, k, v, lens_t = _flash_case(b, h, tq, tk, d, lens, seed=tq * 7 + d)
     q, k, v = (t.to(dev) for t in (q, k, v))
@@ -124,11 +180,14 @@ def test_flash_kernel_matches_plain(dev, causal, b, h, tq, tk, d, lens):
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out, ref, atol=TOL, rtol=TOL)
     torch.testing.assert_close(lse, ref_lse, atol=TOL, rtol=TOL)
+    again = att.flash_attention(q, k, v, causal=causal,
+                                kv_valid_length=lens_d)
+    assert torch.equal(out, again)            # the same bits, run to run
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(dev):
     ok = torch.zeros(1, 1, 4, 8, device=dev)
-    for bad in (torch.zeros(1, 1, 4, 264, device=dev),      # d > 256
+    for bad in (torch.zeros(1, 1, 0, 8, device=dev),        # no key
                 ok.double(),                                # not f32
                 torch.zeros(1, 1, 8, 4, device=dev).transpose(2, 3)):
         with pytest.raises(MXNetError):
@@ -172,10 +231,13 @@ def _bwd_check(got, ref, lens, again):
     (2, 3, 1, 1, 8, None), (2, 2, 37, 37, 64, [0, 37]),
     (3, 2, 70, 130, 40, [1, 64, 129]), (2, 1, 129, 65, 128, [65, 63]),
     (1, 2, 200, 200, 256, [200]), (2, 2, 96, 96, 192, [33, 96]),
-    (2, 2, 50, 90, 32, [0, 90]), (2, 2, 130, 33, 32, None)])
+    (2, 2, 50, 90, 32, [0, 90]), (2, 2, 130, 33, 32, None),
+    (2, 2, 37, 37, 264, [0, 37]), (3, 1, 70, 130, 320, [1, 64, 129]),
+    (2, 2, 65, 65, 512, [65, 17]), (2, 1, 40, 90, 320, None)])
 def test_flash_bwd_kernels_match_plain(dev, causal, b, h, tq, tk, d, lens):
     """Tq != Tk, no lengths (every row attends all Tk keys), d = 32 and
-    d = 192 (the runtime-width kernels of the widest class)."""
+    d = 192 (the runtime-width kernels of the widest class), and d = 264,
+    320, 512 (the slab and group kernels)."""
     from mxnet_tpu_torch.kernels import flash_bwd as fb
 
     q, k, v, lens_t = _flash_case(b, h, tq, tk, d, lens, seed=tq * 5 + d)
@@ -284,11 +346,11 @@ def test_flash_bwd_refuses_what_it_does_not_take(dev):
 
     ok = torch.zeros(1, 1, 4, 8, device=dev)
     lse = torch.zeros(1, 1, 4, device=dev)
-    for bad in (torch.zeros(1, 1, 4, 264, device=dev),      # d > 256
+    for bad in (torch.zeros(1, 1, 0, 8, device=dev),        # no key
                 ok.double(),                                # not f32
                 torch.zeros(1, 1, 8, 4, device=dev).transpose(2, 3)):
         with pytest.raises(MXNetError):
-            fb.flash_attention_bwd(bad, bad, bad, bad, bad, lse)
+            fb.flash_attention_bwd(ok, bad, bad, ok, ok, lse)
     with pytest.raises(MXNetError):                         # lse on the CPU
         fb.flash_attention_bwd(ok, ok, ok, ok, ok, lse.cpu())
 

@@ -79,7 +79,8 @@ def test_decode_attention_matches_jax(c, tq, quantized):
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
 @pytest.mark.parametrize("d,c,tq", [(4, 37, 3), (36, 100, 7), (100, 21, 1),
-                                    (4, 530, 520)])
+                                    (4, 530, 520), (320, 40, 3),
+                                    (512, 33, 9)])
 def test_decode_attention_any_width_and_chunk_matches_jax(d, c, tq,
                                                           quantized):
     """Shapes the decode kernel now takes: d not a multiple of 8, a cache
@@ -123,12 +124,14 @@ def test_decode_attention_argument_rules():
                                     k_scale=torch.ones(1, 1, 8, 1))
 
 
-@pytest.mark.parametrize("d", [1, 4, 36, 100, 256])
+@pytest.mark.parametrize("d", [1, 4, 36, 100, 256, 264, 320, 512])
 def test_kernel_wrappers_take_every_width_to_256(d):
-    """The checks each wrapper runs before it launches: 1 <= d <= 256, any
-    chunk length Tq (1024, a prompt bucket's prefill) and cache capacity C
-    (100, not a multiple of 8), and views that are not 16-byte aligned;
-    d > 256 raises (four 64 x 256 f32 tiles fill shared memory)."""
+    """The checks each wrapper runs before it launches take every head
+    width, those above 256 included (fault C2, repaired): any chunk length
+    Tq (1024, a prompt bucket's prefill) and cache capacity C (100, not a
+    multiple of 8), and views that are not 16-byte aligned.  The decode
+    plan sends d > 256 to the tensor-core chunk path.  What stays refused:
+    an empty key axis."""
     from mxnet_tpu_torch.base import MXNetError
     from mxnet_tpu_torch.kernels import flash_bwd as tfb
 
@@ -139,14 +142,97 @@ def test_kernel_wrappers_take_every_width_to_256(d):
         k8, ks = torch.zeros(2, 1, c, d, dtype=torch.int8), \
             torch.ones(2, 1, c, 1)
         tatt._check_cuda_args(q, k8, k8, lens, ks, ks)
+        length, splits = tatt.split_plan(2, tq, c, d, 132)
+        assert (splits == 0) == (tq > tatt.SPLIT_TQ or d > 256)
     x = torch.zeros(2 * 1 * 37 * d + 1)[1:].view(2, 1, 37, d)
     tatt._check_flash_args(x, x, x, lens)
     tfb._check_args(x, x, x, x, x, torch.zeros(2, 1, 37), lens)
-    big = torch.zeros(2, 1, 8, 264)
+    empty = torch.zeros(2, 1, 0, d)
     with pytest.raises(MXNetError):
-        tatt._check_cuda_args(big, big, big, lens, None, None)
+        tatt._check_cuda_args(x, empty, empty, lens, None, None)
     with pytest.raises(MXNetError):
-        tatt._check_flash_args(big, big, big, lens)
+        tatt._check_flash_args(x, empty, empty, lens)
+
+
+def _split_emulation(q, k, v, lens, ks, vs, scale):
+    """Split-K decode in plain PyTorch: the wrapper's own plan
+    (:func:`split_plan` on a 132-SM card), then per split the masked
+    softmax partial (max, sum, unnormalized output) over the positions it
+    holds below min(C, len + Tq), reading no row past that, merged in
+    split order by the combine's formula.  int8 caches dequantized."""
+    b, h, tq, d = q.shape
+    c = k.shape[2]
+    length, splits = tatt.split_plan(b * h, tq, c, d, 132)
+    assert splits > 1 and length % 32 == 0
+    out = torch.zeros(b, h, tq, d)
+    lse = torch.zeros(b, h, tq)
+    for r in range(b):
+        end = min(c, int(lens[r]) + tq)
+        kk, vv = k[r, :, :end].float(), v[r, :, :end].float()
+        if ks is not None:
+            kk, vv = kk * ks[r, :, :end], vv * vs[r, :, :end]
+        parts = []
+        for sp in range(splits):
+            p0, p1 = sp * length, min((sp + 1) * length, end)
+            if p0 >= p1:
+                parts.append(None)            # wholly past: weight 0
+                continue
+            s = torch.einsum("hqd,hkd->hqk", q[r], kk[:, p0:p1]) * scale
+            pos = torch.arange(p0, p1)
+            live = pos[None, :] <= int(lens[r]) + torch.arange(tq)[:, None]
+            s = s.masked_fill(~live[None], float("-inf"))
+            m = s.amax(-1)
+            e = torch.where(live[None], torch.exp(s - m.clamp_min(-1e30)
+                                                 [..., None]), 0.0)
+            parts.append((m, e.sum(-1), e @ vv[:, p0:p1]))
+        ms = torch.stack([p[0] if p else torch.full((h, tq), float("-inf"))
+                          for p in parts])
+        big = ms.amax(0)
+        tot, acc = torch.zeros(h, tq), torch.zeros(h, tq, d)
+        for p in parts:                       # in split order
+            if p is None:
+                continue
+            w = torch.where(p[0] == float("-inf"), 0.0, torch.exp(p[0] - big))
+            tot = tot + p[1] * w
+            acc = acc + p[2] * w[..., None]
+        out[r] = acc / tot[..., None]
+        lse[r] = big + torch.log(tot)
+    return out, lse
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("tq", [1, 4, 7])
+def test_split_k_emulation_matches_jax(tq, quantized):
+    """The split-K plan and combine against the JAX package's
+    ``flash_attention_decode``, within 1e-5: lengths 0, 1, mid-split and
+    ending on a split boundary, NaN garbage past each row's window (the
+    JAX side gets those rows zeroed: its matmul multiplies them by 0)."""
+    c, d = 1024, 16
+    q, k, v, ks, vs = _inputs(c, tq, quantized, b=4, h=2, d=d)
+    length, _ = tatt.split_plan(4 * 2, tq, c, d, 132)
+    lens = np.asarray([0, 1, length + length // 2, 2 * length - tq],
+                      np.int32)
+    past = np.arange(c)[None, :] >= (lens[:, None] + tq)
+    past = past[:, None, :, None]
+    clean = [x if x is None else np.where(past, 0, x).astype(x.dtype)
+             for x in (k, v, ks, vs)]
+    if quantized:
+        garbage = [k, v, np.where(past, np.nan, ks).astype("float32"),
+                   np.where(past, np.nan, vs).astype("float32")]
+    else:
+        garbage = [np.where(past, np.nan, x).astype("float32")
+                   for x in (k, v)] + [None, None]
+    got, got_lse = _split_emulation(_t(q), *(_t(x) for x in garbage[:2]),
+                                    lens, *(_t(x) for x in garbage[2:]),
+                                    1.0 / np.sqrt(d))
+    want, want_lse = jatt.flash_attention_decode(
+        _j(q), *(_j(x) for x in clean[:2]), _j(lens), return_lse=True,
+        k_scale=_j(clean[2]), v_scale=_j(clean[3]))
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("lens", [[0, 0], [1, 5], [3, 0]])

@@ -94,7 +94,7 @@ def test_flash_attention_untileable_lengths_match_dispatch(tq, tk, causal):
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["dense", "causal"])
-@pytest.mark.parametrize("d", [4, 36, 100])
+@pytest.mark.parametrize("d", [4, 36, 100, 320, 512])
 def test_flash_attention_any_head_width_matches_jax(d, causal):
     """d not a multiple of 8 (the JAX package runs its jnp path there, the
     port's kernel pads its shared rows): output and lse against JAX."""

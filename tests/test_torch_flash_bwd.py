@@ -104,7 +104,7 @@ def test_bwd_reference_ragged_t_matches_jax_grad(causal):
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["dense", "causal"])
-@pytest.mark.parametrize("d", [4, 36, 100])
+@pytest.mark.parametrize("d", [4, 36, 100, 320, 512])
 def test_bwd_reference_any_head_width_matches_jax_grad(d, causal):
     """d not a multiple of 8, which the JAX kernels do not take: the
     reference is ``jax.grad`` of ``attention_reference`` (its jnp path),
@@ -176,6 +176,11 @@ def test_bwd_refuses_other_devices_and_bad_shapes():
     lse = torch.zeros(1, 1, 4, device="meta")
     with pytest.raises(MXNetError):
         tfb.flash_attention_bwd(x, x, x, x, x, lse)
-    bad = torch.zeros(1, 1, 4, 264)                  # d > 256
+    ok = torch.zeros(1, 1, 4, 264)                   # any width runs
+    tfb._check_args(ok, ok, ok, ok, ok, torch.zeros(1, 1, 4), None)
+    empty = torch.zeros(1, 1, 0, 264)                # no key: refused
     with pytest.raises(MXNetError):
-        tfb._check_args(bad, bad, bad, bad, bad, torch.zeros(1, 1, 4), None)
+        tfb._check_args(ok, empty, empty, ok, ok, torch.zeros(1, 1, 4), None)
+    with pytest.raises(MXNetError):                  # not f32
+        tfb._check_args(ok.double(), ok, ok, ok, ok, torch.zeros(1, 1, 4),
+                        None)

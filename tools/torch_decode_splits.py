@@ -1,0 +1,159 @@
+"""The decode kernel's split plan and split-K threshold, timed on one
+CUDA card.
+
+    python3 tools/torch_decode_splits.py
+
+At the decode tier's shape (B=8 slots, H=12 heads, d=64, capacity
+C=1024, cache lengths 979-1000, f32 and int8 cache) it times the decode
+kernel under several split lengths L (``ops.attention.split_plan``'s
+choice among them) and under the tensor-core chunk path, then, at Tq in
+{1, 2, 4, 8, 9, 16}, the split-K path (Tq <= 8 only) beside the chunk
+path, so the threshold ``SPLIT_TQ`` can be read off; then the split
+lengths 32-256 at the short capacities C = 100 and 256 (cache lengths
+up to C - 11).  Every time is the
+device time of one call, from ``torch.profiler`` kernel records summed
+over 50 calls (the combine launch included; at Tq = 1 also each
+kernel's share), with the inputs cycled
+through copies of at least 200 MB so the cache is read from HBM.  Each
+plan is first checked against the plain version (atol = rtol = 1e-4).
+Prints one line per measurement and one JSON line last.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+B, H, D, C = 8, 12, 64, 1024
+TOL = 1e-4
+
+
+def device_ms(fn, nbuf, calls=50, kernels=None):
+    """Device time (ms) of one ``fn(i)`` call; with a dict ``kernels``,
+    also each kernel's share by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(3):
+        fn(i % nbuf)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(i % nbuf)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    total = sum(e.device_time_total for e in events)
+    if total <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    if kernels is not None:
+        for e in events:
+            if e.device_time_total > 0:
+                kernels[e.key[:60]] = e.device_time_total / calls / 1e3
+    return total / calls / 1e3
+
+
+def inputs(tq, quantized, dev, seed=7, c=C):
+    from mxnet_tpu_torch.ops import attention as att
+
+    g = torch.Generator().manual_seed(seed)
+    one = B * H * c * D * (1 if quantized else 4) * 2
+    nbuf = max(1, math.ceil(200e6 / one))
+    bufs = []
+    for _ in range(nbuf):
+        q = (torch.rand(B, H, tq, D, generator=g) - 0.5).to(dev)
+        k = (torch.rand(B, H, c, D, generator=g) - 0.5).to(dev)
+        v = (torch.rand(B, H, c, D, generator=g) - 0.5).to(dev)
+        kw = {}
+        if quantized:
+            k, ks = att.quantize_kv(k)
+            v, vs = att.quantize_kv(v)
+            kw = dict(k_scale=ks, v_scale=vs)
+        bufs.append((q, k, v, kw))
+    top = min(c, 1000)
+    lens = torch.tensor([top - 3 * i - tq for i in range(B)],
+                        dtype=torch.int32, device=dev)
+    return bufs, lens
+
+
+def run(bufs, lens, plan, check=True, kernels=None):
+    from mxnet_tpu_torch.ops import attention as att
+
+    def call(i):
+        q, k, v, kw = bufs[i]
+        return att._launch_cuda(q, k, v, lens, 1.0 / math.sqrt(D), False,
+                                kw.get("k_scale"), kw.get("v_scale"), plan)
+
+    if check:
+        q, k, v, kw = bufs[0]
+        got = call(0)
+        want = att.flash_attention_decode_reference(q, k, v, lens, **kw)
+        err = (got - want).abs()
+        if not bool((err <= TOL + TOL * want.abs()).all()):
+            raise RuntimeError(f"plan {plan}: max err {err.max().item():.3e}")
+    return device_ms(call, len(bufs), kernels=kernels)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_decode_splits: no CUDA device", file=sys.stderr)
+        return 1
+    from mxnet_tpu_torch.ops import attention as att
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for quantized in (False, True):
+        kind = "int8" if quantized else "f32"
+        bufs, lens = inputs(1, quantized, dev)
+        chosen = att.split_plan(B * H, 1, C, D, sms)
+        for plan in ((128, 8), (256, 4), (384, 3), (512, 2), (1024, 1),
+                     (0, 0)):
+            split = {}
+            ms = run(bufs, lens, plan, kernels=split)
+            rows.append(dict(cache=kind, tq=1, L=plan[0], S=plan[1], ms=ms,
+                             chosen=plan == chosen, kernels=split))
+            each = ", ".join(f"{k.split('<')[0].split('(')[0]} {v:.4f}"
+                             for k, v in split.items())
+            print(f"  {kind} Tq=1 L={plan[0]} S={plan[1]}"
+                  f"{' (plan)' if plan == chosen else ''}: {ms:.4f} ms "
+                  f"({each})")
+        for tq in (2, 4, 8, 9, 16):
+            bufs, lens = inputs(tq, quantized, dev, seed=tq)
+            for plan in ([att.split_plan(B * H, min(tq, att.SPLIT_TQ), C, D,
+                                         sms)] if tq <= 8 else []) + \
+                    [(0, 0)]:
+                ms = run(bufs, lens, plan)
+                rows.append(dict(cache=kind, tq=tq, L=plan[0], S=plan[1],
+                                 ms=ms, chosen=False))
+                how = "chunk" if plan[1] == 0 else \
+                    f"split L={plan[0]} S={plan[1]}"
+                print(f"  {kind} Tq={tq} {how}: {ms:.4f} ms")
+        for c in (100, 256):          # short caches: the first buckets
+            bufs, lens = inputs(1, quantized, dev, seed=c, c=c)
+            chosen = att.split_plan(B * H, 1, c, D, sms)
+            for length in (32, 64, 128, 256):
+                plan = (length, -(-c // length))
+                if length >= 2 * c:
+                    continue
+                ms = run(bufs, lens, plan)
+                rows.append(dict(cache=kind, tq=1, c=c, L=plan[0], S=plan[1],
+                                 ms=ms, chosen=plan == chosen))
+                print(f"  {kind} Tq=1 C={c} L={plan[0]} S={plan[1]}"
+                      f"{' (plan)' if plan == chosen else ''}: {ms:.4f} ms")
+    print(card)
+    print(json.dumps({"decode_splits": rows, "card": card, "sms": sms}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
