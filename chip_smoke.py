@@ -104,7 +104,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
 14. Their times at the stem shape and the stage-4 shape beside the
     bound, the plain versions, ``torch.var_mean`` (stats) and
     ``F.batch_norm(training=True)`` + ``relu_`` (both passes, two calls;
-    yardsticks the port never calls).
+    yardsticks the port never calls); then both kernels and those two
+    yardsticks by device time (``torch.profiler``) at all five
+    BatchNormReLU shapes of ResNet-50.
 15. Train ``resnet50_v1(layout="NHWC", fused_bn_relu=True)`` (published
     widths, 1000 classes, seeded weights, f32, TF32 off) through
     ``parallel.ShardedTrainer`` (sgd, lr 0.05, momentum 0.9, as
@@ -151,6 +153,36 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     loss within 1e-4 relative of ``ShardedTrainer``'s, ``bn_act_stats``
     / ``bn_act_apply`` 33 / 33 launches a step, the running statistics
     move; step p50 beside phase 15's.
+
+22. The 16-bit attention kernels (bf16 and f16: forward, dq, dk/dv)
+    against their plain versions, which follow the TPU kernels'
+    roundings: the training shape (B=32, H=12, T=128, kv_len 64-128) and
+    the serving shape (B=16, T=512, kv_len 24-512) at d=64, d in {36,
+    128, 320} at B=4, T in {128, 512}, causal off and on, unaligned
+    views; NaN in k/v past each row's length.  Bars: the output within
+    2^-7 (bf16) / 2^-10 (f16) x max|ref|, the lse within 1e-4, dq / dk /
+    dv within 2^-6 / 2^-9 x the larger of max|g| and max|ref| (a gradient
+    larger than g, as dv of a key that 512 queries attend with p ~ 1,
+    rounds at its own scale); exact zeros past lengths, the same bits
+    twice.
+23. Their device times (``torch.profiler``) at the training and serving
+    shapes beside SDPA's forward and backward in the same type and key
+    lengths (yardsticks the port never calls), the plain versions
+    (events) and the bounds: bytes at 3.35e12 B/s, 16-bit MMAs at
+    989e12 flop/s, the two-term TF32 products at 495e12.
+24. Phase 11's BERT-base in bf16 at ``bench_bert_base``'s settings:
+    ``ShardedTrainer(compute_dtype=torch.bfloat16)``, adamw, lr 1e-4, wd
+    0.01, dropout 0.1; 2 warm + 20 timed steps: samples/s, step p50 and
+    peak memory beside phase 11's f32; 12 + 12 + 12 launches a step of
+    the bf16 forward, dq and dk/dv and none of an f32 kernel; the loss
+    finite and falling; the master parameters f32.
+25. The same in f16 with dynamic loss scaling; then 24 steps from a
+    loss scale of 2^30 (dropout 0): steps skip while the scale halves,
+    then the loss falls over the steps taken.
+26. Phase 12 in bf16: 2 layers at full width, B=4, T=128, one step on
+    the card and on the CPU: the loss within 2e-2 relative and every
+    gradient within 2^-4 x max|g| (bf16 computations in two orders;
+    the bars of ``tests/test_torch_amp.py``).
 
 It prints a ``{"kernels": [...]}`` line, the card line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -1312,10 +1344,34 @@ def pretrain_model(dev, **kw):
                            ).initialize(seed=0)
 
 
+def timed_steps(tr, x, y, dev, steps):
+    """2 warm steps, then ``steps`` timed ones with the launch counts set
+    to 0 before them: ``(losses of all steps, step p50 by CUDA events,
+    wall seconds of the timed steps, launches, peak device memory)``."""
+    from mxnet_tpu_torch.kernels import registry
+
+    losses = [tr.step(x, y) for _ in range(2)]
+    tr.drain()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(steps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(steps)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        starts[i].record()
+        losses.append(tr.step(x, y))
+        ends[i].record()
+    tr.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = registry.launches()
+    p50 = statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+    return losses, p50, wall, launches, torch.cuda.max_memory_allocated(dev)
+
+
 def phase_train(dev, card):
     from mxnet_tpu_torch import random as mxrandom
     from mxnet_tpu_torch.gluon.model_zoo.bert import pretrain_loss
-    from mxnet_tpu_torch.kernels import registry
     from mxnet_tpu_torch.parallel import ShardedTrainer
 
     mxrandom.seed(0)
@@ -1330,21 +1386,8 @@ def phase_train(dev, card):
           f"{time.perf_counter() - t0:.2f} s")
     x, y = pretrain_batch(PRETRAIN["batch"], PRETRAIN["seq"],
                           PRETRAIN["masked"], seed=21)
-    losses = [tr.step(x, y) for _ in range(2)]
-    tr.drain()
     steps = 20
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(steps)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(steps)]
-    registry.reset_launches()
-    t0 = time.perf_counter()
-    for i in range(steps):
-        starts[i].record()
-        losses.append(tr.step(x, y))
-        ends[i].record()
-    tr.drain()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = registry.launches()
+    losses, p50, wall, launches, peak = timed_steps(tr, x, y, dev, steps)
     layers = 12
     for name, per_step in (("flash_attention", layers),
                            ("flash_attention_bwd_dq", layers),
@@ -1359,20 +1402,19 @@ def phase_train(dev, card):
     check(all(math.isfinite(v) for v in vals), f"non-finite loss: {vals}")
     check(vals[-1] < vals[0], f"loss did not fall: {vals[0]} -> {vals[-1]}")
     check(tr.uses_arena, "the trainer did not pick the arena adapter")
-    step_ms = [s.elapsed_time(e) for s, e in zip(starts, ends)]
-    p50 = statistics.median(step_ms)
     sps = PRETRAIN["batch"] * steps / wall
     print(f"  launches over {steps} steps: {launches}")
     print(f"  loss {vals[0]:.4f} (step 1) -> {vals[2]:.4f} (step 3) -> "
           f"{vals[-1]:.4f} (step {len(vals)})")
     print(f"phase 11 train BERT-base (B=32, T=128, 20 masked, adam, TF32 "
           f"off): {sps:.2f} samples/s, step p50 {p50:.3f} ms (device, CUDA "
-          f"events), wall {wall * 1e3 / steps:.3f} ms per step [{card}]")
+          f"events), wall {wall * 1e3 / steps:.3f} ms per step, peak "
+          f"{peak / 2**30:.2f} GiB [{card}]")
     del tr, net
     return dict(samples_per_s=sps, step_p50_ms=p50,
                 wall_ms_per_step=wall * 1e3 / steps, steps=steps,
                 launches={k: v for k, v in launches.items() if v},
-                loss_first=vals[0], loss_last=vals[-1])
+                loss_first=vals[0], loss_last=vals[-1], peak_bytes=peak)
 
 
 def check_step(gl, gg, cl, cg):
@@ -1558,10 +1600,47 @@ def time_bn(rows, c, dev, label):
     return rows_out
 
 
+def bn_device_row(rows, c, dev):
+    """Device time (``device_ms_per_call``) of ``bn_act_stats``,
+    ``bn_act_apply``, ``torch.var_mean`` and ``F.batch_norm(training=True)
+    + relu_`` at one shape: CUDA events around a call this short time the
+    ~40 us Python wrapper, not the kernel."""
+    from mxnet_tpu_torch.kernels import bn_act as kbn
+
+    nbuf = max(1, math.ceil(200e6 / (rows * c * 4)))
+    bufs = [bn_case(rows, c, seed=200 + i, dev=dev)[0] for i in range(nbuf)]
+    _, gamma, beta = bn_case(1, c, seed=99, dev=dev)
+    mean, var = kbn.bn_stats(bufs[0])
+    inv = torch.rsqrt(var + 1e-5)
+    scale, shift = gamma * inv, beta - mean * gamma * inv
+    rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+    out = dict(
+        stats=device_ms_per_call(lambda i: kbn.bn_stats(bufs[i]), nbuf),
+        apply=device_ms_per_call(
+            lambda i: kbn.bn_apply(bufs[i], scale, shift, "relu"), nbuf),
+        var_mean=device_ms_per_call(
+            lambda i: torch.var_mean(bufs[i], 0, unbiased=False), nbuf),
+        batch_norm=device_ms_per_call(lambda i: F.batch_norm(
+            bufs[i], rm, rv, gamma, beta, training=True, momentum=0.1,
+            eps=1e-5).relu_(), nbuf))
+    for kernel in ("stats", "apply"):
+        out[f"{kernel}_bound_ms"] = bn_bound(rows, c, kernel)[0]
+    print(f"  device time bn_act rows={rows} C={c}: stats {out['stats']:.4f}"
+          f" ms (bound {out['stats_bound_ms']:.4f}), torch.var_mean "
+          f"{out['var_mean']:.4f} ms; apply {out['apply']:.4f} ms (bound "
+          f"{out['apply_bound_ms']:.4f}), F.batch_norm + relu_ "
+          f"{out['batch_norm']:.4f} ms; {nbuf} input copies")
+    return dict(shape=dict(rows=rows, C=c), **out)
+
+
 def phase_bn_times(dev):
     rows = dict(stem=time_bn(*RESNET50_BN[0], dev, "bn_act stem"),
                 stage4=time_bn(*RESNET50_BN[4], dev, "bn_act stage 4"))
-    print("phase 14 bn_act times: done")
+    rows["device"] = [bn_device_row(r, c, dev) for r, c in RESNET50_BN]
+    slower = [r["shape"] for r in rows["device"]
+              if r["stats"] > r["var_mean"]]
+    print(f"phase 14 bn_act times: done; stats slower than torch.var_mean "
+          f"by device time at {slower or 'no shape'}")
     return rows
 
 
@@ -2030,6 +2109,387 @@ def phase_resnet_eager(dev, card, sharded):
                 launches={k: v for k, v in launches.items() if v})
 
 
+# ------------------------------------ 16-bit attention and training
+HALF = ((torch.bfloat16, "bf16"), (torch.float16, "f16"))
+HALF_FWD_TOL = {"bf16": 2.0 ** -7, "f16": 2.0 ** -10}   # x max|ref|
+HALF_BWD_TOL = {"bf16": 2.0 ** -6, "f16": 2.0 ** -9}    # x max|g|
+HALF_FLOP_PER_S = 989e12     # H100 SXM dense bf16 / f16 on tensor cores
+HALF_SHAPES = dict(train=(32, 128, 64), serve=(16, 512, 24))  # B, T, lo
+# phase 26's bars, the CPU tests' (tests/test_torch_amp.py): two bf16
+# computations of one step differ at bf16's scale, not f32's
+HALF_LOSS_RTOL = 2e-2
+HALF_GRAD_TOL = 2.0 ** -4     # x max|g| of each tensor
+
+
+def half_lens(b, t, lo, seed):
+    """Per-row key lengths lo..t from a seed, the first t."""
+    lens = np.random.RandomState(seed).randint(lo, t + 1, size=b).tolist()
+    lens[0] = t
+    return lens
+
+
+def half_case(b, t, d, lens, dt, seed, dev, offset=False):
+    """16-bit q, k, v, g (B, H, T, d), NaN in k/v past each row's length,
+    on the card (as views at storage offset 1 with ``offset``): the
+    kernels' inputs, the plain version's (garbage zeroed) and the
+    lengths."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = [((torch.rand(b, H, t, d, generator=g) - 0.5) * 2).to(dt)
+         for _ in range(4)]
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    past = (torch.arange(t)[None, :] >= lens_t[:, None])[:, None, :, None]
+    x[1] = x[1].masked_fill(past, float("nan"))
+    x[2] = x[2].masked_fill(past, float("nan"))
+
+    def put(t_):
+        if not offset:
+            return t_.to(dev)
+        flat = torch.empty(t_.numel() + 1, dtype=dt, device=dev)
+        flat[1:] = t_.reshape(-1).to(dev)
+        return flat[1:].view(t_.shape)
+
+    kern = [put(t_) for t_ in x]
+    plain = [kern[0], torch.nan_to_num(kern[1]), torch.nan_to_num(kern[2]),
+             kern[3]]
+    return kern, plain, lens_t.to(dev)
+
+
+def half_check(sfx, kern, plain, lt, causal, label):
+    """One 16-bit forward and backward against the plain versions:
+    output within HALF_FWD_TOL x max|ref|, lse within 1e-4, dq / dk / dv
+    within HALF_BWD_TOL x max|g|, exact zeros past each length, the same
+    bits on a second call.  Returns the worst absolute errors."""
+    from mxnet_tpu_torch.kernels import flash_bwd as fb
+    from mxnet_tpu_torch.ops import attention as att
+
+    out, lse = att.flash_attention(*kern[:3], causal=causal,
+                                   kv_valid_length=lt, return_lse=True)
+    got = fb.flash_attention_bwd(*kern, out, lse, lt, causal)
+    again = att.flash_attention(*kern[:3], causal=causal, kv_valid_length=lt)
+    again_g = fb.flash_attention_bwd(*kern, out, lse, lt, causal)
+    torch.cuda.synchronize()
+    ref, ref_lse = att.flash_attention_reference(
+        *plain[:3], causal=causal, kv_valid_length=lt, return_lse=True)
+    want = fb.flash_attention_bwd_reference(*plain, out, lse, lt, causal)
+    check(out.dtype == kern[0].dtype and lse.dtype == torch.float32,
+          f"{label}: out {out.dtype}, lse {lse.dtype}")
+    check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+    err = dict(fwd=(out.float() - ref.float()).abs().max().item())
+    top = ref.float().abs().max().item()
+    check(err["fwd"] <= HALF_FWD_TOL[sfx] * top,
+          f"{label}: forward err {err['fwd']:.3e} over "
+          f"{HALF_FWD_TOL[sfx]:.3e} x {top:.3e}")
+    same_inf = torch.isinf(ref_lse) & (lse == ref_lse)
+    diff = torch.where(same_inf, torch.zeros_like(lse), (lse - ref_lse).abs())
+    check(bool((diff <= TOL + TOL * ref_lse.abs()).all()),
+          f"{label}: lse err {diff.max().item():.3e}")
+    gmax = kern[3].float().abs().max().item()
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        check(a.dtype == kern[0].dtype and bool(torch.isfinite(a).all()),
+              f"{label}: {name} {a.dtype}, finite {torch.isfinite(a).all()}")
+        e = (a.float() - r.float()).abs().max().item()
+        # max|g|, or the gradient's own scale where it is larger (a key
+        # that 512 queries attend with p ~ 1 sums 512 rows of g)
+        top = max(gmax, r.float().abs().max().item())
+        check(e <= HALF_BWD_TOL[sfx] * top,
+              f"{label}: {name} err {e:.3e} over {HALF_BWD_TOL[sfx]:.3e} x "
+              f"{top:.3e}")
+        key = "dq" if name == "dq" else "dkv"
+        err[key] = max(err.get(key, 0.0), e)
+    for r, n in enumerate(lt.tolist()):
+        check(not got[1][r, :, n:].any() and not got[2][r, :, n:].any(),
+              f"{label}: dk/dv not exactly 0 past length {n}")
+        if n == 0:
+            check(not got[0][r].any() and not out[r].any(),
+                  f"{label}: a 0-length row's out / dq not exactly 0")
+    check(bool(torch.equal(out, again))
+          and all(torch.equal(a, b) for a, b in zip(got, again_g)),
+          f"{label}: two calls differ")
+    return err
+
+
+def phase_half_kernels(dev):
+    """Phase 22: the 16-bit forward, dq and dk/dv against their plain
+    versions, bf16 and f16."""
+    worst = {sfx: dict(fwd=0.0, dq=0.0, dkv=0.0) for _, sfx in HALF}
+    n = 0
+    for dt, sfx in HALF:
+        cases = []
+        for shape, (b, t, lo) in HALF_SHAPES.items():
+            lens = half_lens(b, t, lo, seed=t)
+            for causal in ((False, True) if shape == "train" else (False,)):
+                cases.append((f"{shape} d=64", b, t, 64, lens, causal,
+                              False))
+        for d in (36, 128, 320):
+            for t in (128, 512):
+                for causal in (False, True):
+                    cases.append((f"B=4 T={t} d={d}", 4, t, d,
+                                  [0, 1, 63, t], causal, False))
+        for d in (36, 64):
+            cases.append((f"unaligned d={d}", 4, 128, d, [0, 1, 63, 128],
+                          True, True))
+        for label, b, t, d, lens, causal, offset in cases:
+            kern, plain, lt = half_case(b, t, d, lens, dt, seed=b + t + d,
+                                        dev=dev, offset=offset)
+            err = half_check(sfx, kern, plain, lt, causal,
+                             f"{sfx} {label} causal={causal}")
+            for k_ in err:
+                worst[sfx][k_] = max(worst[sfx][k_], err[k_])
+            n += 1
+        print(f"  {sfx}: {len(cases)} cases (training and serving shapes at"
+              f" d=64, d in 36/128/320 at T 128/512, causal off/on, "
+              f"unaligned views), worst abs err fwd {worst[sfx]['fwd']:.3e},"
+              f" dq {worst[sfx]['dq']:.3e}, dk/dv {worst[sfx]['dkv']:.3e}")
+    print(f"phase 22 16-bit attention kernels vs plain: {n} cases within "
+          f"2^-7 / 2^-10 x max|ref| (forward, bf16 / f16) and 2^-6 / 2^-9 "
+          f"x max(max|g|, max|ref|) (dq, dk, dv), exact zeros past "
+          "lengths, same bits twice")
+    return worst
+
+
+def half_bounds(b, t, d, lens):
+    """Least times (ms) of the 16-bit forward, dq and dk/dv on these
+    inputs, as ``(ms, by)``.  Bytes (2 a 16-bit value, 4 an f32 one):
+    forward q, out, lse in full and k, v over the valid keys; dq adds g
+    and out in, delta out; dk/dv reads q, g, lse, delta, writes dk, dv.
+    Operations per attended (query, key) pair: 16-bit MMAs at 989e12
+    flop/s, 4 d (forward: S and P V; dq and dk/dv: S and dP), and the
+    two-term TF32 products at 495e12, 2 x 2 d for dq (dS K) and 2 x 4 d
+    for dk/dv (P^T G, dS^T Q)."""
+    keys = sum(min(x, t) for x in lens) * H
+    rows = b * H * t
+    pairs = t * keys
+    kv = 2 * keys * d * 2
+    nbytes = dict(fwd=2 * rows * d * 2 + rows * 4 + kv + b * 4,
+                  dq=4 * rows * d * 2 + 2 * rows * 4 + kv + b * 4,
+                  dkv=2 * rows * d * 2 + 2 * rows * 4 + kv + 2 * b * H * t
+                  * d * 2 + b * 4)
+    t16 = 4 * d * pairs / HALF_FLOP_PER_S
+    ops = dict(fwd=t16, dq=t16 + 2 * 2 * d * pairs / TF32_FLOP_PER_S,
+               dkv=t16 + 2 * 4 * d * pairs / TF32_FLOP_PER_S)
+    out = {}
+    for k_ in nbytes:
+        tb, to = nbytes[k_] / HBM_BYTES_PER_S * 1e3, ops[k_] * 1e3
+        out[k_] = (max(tb, to), "bytes" if tb >= to else "operations",
+                   nbytes[k_])
+    return out
+
+
+def time_half(dt, sfx, shape, dev):
+    """Device times (profiler) of the 16-bit forward, dq and dk/dv beside
+    SDPA's forward and backward in the same type and key lengths, the
+    plain versions (CUDA events) and the bounds."""
+    from mxnet_tpu_torch.kernels import flash_bwd as fb
+    from mxnet_tpu_torch.ops import attention as att
+
+    b, t, lo = HALF_SHAPES[shape]
+    lens = half_lens(b, t, lo, seed=t + 1)
+    d = D
+    one = 5 * b * H * t * d * 2
+    nbuf = max(1, math.ceil(200e6 / one))
+    lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+    mask = (torch.arange(t, device=dev)[None, :] < lt[:, None])[:, None,
+                                                                None, :]
+    scale = 1.0 / math.sqrt(d)
+    g = torch.Generator(device="cpu").manual_seed(17)
+    bufs, graphs = [], []
+    for _ in range(nbuf):
+        q, k, v, go = (((torch.rand(b, H, t, d, generator=g) - 0.5) * 2)
+                       .to(dt).to(dev) for _ in range(4))
+        out, lse = att.flash_attention(q, k, v, kv_valid_length=lt,
+                                       return_lse=True)
+        _, delta = fb.launch_dq(q, k, v, go, out, lse, lt, False, scale)
+        bufs.append((q, k, v, go, out, lse, delta))
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        graphs.append((leaves, F.scaled_dot_product_attention(
+            *leaves, attn_mask=mask), go))
+    fns = dict(
+        fwd=lambda i: att.flash_attention(*bufs[i][:3], kv_valid_length=lt),
+        dq=lambda i: fb.launch_dq(*bufs[i][:6], lt, False, scale),
+        dkv=lambda i: fb.launch_dkv(*bufs[i][:4], bufs[i][5], bufs[i][6],
+                                    lt, False, scale))
+    dev_ms = {k_: device_ms_per_call(fn, nbuf) for k_, fn in fns.items()}
+    lib = dict(
+        fwd=device_ms_per_call(lambda i: F.scaled_dot_product_attention(
+            *bufs[i][:3], attn_mask=mask), nbuf),
+        bwd=device_ms_per_call(lambda i: torch.autograd.grad(
+            graphs[i][1], graphs[i][0], graphs[i][2], retain_graph=True),
+            nbuf))
+    plain = dict(
+        fwd=cuda_time_ms(lambda i: att.flash_attention_reference(
+            *bufs[i][:3], kv_valid_length=lt), nbuf, iters=5, reps=3),
+        bwd=cuda_time_ms(lambda i: fb.flash_attention_bwd_reference(
+            *bufs[i][:6], lt, False, scale), nbuf, iters=5, reps=3))
+    bnds = half_bounds(b, t, d, lens)
+    rows = {}
+    for k_ in ("fwd", "dq", "dkv"):
+        bnd, by, nbytes = bnds[k_]
+        rows[k_] = dict(
+            shape=dict(B=b, H=H, T=t, d=d, kv_len=[min(lens), max(lens)],
+                       dtype=sfx),
+            ms=dev_ms[k_], plain_ms=plain["fwd" if k_ == "fwd" else "bwd"],
+            library_ms=lib["fwd" if k_ == "fwd" else "bwd"], bound_ms=bnd,
+            bound_by=by, nbytes=nbytes)
+        print(f"  time {sfx} {shape} {k_}: B={b} H={H} T={t} d={d} kv_len "
+              f"{min(lens)}..{max(lens)} device {dev_ms[k_]:.4f} ms, bound "
+              f"{bnd:.4f} ms ({by}; {nbytes} B), plain "
+              f"{rows[k_]['plain_ms']:.4f} ms (events"
+              f"{'' if k_ == 'fwd' else ', dq dk dv together'})")
+    whole = dev_ms["dq"] + dev_ms["dkv"]
+    print(f"  time {sfx} {shape}: SDPA ({sfx}, boolean key-padding mask) "
+          f"forward {lib['fwd']:.4f} ms against {dev_ms['fwd']:.4f}; "
+          f"backward {lib['bwd']:.4f} ms against dq + dk/dv {whole:.4f} "
+          f"(device time, profiler); {nbuf} input copies")
+    return rows
+
+
+def phase_half_times(dev):
+    rows = {sfx: {shape: time_half(dt, sfx, shape, dev)
+                  for shape in HALF_SHAPES} for dt, sfx in HALF}
+    print("phase 23 16-bit attention times: done")
+    return rows
+
+
+def train_half(dev, card, dt, sfx, f32):
+    """Phases 24 (bf16) and 25 (f16, dynamic loss scaling): BERT-base
+    pretraining at bench_bert_base's settings through ShardedTrainer
+    (adamw, lr 1e-4, wd 0.01, dropout 0.1, compute_dtype), 2 warm and 20
+    timed steps on phase 11's batch."""
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon.model_zoo.bert import pretrain_loss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    mxrandom.seed(0)
+    net = pretrain_model(dev, dropout=0.1)
+    tr = ShardedTrainer(net, pretrain_loss, optimizer="adamw",
+                        learning_rate=1e-4, weight_decay=0.01,
+                        compute_dtype=dt)
+    x, y = pretrain_batch(PRETRAIN["batch"], PRETRAIN["seq"],
+                          PRETRAIN["masked"], seed=21)
+    steps = 20
+    losses, p50, wall, launches, peak = timed_steps(tr, x, y, dev, steps)
+    for name in ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        check(launches[f"{name}.{sfx}"] == 12 * steps,
+              f"{name}.{sfx}: {launches[f'{name}.{sfx}']} launches in "
+              f"{steps} steps, want 12 a step")
+    check(not any(v for k, v in launches.items() if "." not in k),
+          f"an f32 kernel launched in a {sfx} step: {launches}")
+    vals = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in vals), f"non-finite loss: {vals}")
+    check(vals[-1] < vals[0], f"loss did not fall: {vals[0]} -> {vals[-1]}")
+    check(all(p.dtype == torch.float32 for p in net.parameters()),
+          "a master parameter left f32")
+    sps = PRETRAIN["batch"] * steps / wall
+    out = dict(samples_per_s=sps, step_p50_ms=p50,
+               wall_ms_per_step=wall * 1e3 / steps, steps=steps,
+               launches={k: v for k, v in launches.items() if v},
+               loss_first=vals[0], loss_last=vals[-1], peak_bytes=peak,
+               loss_scale=tr.loss_scale, skipped_steps=tr.skipped_steps)
+    print(f"  loss {vals[0]:.4f} (step 1) -> {vals[-1]:.4f} (step "
+          f"{len(vals)}); loss scale {tr.loss_scale:g}, skipped "
+          f"{tr.skipped_steps}; launches over {steps} steps: "
+          f"{out['launches']}")
+    print(f"  {sfx} {sps:.2f} samples/s, step p50 {p50:.3f} ms, peak "
+          f"{peak / 2**30:.2f} GiB against phase 11's f32 (adam) "
+          f"{f32['samples_per_s']:.2f} samples/s, {f32['step_p50_ms']:.3f} "
+          f"ms, {f32['peak_bytes'] / 2**30:.2f} GiB (x"
+          f"{sps / f32['samples_per_s']:.3f} samples/s)")
+    del tr, net
+    return out
+
+
+def phase_train_bf16(dev, card, f32):
+    out = train_half(dev, card, torch.bfloat16, "bf16", f32)
+    print(f"phase 24 train BERT-base bf16 (B=32, T=128, 20 masked, adamw, "
+          f"dropout 0.1): {out['samples_per_s']:.2f} samples/s, step p50 "
+          f"{out['step_p50_ms']:.3f} ms [{card}]")
+    return out
+
+
+def phase_train_fp16(dev, card, f32):
+    """Phase 25: the f16 run, then a short run from an overflowing loss
+    scale: steps skip while the scale halves, then the loss falls."""
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon.model_zoo.bert import pretrain_loss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    out = train_half(dev, card, torch.float16, "f16", f32)
+    mxrandom.seed(1)
+    net = pretrain_model(dev, dropout=0.0)   # a loss that moves by steps only
+    tr = ShardedTrainer(net, pretrain_loss, optimizer="adamw",
+                        learning_rate=1e-4, weight_decay=0.01,
+                        compute_dtype=torch.float16,
+                        init_loss_scale=2.0 ** 30)
+    x, y = pretrain_batch(PRETRAIN["batch"], PRETRAIN["seq"],
+                          PRETRAIN["masked"], seed=21)
+    seq = []
+    for _ in range(24):
+        loss = tr.step(x, y, block=True)
+        seq.append((loss, tr.loss_scale, tr.skipped_steps))
+    skipped = seq[-1][2]
+    check(1 <= skipped < len(seq), f"overflow run skipped {skipped} of "
+          f"{len(seq)} steps: {seq}")
+    prev_scale, prev_skip = 2.0 ** 30, 0
+    for loss, scale, skip in seq:
+        want = prev_scale / 2 if skip > prev_skip else prev_scale
+        check(scale == want, f"scale {scale} after a step, want {want}: "
+              f"{seq}")
+        prev_scale, prev_skip = scale, skip
+    stepped = [loss for (loss, _, skip), (_, _, before) in
+               zip(seq, [(0, 0, 0)] + seq[:-1]) if skip == before]
+    check(len(stepped) >= 3 and stepped[-1] < stepped[0],
+          f"the loss did not fall after the skips: {seq}")
+    print(f"  from loss scale 2^30: {skipped} skipped steps, scale "
+          f"{' -> '.join(f'{s:g}' for _, s, _ in seq[:skipped + 1])}; loss "
+          f"over the stepped steps {stepped[0]:.4f} -> {stepped[-1]:.4f}")
+    out["overflow_run"] = dict(skipped=skipped, scales=[s for _, s, _ in seq],
+                               losses=[v for v, _, _ in seq])
+    del tr, net
+    print(f"phase 25 train BERT-base f16 with dynamic loss scaling: "
+          f"{out['samples_per_s']:.2f} samples/s, step p50 "
+          f"{out['step_p50_ms']:.3f} ms, {out['skipped_steps']} skipped "
+          f"[{card}]")
+    return out
+
+
+def phase_train_cpu_bf16(dev):
+    """Phase 26: phase 12's 2-layer full-width step in bf16 on the card
+    (the 16-bit kernels) and on the CPU (their plain versions)."""
+    from mxnet_tpu_torch.gluon.model_zoo.bert import pretrain_loss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    x, y = pretrain_batch(4, 128, PRETRAIN["masked"], seed=22)
+    out = {}
+    for where in (dev, "cpu"):
+        net = pretrain_model(where, dropout=0.0, num_layers=2)
+        tr = ShardedTrainer(net, pretrain_loss, optimizer="adamw",
+                            learning_rate=1e-4, weight_decay=0.0,
+                            compute_dtype=torch.bfloat16)
+        loss = tr.step(x, y, block=True)
+        out[str(where)] = (loss, {n: p.grad.detach().cpu().clone()
+                                  for n, p in zip(tr.train_names,
+                                                  tr.params)})
+        del tr, net
+    (gl, gg), (cl, cg) = out[str(dev)], out["cpu"]
+    rel = abs(gl - cl) / abs(cl)
+    check(rel <= HALF_LOSS_RTOL, f"bf16 step-1 loss card {gl} vs CPU {cl}: "
+          f"rel {rel:.3e} over {HALF_LOSS_RTOL}")
+    worst_name, worst = "", 0.0
+    for name, c in cg.items():
+        top = c.abs().max().item()
+        err = (gg[name] - c).abs().max().item()
+        check(err <= HALF_GRAD_TOL * top, f"bf16 grad {name}: card vs CPU "
+              f"{err:.3e} > {HALF_GRAD_TOL} x {top:.3e}")
+        if top > 0 and err / top > worst:
+            worst_name, worst = name, err / top
+    print(f"phase 26 card vs CPU in bf16 (2 layers, full width, B=4, T=128):"
+          f" loss {gl:.6f} vs {cl:.6f} (rel {rel:.3e}, bar "
+          f"{HALF_LOSS_RTOL}); worst gradient {worst:.3e} x max|g| "
+          f"({worst_name}; bar {HALF_GRAD_TOL}) over {len(cg)} tensors")
+    return dict(loss_rel_err=rel, grad_rel_err=worst, worst=worst_name)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2068,6 +2528,11 @@ def main() -> int:
     lenet = phase_lenet(dev, card)
     ext_drive = phase_ext_drive(dev, card)
     resnet_eager = phase_resnet_eager(dev, card, resnet)
+    half_worst = phase_half_kernels(dev)
+    half_times = phase_half_times(dev)
+    train_bf16 = phase_train_bf16(dev, card, train)
+    train_fp16 = phase_train_fp16(dev, card, train)
+    train_cpu_bf16 = phase_train_cpu_bf16(dev)
     launches = {"flash_attention_decode": f32["launches"],
                 "flash_attention_decode_int8": i8["launches"]}
     kernels = []
@@ -2177,13 +2642,40 @@ def main() -> int:
             library=row["library"], shape=row["shape"],
             main_path_shape="ExtLeNet, B=64: 64x1x28x28 (axpb), 64x500 "
                             "(squared ReLU)"))
+    for sfx, run in (("bf16", train_bf16), ("f16", train_fp16)):
+        for name, key in (("flash_attention", "fwd"),
+                          ("flash_attention_bwd_dq", "dq"),
+                          ("flash_attention_bwd_dkv", "dkv")):
+            full = f"{name}.{sfx}"
+            src, replaces = registry.KERNELS[full]
+            row = half_times[sfx]["train"][key]
+            kernels.append(dict(
+                name=full, variant=sfx, route="cuda",
+                source=f"mxnet_tpu_torch/csrc/{src}", replaces=replaces,
+                launches=run["launches"][full],
+                max_abs_err=half_worst[sfx][key], ms=row["ms"],
+                time_by="device time (profiler)", plain_ms=row["plain_ms"],
+                plain="events" + ("" if key == "fwd" else
+                                  ", dq dk dv together"),
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                bound_note="max(bytes / 3.35e12, 16-bit MMA flops / "
+                           "989e12 + two-term TF32 flops / 495e12)",
+                library_ms=row["library_ms"],
+                library=f"scaled_dot_product_attention ({sfx}, boolean "
+                        "key-padding mask), " + ("forward" if key == "fwd"
+                                                  else "backward, dq dk dv "
+                                                  "together") + ", device "
+                        "time", shape=row["shape"],
+                serve=half_times[sfx]["serve"][key]))
     print(f"end to end: f32 {f32['tokens_per_s']:.1f} tokens/s, int8 "
           f"{i8['tokens_per_s']:.1f} tokens/s, BERT-base "
           f"{bert['requests_per_s']:.1f} requests/s, BERT-base training "
           f"{train['samples_per_s']:.2f} samples/s, ResNet-50 training "
           f"{resnet['img_per_s']:.2f} img/s, LeNet-5 eager "
           f"{lenet['img_per_s']:.1f} img/s, extension block "
-          f"{ext_drive['img_per_s']:.1f} img/s; whole run "
+          f"{ext_drive['img_per_s']:.1f} img/s, BERT-base bf16 training "
+          f"{train_bf16['samples_per_s']:.2f} samples/s, f16 "
+          f"{train_fp16['samples_per_s']:.2f} samples/s; whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels,
                       "serve": {"f32": f32, "int8": i8, "bert": bert},
@@ -2191,7 +2683,11 @@ def main() -> int:
                                 "resnet50": resnet,
                                 "resnet_card_vs_cpu": resnet_cpu,
                                 "lenet": lenet, "extension_block": ext_drive,
-                                "resnet50_eager": resnet_eager},
+                                "resnet50_eager": resnet_eager,
+                                "bert_base_bf16": train_bf16,
+                                "bert_base_fp16": train_fp16,
+                                "card_vs_cpu_bf16": train_cpu_bf16},
+                      "bn_act_device": bn_times["device"],
                       "device_time_by": DEVICE_TIME_BY,
                       "card": card}))
     print(card)

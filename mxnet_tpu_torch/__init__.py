@@ -22,16 +22,20 @@ never imports), ported in slices:
 * the eager Gluon path: ``autograd.record()`` / ``backward`` /
   ``gluon.Trainer`` over ``gluon.Block`` / ``HybridBlock`` (LeNet-5 in
   the vision zoo), and user kernels as ops through ``rtc.register`` and
-  ``library.load`` (the example's kernels in ``csrc/ext_ops.cu``).
+  ``library.load`` (the example's kernels in ``csrc/ext_ops.cu``);
+* 16-bit training: ``ShardedTrainer(compute_dtype=torch.bfloat16)`` or
+  ``torch.float16`` with dynamic loss scaling, f32 master parameters,
+  and ``amp``; the attention's bf16 / f16 forward, dq and dk/dv in
+  16-bit variants of the flash kernels.
 
 Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``.
 """
-from . import (autograd, context, gluon, library, numpy_extension, ops,
-               optimizer, parallel, random, rtc, serve)
+from . import (amp, autograd, context, gluon, library, numpy_extension,
+               ops, optimizer, parallel, random, rtc, serve)
 from .base import MXNetError
 
 npx = numpy_extension
 
-__all__ = ["autograd", "context", "gluon", "library", "numpy_extension",
+__all__ = ["amp", "autograd", "context", "gluon", "library", "numpy_extension",
            "npx", "ops", "optimizer", "parallel", "random", "rtc", "serve",
            "MXNetError"]

@@ -95,6 +95,22 @@
 // run at about four times that bound (PERF.md): loads, barriers and
 // fragment reads with few warps resident (registers cap them) leave
 // latency exposed.  wgmma with TMA and a deeper ring are the levers.
+//
+// 16-bit inputs (bf16 or f16 q, k, v, g, out; f32 lse and delta; dq, dk,
+// dv in the inputs' type): the `*16` kernels below, entries of their own.
+// The TPU kernels cast every operand to f32 and multiply in f32, so:
+// S = Q K^T and dP = G V^T (dk/dv: K Q^T and V G^T), whose operands are
+// all 16-bit, are one exact `mma.sync.m16n8k16` a product; dS K, dS^T Q
+// and P^T G, where P and dS are f32, are two TF32 MMAs, a_hi b + a_lo b
+// (the 16-bit b is exact in TF32, tf32x3.cuh), reading b by transposed
+// `ldmatrix` in the permuted depth order of the accumulator fragment.
+// delta = rowsum(g * out) in f32 (exact products) in the dq kernel;
+// dq, dk and dv are rounded to 16 bits once, at the end.  Tiles: 64 owned
+// rows (4 warps of 16), 64-row streamed tiles.  d <= 64 keeps the owned
+// rows in shared memory and double-buffers the streamed ones by
+// `cp.async` (55-56 KB); d > 64 runs WIDE (slabs of 64 for the
+// contractions over d, groups of 64 output columns over the grid's second
+// axis, synchronous loads).
 
 #include "tf32x3.cuh"
 
@@ -846,6 +862,444 @@ int launch_wide(K kern, int (&done)[64], int B, int H, int T, int d,
 
 bool bad_shape(int d, int Tk) { return d < 1 || Tk < 1; }
 
+// ------------------------------------------------------ 16-bit inputs
+struct Bwd16Args {
+  const uint16_t *q, *k, *v, *g, *out;  // bf16 or f16 bits
+  const float* lse;                      // (B, H, Tq)
+  float* delta;                          // (B, H, Tq): dq writes, dk/dv reads
+  const int* kv_len;                     // (B,), or null
+  uint16_t *dq, *dk, *dv;
+  int H, Tq, Tk, d, causal;
+  float scale;
+  int mode;                              // elements a copy moves (mode16)
+};
+
+constexpr int B16_BM = 64, B16_BN = 64, B16_NT = 128;
+
+// 16-bit tiles (two owned, two streamed: two stages each unless WIDE),
+// and for dk/dv the stages' lse and delta.
+template <bool WIDE, bool DKV>
+constexpr size_t bwd16_smem() {
+  return 2 * (size_t)DS16 * (2 * B16_BM + (WIDE ? 2 : 4) * B16_BN) +
+         (DKV && !WIDE ? 4 * 4 * B16_BN : 0);
+}
+
+template <typename T, bool WIDE>
+__global__ void __launch_bounds__(B16_NT)
+flash_bwd16_dq_kernel(const Bwd16Args a) {
+  constexpr int BM = B16_BM, BN = B16_BN, NT = B16_NT, NB = BN / 8, NJ = 8;
+  constexpr int ST = WIDE ? 1 : 2;
+  static_assert(BN >= BM, "the out rows borrow a stage");
+  extern __shared__ __align__(16) uint16_t sm16[];
+  uint16_t* sq = sm16;
+  uint16_t* sg = sq + BM * DS16;
+  uint16_t* sk = sg + BM * DS16;
+  uint16_t* sv = sk + ST * BN * DS16;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int r0 = 16 * (tid >> 5);
+  const int Tq = a.Tq, d = a.d, mode = a.mode;
+  const int ntq = (Tq + BM - 1) / BM;
+  const int bhx = blockIdx.x / ntq;
+  const int q0 = (blockIdx.x - bhx * ntq) * BM;
+  const int nrows = min(BM, Tq - q0);
+  const int c0 = blockIdx.y * 64, nc = min(64, d - c0);
+
+  int kv_end = a.Tk;
+  if (a.kv_len != nullptr) kv_end = min(kv_end, max(0, a.kv_len[bhx / a.H]));
+  if (a.causal) kv_end = min(kv_end, q0 + nrows);
+  const int ntiles = (kv_end + BN - 1) / BN;
+  const size_t qoff = (size_t)bhx * Tq, koff = (size_t)bhx * a.Tk;
+  const uint16_t* qb = a.q + qoff * d;
+  const uint16_t* gb = a.g + qoff * d;
+  const uint16_t* kb = a.k + koff * d;
+  const uint16_t* vb = a.v + koff * d;
+  const int qa = q0 + r0 + gq;  // this thread's rows: qa and qa + 8
+
+  // delta of rows qa, qa + 8 in f32, each sum in a fixed order
+  float dl0 = 0.f, dl1 = 0.f;
+  if constexpr (!WIDE) {
+    uint16_t* so = sk + BN * DS16;  // the out rows borrow stage 1
+    load_tile16<BM, NT>(sq, qb, q0, Tq, d, 0, d, 64, mode, tid);
+    load_tile16<BM, NT>(sg, gb, q0, Tq, d, 0, d, 64, mode, tid);
+    load_tile16<BM, NT>(so, a.out + qoff * d, q0, Tq, d, 0, d, 64, mode,
+                        tid);
+    cp_commit();
+    if (ntiles > 0) {
+      load_tile16<BN, NT>(sk, kb, 0, kv_end, d, 0, d, 64, mode, tid);
+      load_tile16<BN, NT>(sv, vb, 0, kv_end, d, 0, d, 64, mode, tid);
+    }
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    // lane pair (2r, 2r+1) sums row r, a half of the columns each
+    const int rr = lane >> 1, h = lane & 1;
+    const uint16_t* gr = sg + (r0 + rr) * DS16 + 32 * h;
+    const uint16_t* orow = so + (r0 + rr) * DS16 + 32 * h;
+    float sum = 0.f;
+    for (int c = 0; c < 32; ++c)
+      sum = fmaf(float16<T>(gr[c]), float16<T>(orow[c]), sum);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    dl0 = __shfl_sync(0xffffffffu, sum, 2 * gq);
+    dl1 = __shfl_sync(0xffffffffu, sum, 2 * gq + 16);
+  } else {
+    // a quad's lanes over columns tq, tq + 4, ..
+    const uint16_t* ob = a.out + qoff * d;
+    if (qa < Tq)
+      for (int c = tq; c < d; c += 4)
+        dl0 = fmaf(float16<T>(gb[(size_t)qa * d + c]),
+                   float16<T>(ob[(size_t)qa * d + c]), dl0);
+    if (qa + 8 < Tq)
+      for (int c = tq; c < d; c += 4)
+        dl1 = fmaf(float16<T>(gb[(size_t)(qa + 8) * d + c]),
+                   float16<T>(ob[(size_t)(qa + 8) * d + c]), dl1);
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      dl0 += __shfl_xor_sync(0xffffffffu, dl0, o);
+      dl1 += __shfl_xor_sync(0xffffffffu, dl1, o);
+    }
+  }
+  if (blockIdx.y == 0 && tq == 0) {
+    if (qa < Tq) a.delta[qoff + qa] = dl0;
+    if (qa + 8 < Tq) a.delta[qoff + qa + 8] = dl1;
+  }
+  const float ls0 = qa < Tq ? a.lse[qoff + qa] : 0.f;
+  const float ls1 = qa + 8 < Tq ? a.lse[qoff + qa + 8] : 0.f;
+  const int w_end = a.causal ? min(kv_end, q0 + r0 + 16) : kv_end;
+  const bool warp_live = q0 + r0 < Tq;
+
+  float acc[NJ][4];
+#pragma unroll
+  for (int n = 0; n < NJ; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * BN;
+    const bool live = warp_live && k0 < w_end;
+    const uint16_t* kt = sk;
+    const uint16_t* vt = sv;
+    if constexpr (!WIDE) {
+      cp_wait<0>();
+      __syncthreads();  // tile `it` landed; stage it + 1's readers are done
+      const int st = it & 1;
+      kt = sk + st * BN * DS16;
+      vt = sv + st * BN * DS16;
+      if (it + 1 < ntiles) {
+        const int nx = (st ^ 1) * BN * DS16;
+        load_tile16<BN, NT>(sk + nx, kb, k0 + BN, kv_end, d, 0, d, 64, mode,
+                            tid);
+        load_tile16<BN, NT>(sv + nx, vb, k0 + BN, kv_end, d, 0, d, 64, mode,
+                            tid);
+      }
+      cp_commit();
+      if (!live) continue;
+    }
+    float s[NB][4], dpv[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dpv[j][e] = 0.f;
+    if constexpr (WIDE) {
+      for (int cs = 0; cs < d; cs += 64) {
+        const int n = min(64, d - cs);
+        __syncthreads();
+        load_tile16<BM, NT>(sq, qb, q0, Tq, d, cs, n, 64, mode, tid);
+        load_tile16<BM, NT>(sg, gb, q0, Tq, d, cs, n, 64, mode, tid);
+        load_tile16<BN, NT>(sk, kb, k0, kv_end, d, cs, n, 64, mode, tid);
+        load_tile16<BN, NT>(sv, vb, k0, kv_end, d, cs, n, 64, mode, tid);
+        cp_commit();
+        cp_wait<0>();
+        __syncthreads();
+        if (live) {
+          scores16<T, NB>(s, sq + r0 * DS16, sk, gq, tq);
+          scores16<T, NB>(dpv, sg + r0 * DS16, sv, gq, tq);
+        }
+      }
+    } else {
+      scores16<T, NB>(s, sq + r0 * DS16, kt, gq, tq);
+      scores16<T, NB>(dpv, sg + r0 * DS16, vt, gq, tq);
+    }
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qpos = qa + (e >> 1) * 8;
+          const int kpos = k0 + j * 8 + 2 * tq + (e & 1);
+          const bool ok =
+              kpos < kv_end && qpos < Tq && (!a.causal || qpos >= kpos);
+          const float p =
+              ok ? expf(s[j][e] * a.scale - ((e >> 1) ? ls1 : ls0)) : 0.f;
+          s[j][e] = ok ? p * (dpv[j][e] - ((e >> 1) ? dl1 : dl0)) : 0.f;
+        }
+    }
+    if constexpr (WIDE) {  // this group's columns of the key tile
+      __syncthreads();
+      load_tile16<BN, NT>(sk, kb, k0, kv_end, d, c0, nc, 64, mode, tid);
+      cp_commit();
+      cp_wait<0>();
+      __syncthreads();
+    }
+    // acc += dS K, 8 keys at a time (dS is 0 at every masked key)
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        mma2_c16<T, NJ>(acc, s[j], kt + j * 8 * DS16, lane);
+    }
+  }
+  cp_wait<0>();
+
+  const bool vec2 = d % 2 == 0 && aligned_to(a.dq, 4);
+  uint16_t* ob = a.dq + qoff * d + c0;
+#pragma unroll
+  for (int n = 0; n < NJ; ++n) {
+    const int col = n * 8 + 2 * tq;
+    if (col >= nc) continue;
+    if (qa < Tq)
+      store_pair16<T>(ob + (size_t)qa * d + col, acc[n][0] * a.scale,
+                      acc[n][1] * a.scale, col, nc, vec2);
+    if (qa + 8 < Tq)
+      store_pair16<T>(ob + (size_t)(qa + 8) * d + col, acc[n][2] * a.scale,
+                      acc[n][3] * a.scale, col, nc, vec2);
+  }
+}
+
+template <typename T, bool WIDE>
+__global__ void __launch_bounds__(B16_NT)
+flash_bwd16_dkv_kernel(const Bwd16Args a) {
+  constexpr int BM = B16_BM, BN = B16_BN, NT = B16_NT, NB = BN / 8, NJ = 8;
+  constexpr int ST = WIDE ? 1 : 2;
+  extern __shared__ __align__(16) uint16_t sm16[];
+  uint16_t* sk = sm16;
+  uint16_t* sv = sk + BM * DS16;
+  uint16_t* sq = sv + BM * DS16;
+  uint16_t* sg = sq + ST * BN * DS16;
+  float* sl = reinterpret_cast<float*>(sg + ST * BN * DS16);  // 2 stages
+  float* sd = sl + 2 * BN;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int r0 = 16 * (tid >> 5);
+  const int Tq = a.Tq, d = a.d, mode = a.mode;
+  const int ntk = (a.Tk + BM - 1) / BM;
+  const int bhx = blockIdx.x / ntk;
+  const int k0 = (blockIdx.x - bhx * ntk) * BM;
+  const int nkeys = min(BM, a.Tk - k0);
+  const int c0 = blockIdx.y * 64, nc = min(64, d - c0);
+
+  int kv_end = a.Tk;
+  if (a.kv_len != nullptr) kv_end = min(kv_end, max(0, a.kv_len[bhx / a.H]));
+  const size_t qoff = (size_t)bhx * Tq, koff = (size_t)bhx * a.Tk;
+  uint16_t* dkb = a.dk + koff * d + c0;
+  uint16_t* dvb = a.dv + koff * d + c0;
+  if (k0 >= kv_end) {  // no live key: exact zeros, nothing loaded
+    for (int i = tid; i < nkeys * nc; i += NT) {
+      const size_t at = (size_t)(k0 + i / nc) * d + i % nc;
+      dkb[at] = 0;
+      dvb[at] = 0;
+    }
+    return;
+  }
+  // with `causal` no query before the block's first key attends it
+  const int i_begin = a.causal ? (k0 / BN) * BN : 0;
+  const int ntiles = Tq > i_begin ? (Tq - i_begin + BN - 1) / BN : 0;
+  const uint16_t* qb = a.q + qoff * d;
+  const uint16_t* gb = a.g + qoff * d;
+  const uint16_t* kb = a.k + koff * d;
+  const uint16_t* vb = a.v + koff * d;
+  const float* lb = a.lse + qoff;
+  const float* db = a.delta + qoff;
+
+  if constexpr (!WIDE) {
+    load_tile16<BM, NT>(sk, kb, k0, kv_end, d, 0, d, 64, mode, tid);
+    load_tile16<BM, NT>(sv, vb, k0, kv_end, d, 0, d, 64, mode, tid);
+    if (ntiles > 0) {
+      load_tile16<BN, NT>(sq, qb, i_begin, Tq, d, 0, d, 64, mode, tid);
+      load_tile16<BN, NT>(sg, gb, i_begin, Tq, d, 0, d, 64, mode, tid);
+      load_vec<NT>(sl, lb, i_begin, BN, Tq, tid);
+      load_vec<NT>(sd, db, i_begin, BN, Tq, (tid + BN) % NT);
+    }
+    cp_commit();
+  }
+
+  const int ka = k0 + r0 + gq;  // this thread's key rows: ka and ka + 8
+  const bool warp_live = k0 + r0 < kv_end;
+  float acck[NJ][4], accv[NJ][4];
+#pragma unroll
+  for (int n = 0; n < NJ; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acck[n][e] = accv[n][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int i0 = i_begin + it * BN;
+    const bool live = warp_live && !(a.causal && i0 + BN <= k0 + r0);
+    const uint16_t* qt = sq;
+    const uint16_t* gt = sg;
+    const float* lt = sl;
+    const float* dt = sd;
+    if constexpr (!WIDE) {
+      cp_wait<0>();
+      __syncthreads();  // tile `it` landed; stage it + 1's readers are done
+      const int st = it & 1;
+      qt = sq + st * BN * DS16;
+      gt = sg + st * BN * DS16;
+      lt = sl + st * BN;
+      dt = sd + st * BN;
+      if (it + 1 < ntiles) {
+        const int nx = st ^ 1, i1 = i0 + BN;
+        load_tile16<BN, NT>(sq + nx * BN * DS16, qb, i1, Tq, d, 0, d, 64,
+                            mode, tid);
+        load_tile16<BN, NT>(sg + nx * BN * DS16, gb, i1, Tq, d, 0, d, 64,
+                            mode, tid);
+        load_vec<NT>(sl + nx * BN, lb, i1, BN, Tq, tid);
+        load_vec<NT>(sd + nx * BN, db, i1, BN, Tq, (tid + BN) % NT);
+      }
+      cp_commit();
+      if (!live) continue;
+    }
+    float s[NB][4], dpv[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dpv[j][e] = 0.f;
+    if constexpr (WIDE) {
+      for (int cs = 0; cs < d; cs += 64) {
+        const int n = min(64, d - cs);
+        __syncthreads();
+        load_tile16<BM, NT>(sk, kb, k0, kv_end, d, cs, n, 64, mode, tid);
+        load_tile16<BM, NT>(sv, vb, k0, kv_end, d, cs, n, 64, mode, tid);
+        load_tile16<BN, NT>(sq, qb, i0, Tq, d, cs, n, 64, mode, tid);
+        load_tile16<BN, NT>(sg, gb, i0, Tq, d, cs, n, 64, mode, tid);
+        cp_commit();
+        cp_wait<0>();
+        __syncthreads();
+        if (live) {
+          scores16<T, NB>(s, sk + r0 * DS16, sq, gq, tq);
+          scores16<T, NB>(dpv, sv + r0 * DS16, sg, gq, tq);
+        }
+      }
+    } else {
+      scores16<T, NB>(s, sk + r0 * DS16, qt, gq, tq);
+      scores16<T, NB>(dpv, sv + r0 * DS16, gt, gq, tq);
+    }
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = ka + (e >> 1) * 8;
+          const int col = j * 8 + 2 * tq + (e & 1);
+          const int qpos = i0 + col;
+          const bool ok =
+              kpos < kv_end && qpos < Tq && (!a.causal || qpos >= kpos);
+          float p = 0.f, ds = 0.f;
+          if (ok) {
+            const float ls = WIDE ? lb[qpos] : lt[col];
+            const float dl = WIDE ? db[qpos] : dt[col];
+            p = expf(s[j][e] * a.scale - ls);
+            ds = p * (dpv[j][e] - dl);
+          }
+          s[j][e] = p;
+          dpv[j][e] = ds;
+        }
+    }
+    if constexpr (WIDE) {  // this group's columns of the query tile
+      __syncthreads();
+      load_tile16<BN, NT>(sq, qb, i0, Tq, d, c0, nc, 64, mode, tid);
+      load_tile16<BN, NT>(sg, gb, i0, Tq, d, c0, nc, 64, mode, tid);
+      cp_commit();
+      cp_wait<0>();
+      __syncthreads();
+    }
+    // dV += P^T G and dK += dS^T Q, 8 queries at a time (P and dS are 0
+    // at every masked query; rows past Tq are zeros)
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        mma2_c16<T, NJ>(accv, s[j], gt + j * 8 * DS16, lane);
+        mma2_c16<T, NJ>(acck, dpv[j], qt + j * 8 * DS16, lane);
+      }
+    }
+  }
+  cp_wait<0>();
+
+  // rows at or past kv_end get exact zeros, whatever was accumulated
+  const bool vec2 =
+      d % 2 == 0 && aligned_to(a.dk, 4) && aligned_to(a.dv, 4);
+#pragma unroll
+  for (int n = 0; n < NJ; ++n) {
+    const int col = n * 8 + 2 * tq;
+    if (col >= nc) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = ka + 8 * h;
+      if (row >= k0 + nkeys) continue;
+      const bool ok = row < kv_end;
+      const size_t at = (size_t)row * d + col;
+      store_pair16<T>(dkb + at, ok ? acck[n][2 * h] * a.scale : 0.f,
+                      ok ? acck[n][2 * h + 1] * a.scale : 0.f, col, nc,
+                      vec2);
+      store_pair16<T>(dvb + at, ok ? accv[n][2 * h] : 0.f,
+                      ok ? accv[n][2 * h + 1] : 0.f, col, nc, vec2);
+    }
+  }
+}
+
+template <typename T, bool DKV>
+int launch_bwd16(const Bwd16Args& a, int B, cudaStream_t st) {
+  const bool wide = a.d > 64;
+  size_t smem;
+  void (*kern)(const Bwd16Args);
+  if constexpr (DKV) {
+    smem = wide ? bwd16_smem<true, true>() : bwd16_smem<false, true>();
+    kern = wide ? flash_bwd16_dkv_kernel<T, true>
+                : flash_bwd16_dkv_kernel<T, false>;
+  } else {
+    smem = wide ? bwd16_smem<true, false>() : bwd16_smem<false, false>();
+    kern = wide ? flash_bwd16_dq_kernel<T, true>
+                : flash_bwd16_dq_kernel<T, false>;
+  }
+  static int done[2][64] = {};
+  const int e = set_smem(kern, smem, done[wide]);
+  if (e != 0) return e;
+  const int rows = DKV ? a.Tk : a.Tq;
+  const dim3 grid((unsigned)(B * a.H) * ((rows + B16_BM - 1) / B16_BM),
+                  (a.d + 63) / 64);
+  kern<<<grid, B16_NT, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool DKV>
+int bwd16(const void* q, const void* k, const void* v, const void* g,
+          const void* out, const void* lse, void* delta, const void* kv_len,
+          void* dq, void* dk, void* dv, int B, int H, int Tq, int Tk, int d,
+          int causal, float scale, void* stream) {
+  if (B * H == 0 || (!DKV && Tq == 0)) return 0;
+  if (bad_shape(d, Tk) || (DKV && Tq < 1)) return (int)cudaErrorInvalidValue;
+  Bwd16Args a;
+  a.q = static_cast<const uint16_t*>(q);
+  a.k = static_cast<const uint16_t*>(k);
+  a.v = static_cast<const uint16_t*>(v);
+  a.g = static_cast<const uint16_t*>(g);
+  a.out = static_cast<const uint16_t*>(out);
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<float*>(delta);
+  a.kv_len = static_cast<const int*>(kv_len);
+  a.dq = static_cast<uint16_t*>(dq);
+  a.dk = static_cast<uint16_t*>(dk);
+  a.dv = static_cast<uint16_t*>(dv);
+  a.H = H;
+  a.Tq = Tq;
+  a.Tk = Tk;
+  a.d = d;
+  a.causal = causal;
+  a.scale = scale;
+  a.mode = mode16(d, q, k, v, g, out);
+  return launch_bwd16<T, DKV>(a, B, static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 extern "C" {
@@ -934,6 +1388,53 @@ int mx_flash_attention_bwd_dkv_f32(const void* q, const void* k,
   }
   return launch_dkv<DKV256>(qf, kf, vf, gf, lf, df, lens, dkf, dvf, B, H, Tq,
                             Tk, d, causal, scale, vec, st);
+}
+
+// As the f32 entries with q, k, v, g, out, dq, dk and dv bf16 (f16),
+// contiguous, any alignment; lse and delta stay f32.
+int mx_flash_attention_bwd_dq_bf16(const void* q, const void* k,
+                                   const void* v, const void* g,
+                                   const void* out, const void* lse,
+                                   const void* kv_len, void* dq, void* delta,
+                                   int B, int H, int Tq, int Tk, int d,
+                                   int causal, float scale, void* stream) {
+  return bwd16<__nv_bfloat16, false>(q, k, v, g, out, lse, delta, kv_len,
+                                     dq, nullptr, nullptr, B, H, Tq, Tk, d,
+                                     causal, scale, stream);
+}
+
+int mx_flash_attention_bwd_dq_f16(const void* q, const void* k,
+                                  const void* v, const void* g,
+                                  const void* out, const void* lse,
+                                  const void* kv_len, void* dq, void* delta,
+                                  int B, int H, int Tq, int Tk, int d,
+                                  int causal, float scale, void* stream) {
+  return bwd16<__half, false>(q, k, v, g, out, lse, delta, kv_len, dq,
+                              nullptr, nullptr, B, H, Tq, Tk, d, causal,
+                              scale, stream);
+}
+
+int mx_flash_attention_bwd_dkv_bf16(const void* q, const void* k,
+                                    const void* v, const void* g,
+                                    const void* lse, const void* delta,
+                                    const void* kv_len, void* dk, void* dv,
+                                    int B, int H, int Tq, int Tk, int d,
+                                    int causal, float scale, void* stream) {
+  return bwd16<__nv_bfloat16, true>(q, k, v, g, nullptr, lse,
+                                    const_cast<void*>(delta), kv_len,
+                                    nullptr, dk, dv, B, H, Tq, Tk, d, causal,
+                                    scale, stream);
+}
+
+int mx_flash_attention_bwd_dkv_f16(const void* q, const void* k,
+                                   const void* v, const void* g,
+                                   const void* lse, const void* delta,
+                                   const void* kv_len, void* dk, void* dv,
+                                   int B, int H, int Tq, int Tk, int d,
+                                   int causal, float scale, void* stream) {
+  return bwd16<__half, true>(q, k, v, g, nullptr, lse,
+                             const_cast<void*>(delta), kv_len, nullptr, dk,
+                             dv, B, H, Tq, Tk, d, causal, scale, stream);
 }
 
 }  // extern "C"

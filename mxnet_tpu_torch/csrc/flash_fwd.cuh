@@ -36,6 +36,21 @@
 // tensor cores as 3xTF32: 12 d TF32 flops against 495 TFLOP/s (165
 // f32-equivalent TFLOP/s); the bytes are q, out, and k, v over the valid
 // keys.  At the serving shape (B=16, H=12, T=512, d=64) the flops bound.
+//
+// 16-bit inputs (`flash_fwd16_kernel`, bf16 or f16 q, k, v and out, f32
+// lse).  The TPU kernel's semantics: S from upcast q and k in f32 (here
+// one `mma.sync.m16n8k16` a product, exact in f32), P = exp(S - m) rounded
+// to v's type for P V (the accumulator fragments of two score tiles are
+// the A fragment of a 16-key chunk as they stand, packed in pairs), l
+// summed from the f32 P, out = acc / l rounded once.  The online softmax
+// is the f32 kernel's.  A block owns 64 query rows (4 warps of 16) and
+// streams 64-key tiles; d <= 64 keeps Q in shared memory and double-
+// buffers K and V by `cp.async` (46 KB); d > 64 runs the same kernel with
+// WIDE set: S streams through 64-column slabs and the output columns
+// split over the grid's second axis in groups of 64, each group
+// recomputing its scores, with synchronous loads.  The 4 d flops a pair
+// bound it at 989 TFLOP/s dense bf16/f16 only at long rows; at the
+// training shape the bytes do.
 #pragma once
 
 #include "tf32x3.cuh"
@@ -470,6 +485,173 @@ __global__ void __launch_bounds__(WNT) flash_fwd_wide_kernel(const FwdArgs a) {
                 (a.lse != nullptr && blockIdx.y == 0) ? a.lse + qoff
                                                       : nullptr,
                 qa, Tq, d, nc, 0, vec2, t);
+}
+
+// ------------------------------------------------------ 16-bit inputs
+struct Fwd16Args {
+  const uint16_t* q;      // (B, H, Tq, d) bf16 or f16 bits
+  const uint16_t* k;      // (B, H, Tk, d)
+  const uint16_t* v;
+  const int* kv_len;      // (B,) key lengths, or null
+  uint16_t* out;          // (B, H, Tq, d), q's type
+  float* lse;             // (B, H, Tq), or null
+  int H, Tq, Tk, d, causal;
+  float scale;
+  int mode;               // elements a copy moves (mode16)
+};
+
+constexpr int F16_BM = 64, F16_BN = 64, F16_NT = 128;
+
+// 16-bit tiles a block holds: Q, and K and V (two stages each unless WIDE).
+template <bool WIDE>
+constexpr size_t fwd16_smem() {
+  return 2 * (size_t)DS16 * (F16_BM + (WIDE ? 2 : 4) * F16_BN);
+}
+
+template <typename T, bool WIDE>
+__global__ void __launch_bounds__(F16_NT) flash_fwd16_kernel(
+    const Fwd16Args a) {
+  constexpr int BM = F16_BM, BN = F16_BN, NT = F16_NT, NB = BN / 8, NJ = 8;
+  constexpr int ST = WIDE ? 1 : 2;  // stages of K and V
+  extern __shared__ __align__(16) uint16_t sm16[];
+  uint16_t* sq = sm16;
+  uint16_t* sk = sq + BM * DS16;
+  uint16_t* sv = sk + ST * BN * DS16;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (tid >> 5);
+  const int Tq = a.Tq, d = a.d, mode = a.mode;
+  const int ntq = (Tq + BM - 1) / BM;
+  const int bhx = blockIdx.x / ntq;  // b * H + h
+  const int q0 = (blockIdx.x - bhx * ntq) * BM;
+  const int nrows = min(BM, Tq - q0);
+  const int c0 = blockIdx.y * 64;    // this block's output columns
+  const int nc = min(64, d - c0);
+
+  int kv_end = a.Tk;
+  if (a.kv_len != nullptr) kv_end = min(kv_end, max(0, a.kv_len[bhx / a.H]));
+  if (a.causal) kv_end = min(kv_end, q0 + nrows);  // last diagonal + 1
+  const int ntiles = (kv_end + BN - 1) / BN;
+
+  const size_t qoff = (size_t)bhx * Tq, koff = (size_t)bhx * a.Tk;
+  const uint16_t* qb = a.q + qoff * d;
+  const uint16_t* kb = a.k + koff * d;
+  const uint16_t* vb = a.v + koff * d;
+  if constexpr (!WIDE) {
+    load_tile16<BM, NT>(sq, qb, q0, Tq, d, 0, d, 64, mode, tid);
+    if (ntiles > 0) {
+      load_tile16<BN, NT>(sk, kb, 0, kv_end, d, 0, d, 64, mode, tid);
+      load_tile16<BN, NT>(sv, vb, 0, kv_end, d, 0, d, 64, mode, tid);
+    }
+    cp_commit();
+  }
+
+  const int qa = q0 + r0 + g;  // this thread's rows: qa and qa + 8
+  const bool warp_live = q0 + r0 < Tq;
+  const int w_end = a.causal ? min(kv_end, q0 + r0 + 16) : kv_end;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float acc[NJ][4];
+#pragma unroll
+  for (int n = 0; n < NJ; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * BN;
+    const bool live = warp_live && k0 < w_end;  // warp-uniform
+    const uint16_t* kt = sk;
+    const uint16_t* vt = sv;
+    if constexpr (!WIDE) {
+      cp_wait<0>();
+      __syncthreads();  // tile `it` landed; stage it + 1's readers are done
+      const int st = it & 1;
+      kt = sk + st * BN * DS16;
+      vt = sv + st * BN * DS16;
+      if (it + 1 < ntiles) {  // the next tile streams in while this one runs
+        const int nx = (st ^ 1) * BN * DS16;
+        load_tile16<BN, NT>(sk + nx, kb, k0 + BN, kv_end, d, 0, d, 64, mode,
+                            tid);
+        load_tile16<BN, NT>(sv + nx, vb, k0 + BN, kv_end, d, 0, d, 64, mode,
+                            tid);
+      }
+      cp_commit();
+      if (!live) continue;
+    }
+    float s[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    if constexpr (WIDE) {
+      for (int cs = 0; cs < d; cs += 64) {  // S over the slabs of d
+        const int n = min(64, d - cs);
+        __syncthreads();  // the previous slab's readers are done
+        load_tile16<BM, NT>(sq, qb, q0, Tq, d, cs, n, 64, mode, tid);
+        load_tile16<BN, NT>(sk, kb, k0, kv_end, d, cs, n, 64, mode, tid);
+        cp_commit();
+        cp_wait<0>();
+        __syncthreads();
+        if (live) scores16<T, NB>(s, sq + r0 * DS16, sk, g, t);
+      }
+    } else {
+      scores16<T, NB>(s, sq + r0 * DS16, kt, g, t);
+    }
+    if (live)
+      online_softmax<NB, NJ>(s, acc, m0, m1, l0, l1, qa, k0, kv_end,
+                             a.causal, 0, a.scale, t);
+    if constexpr (WIDE) {  // this group's columns of the value tile
+      __syncthreads();
+      load_tile16<BN, NT>(sv, vb, k0, kv_end, d, c0, nc, 64, mode, tid);
+      cp_commit();
+      cp_wait<0>();
+      __syncthreads();
+    }
+    if (live) pv16<T, NB, NJ>(acc, s, vt, lane);
+  }
+  cp_wait<0>();
+
+  // normalized rows, rounded to T once; the lse from the first group
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+  }
+  const float i0 = 1.f / (l0 == 0.f ? 1.f : l0);
+  const float i1 = 1.f / (l1 == 0.f ? 1.f : l1);
+  const bool vec2 = d % 2 == 0 && aligned_to(a.out, 4);
+  uint16_t* ob = a.out + qoff * d + c0;
+#pragma unroll
+  for (int n = 0; n < NJ; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (col >= nc) continue;
+    if (qa < Tq)
+      store_pair16<T>(ob + (size_t)qa * d + col, acc[n][0] * i0,
+                      acc[n][1] * i0, col, nc, vec2);
+    if (qa + 8 < Tq)
+      store_pair16<T>(ob + (size_t)(qa + 8) * d + col, acc[n][2] * i1,
+                      acc[n][3] * i1, col, nc, vec2);
+  }
+  if (a.lse != nullptr && blockIdx.y == 0 && t == 0) {
+    float* lb = a.lse + qoff;
+    if (qa < Tq) lb[qa] = m0 + logf(l0 == 0.f ? 1.f : l0);
+    if (qa + 8 < Tq) lb[qa + 8] = m1 + logf(l1 == 0.f ? 1.f : l1);
+  }
+}
+
+// The 16-bit forward on checked arguments: d <= 64 resident, else WIDE.
+template <typename T>
+int launch_fwd16(const Fwd16Args& a, int B, cudaStream_t st) {
+  const bool wide = a.d > 64;
+  const size_t smem = wide ? fwd16_smem<true>() : fwd16_smem<false>();
+  auto kern = wide ? flash_fwd16_kernel<T, true> : flash_fwd16_kernel<T, false>;
+  static int done[2][64] = {};
+  const int e = set_smem(kern, smem, done[wide]);
+  if (e != 0) return e;
+  const dim3 grid((unsigned)(B * a.H) * ((a.Tq + F16_BM - 1) / F16_BM),
+                  (a.d + 63) / 64);
+  kern<<<grid, F16_NT, smem, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <class C, int KV, bool FIXED>

@@ -28,11 +28,26 @@
 // Columns past the real width and rows past the valid count are zero-filled
 // by the copy itself (source size 0), so garbage there (NaN in the tests)
 // never meets a probability.
+//
+// 16-bit operands (bf16, f16; the last section).  Tiles of 16-bit rows
+// land in shared memory as raw bits at row stride DS16 = 72 elements (144
+// bytes: 16-byte rows for `ldmatrix`, and 36 words, so the eight rows a
+// fragment load touches start on eight distinct 4-bank groups).  Products
+// of two 16-bit operands are exact in f32, so they run as one
+// `mma.sync.m16n8k16` with f32 accumulators.  Products of an f32 operand
+// (a probability or dS, from an accumulator) with a 16-bit one keep f32
+// accuracy as two TF32 MMAs, a_hi b + a_lo b: every bf16 and f16 value is
+// exact in TF32 (8 + 7 and 5 + 10 exponent and mantissa bits; f16
+// subnormals are normal there), so the 16-bit side has no low part.
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -325,10 +340,234 @@ int set_smem(K kern, size_t smem, int (&done)[64]) {
   return (int)e;
 }
 
-inline bool aligned_to(const void* p, size_t n) {
+__host__ __device__ inline bool aligned_to(const void* p, size_t n) {
   return p == nullptr || reinterpret_cast<uintptr_t>(p) % n == 0;
 }
 
 inline bool aligned16(const void* p) { return aligned_to(p, 16); }
+
+// ---------------------------------------------------- 16-bit operands
+constexpr int DS16 = 72;  // shared row stride of a 16-bit tile (elements)
+
+__device__ __forceinline__ void cp8(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 8 : 0)
+               : "memory");
+}
+
+// Elements a copy of 16-bit rows moves: 8 (16 bytes), 4 or 2 where the
+// width and every pointer allow it, else 1 (a plain load and store).
+inline int mode16(int d, const void* a, const void* b, const void* c,
+                  const void* e = nullptr, const void* f = nullptr) {
+  for (int m = 8; m > 1; m >>= 1) {
+    const size_t n = 2 * (size_t)m;
+    if (d % m == 0 && aligned_to(a, n) && aligned_to(b, n) &&
+        aligned_to(c, n) && aligned_to(e, n) && aligned_to(f, n))
+      return m;
+  }
+  return 1;
+}
+
+// Rows [row0, row0 + R) x columns [col0, col0 + n) of a row-major 16-bit
+// matrix of row stride ld into a shared tile of stride DS16: tile column
+// c is source column col0 + c for c < n, zero for n <= c < np (np a
+// multiple of 8), rows at or past `valid` zero.  `mode` elements a copy
+// (mode16; n, col0 and ld multiples of it); mode 1 stores synchronously,
+// visible after the next barrier.
+template <int R, int NT>
+__device__ __forceinline__ void load_tile16(uint16_t* dst,
+                                            const uint16_t* src, int row0,
+                                            int valid, int ld, int col0,
+                                            int n, int np, int mode,
+                                            int tid) {
+  const int cpr = np / mode;
+  const int rstep = NT / cpr, cstep = NT - rstep * cpr;
+  int r = tid / cpr, c = tid - r * cpr;
+  while (r < R) {
+    const int col = c * mode;
+    const bool ok = row0 + r < valid && col < n;
+    const uint16_t* from =
+        ok ? src + (size_t)(row0 + r) * ld + col0 + col : src;
+    uint16_t* to = dst + r * DS16 + col;
+    if (mode == 8)
+      cp16(to, from, ok);
+    else if (mode == 4)
+      cp8(to, from, ok);
+    else if (mode == 2)
+      cp4(to, from, ok);
+    else
+      *to = ok ? *from : (uint16_t)0;
+    r += rstep;
+    c += cstep;
+    if (c >= cpr) {
+      c -= cpr;
+      ++r;
+    }
+  }
+}
+
+template <typename T>
+constexpr bool kF16 = std::is_same<T, __half>::value;  // else bf16
+
+// (x, y) rounded to T and packed, x in the low half.
+template <typename T>
+__device__ __forceinline__ uint32_t pack16(float x, float y) {
+  if constexpr (kF16<T>) {
+    const __half2 h = __floats2half2_rn(x, y);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  } else {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ uint16_t bits16(float x) {
+  if constexpr (kF16<T>)
+    return __half_as_ushort(__float2half_rn(x));
+  else
+    return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+template <typename T>
+__device__ __forceinline__ float float16(uint16_t x) {
+  if constexpr (kF16<T>)
+    return __half2float(__ushort_as_half(x));
+  else
+    return __uint_as_float((uint32_t)x << 16);
+}
+
+// The two values of a packed pair as f32 bits (exact TF32 operands).
+template <typename T>
+__device__ __forceinline__ void unpack16(uint32_t r, uint32_t& lo,
+                                         uint32_t& hi) {
+  if constexpr (kF16<T>) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&r));
+    lo = __float_as_uint(f.x);
+    hi = __float_as_uint(f.y);
+  } else {
+    lo = r << 16;
+    hi = r & 0xffff0000u;
+  }
+}
+
+__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Four 8 x 8 16-bit matrices, transposed: lanes 8e..8e+7 give the row
+// addresses of matrix e (16 bytes each); register e of lane (g, t) holds
+// (M_e[2t][g], M_e[2t + 1][g]).
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4],
+                                          const uint16_t* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a b, m16n8k16, 16-bit operands, f32 accumulate.  Fragments for
+// lane (g, t): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3
+// (g+8, 2t+8..); b0 (2t..2t+1, g), b1 (2t+8..2t+9, g); c as m16n8k8's.
+template <typename T>
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  if constexpr (kF16<T>)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// s[j] += rows [0, 16) of the shared 16-bit tile `a` times rows
+// [8j, 8j + 8) of the tile `b`, over depth [0, 64): S = A B^T, exact
+// products.  Columns past a row's width are zeros in both tiles.
+template <typename T, int NB>
+__device__ __forceinline__ void scores16(float (&s)[NB][4],
+                                         const uint16_t* a,
+                                         const uint16_t* b, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < 64; kk += 16) {
+    const uint16_t* ar = a + g * DS16 + kk + 2 * t;
+    const uint32_t af[4] = {ld32(ar), ld32(ar + 8 * DS16), ld32(ar + 8),
+                            ld32(ar + 8 * DS16 + 8)};
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const uint16_t* br = b + (j * 8 + g) * DS16 + kk + 2 * t;
+      mma16<T>(s[j], af, ld32(br), ld32(br + 8));
+    }
+  }
+}
+
+// acc[n] += P V over NB / 2 chunks of 16 keys: P from the score
+// accumulators rounded to T (tiles 2i and 2i+1 are the A fragment of
+// chunk i as they stand), V rows 16i.. and columns 8n.. from the shared
+// tile by transposed `ldmatrix`.
+template <typename T, int NB, int NJ>
+__device__ __forceinline__ void pv16(float (&acc)[NJ][4],
+                                     const float (&p)[NB][4],
+                                     const uint16_t* v, int lane) {
+#pragma unroll
+  for (int i = 0; i < NB / 2; ++i) {
+    const uint32_t a[4] = {pack16<T>(p[2 * i][0], p[2 * i][1]),
+                           pack16<T>(p[2 * i][2], p[2 * i][3]),
+                           pack16<T>(p[2 * i + 1][0], p[2 * i + 1][1]),
+                           pack16<T>(p[2 * i + 1][2], p[2 * i + 1][3])};
+    const uint16_t* vr =
+        v + (16 * i + (lane & 7) + (lane & 8)) * DS16 + (lane >> 4) * 8;
+#pragma unroll
+    for (int m = 0; m < NJ / 2; ++m) {
+      uint32_t r[4];
+      ldsm_x4_t(r, vr + 16 * m);
+      mma16<T>(acc[2 * m], a, r[0], r[1]);
+      mma16<T>(acc[2 * m + 1], a, r[2], r[3]);
+    }
+  }
+}
+
+// acc[n] += X B: X the 16 x 8 accumulator fragment x (f32, split into
+// TF32 hi and lo, depth permuted as frag_c2a), B rows [0, 8) of the
+// shared 16-bit tile `b` (read in the same permuted order by transposed
+// `ldmatrix`: depth t is row 2t, t + 4 row 2t + 1) at columns 8n..; two
+// MMAs a product, lo first.
+template <typename T, int NJ>
+__device__ __forceinline__ void mma2_c16(float (&acc)[NJ][4],
+                                         const float (&x)[4],
+                                         const uint16_t* b, int lane) {
+  uint32_t ah[4], al[4], bb[NJ][2];
+  frag_c2a(x, ah, al);
+  const uint16_t* br = b + (lane & 7) * DS16 + (lane >> 3) * 8;
+#pragma unroll
+  for (int m = 0; m < NJ / 4; ++m) {
+    uint32_t r[4];
+    ldsm_x4_t(r, br + 32 * m);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) unpack16<T>(r[e], bb[4 * m + e][0],
+                                            bb[4 * m + e][1]);
+  }
+#pragma unroll
+  for (int n = 0; n < NJ; ++n) mma(acc[n], al, bb[n]);
+#pragma unroll
+  for (int n = 0; n < NJ; ++n) mma(acc[n], ah, bb[n]);
+}
+
+// (x, y) as T at p[0], p[1] (columns col, col + 1 of ncols): one 4-byte
+// store with `vec2`, else each that lies below ncols.
+template <typename T>
+__device__ __forceinline__ void store_pair16(uint16_t* p, float x, float y,
+                                             int col, int ncols, bool vec2) {
+  if (vec2 && col + 1 < ncols) {
+    *reinterpret_cast<uint32_t*>(p) = pack16<T>(x, y);
+  } else {
+    if (col < ncols) p[0] = bits16<T>(x);
+    if (col + 1 < ncols) p[1] = bits16<T>(y);
+  }
+}
 
 }  // namespace

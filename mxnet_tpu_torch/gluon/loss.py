@@ -37,7 +37,11 @@ class SoftmaxCrossEntropyLoss(Loss):
     ``pred`` without ``axis``, or with ``axis`` of size 1);
     ``sparse_label=False``: ``label`` is a distribution shaped like
     ``pred``.  ``from_logits=True`` takes ``pred`` as log-probabilities
-    already.  ``sample_weight`` multiplies the per-element loss."""
+    already.  ``sample_weight`` multiplies the per-element loss.
+
+    Types follow the JAX loss: 16-bit scores give a 16-bit loss
+    (``log_softmax`` in their type; the means accumulate in f32), and a
+    dense f32 label or an f32 ``sample_weight`` promotes it to f32."""
 
     def __init__(self, axis: int = -1, sparse_label: bool = True,
                  from_logits: bool = False, weight=None, batch_axis: int = 0):
@@ -56,7 +60,9 @@ class SoftmaxCrossEntropyLoss(Loss):
             loss = -torch.gather(logp, self._axis,
                                  li.unsqueeze(self._axis)).squeeze(self._axis)
         else:
-            lab = torch.as_tensor(label, device=pred.device, dtype=pred.dtype)
+            lab = torch.as_tensor(label, device=pred.device)
+            if lab.dtype == torch.float64:      # JAX holds f64 as f32
+                lab = lab.float()
             loss = -(lab.reshape(logp.shape) * logp).sum(dim=self._axis)
         if self._weight is not None:
             loss = loss * self._weight

@@ -31,7 +31,6 @@ import torch
 from torch import nn
 
 from ... import numpy_extension as npx
-from ...base import MXNetError
 from ...context import resolve_device
 from ...ops import nn as _ops
 from ..block import HybridBlock
@@ -148,7 +147,11 @@ class BERTModel(HybridBlock):
 
     Built on ``device`` (default ``cuda:0``); parameters
     start uninitialized: call :meth:`initialize` or load weights
-    (``convert.load_into``)."""
+    (``convert.load_into``).  ``dtype`` is that of the word, token-type
+    and position embeddings, as in the JAX package; every other layer is
+    f32, so bf16 embeddings meet the f32 embedding LayerNorm and the
+    encoder runs in f32.  Training in 16 bits is the trainer's
+    ``compute_dtype``, which casts every parameter for the step."""
 
     def __init__(self, vocab_size: int = 30522, token_type_vocab_size: int = 2,
                  units: int = 768, hidden_size: int = 3072,
@@ -157,17 +160,15 @@ class BERTModel(HybridBlock):
                  layer_norm_eps: float = 1e-12, device=None,
                  dtype=torch.float32):
         super().__init__()
-        if dtype != torch.float32:
-            raise MXNetError("the flash kernel of this port takes float32 "
-                             f"activations; got dtype={dtype}")
         dev = resolve_device(device)
-        kw = dict(device=dev, dtype=dtype)
+        emb = dict(device=dev, dtype=dtype)
+        kw = dict(device=dev, dtype=torch.float32)
         self._units = units
         self._max_length = max_length
-        self.word_embed = Embedding(vocab_size, units, **kw)
-        self.token_type_embed = Embedding(token_type_vocab_size, units, **kw)
+        self.word_embed = Embedding(vocab_size, units, **emb)
+        self.token_type_embed = Embedding(token_type_vocab_size, units, **emb)
         self.position_weight = nn.Parameter(
-            torch.empty(max_length, units, **kw))
+            torch.empty(max_length, units, **emb))
         self.embed_layer_norm = LayerNorm(units, layer_norm_eps, **kw)
         self.embed_dropout = Dropout(dropout) if dropout else None
         self.encoder = BERTEncoder(num_layers=num_layers, units=units,
@@ -221,7 +222,7 @@ class BERTForPretrain(HybridBlock):
         self.bert = bert
         self._vocab_size = vocab_size or bert.word_embed.weight.shape[0]
         units = bert._units
-        kw = dict(device=bert.device, dtype=bert.position_weight.dtype)
+        kw = dict(device=bert.device, dtype=torch.float32)
         # exact erf GELU, as in the JAX package (BERT semantics)
         self.mlm_transform = Dense(units, activation="erf_gelu",
                                    flatten=False, in_units=units, **kw)
@@ -255,10 +256,12 @@ def pretrain_loss(pred, label):
     ``bench_bert_base`` defines it: the masked-LM cross entropy averaged
     over a row's masked positions plus the next-sentence cross entropy.
     ``pred`` is ``(mlm_scores (B, P, V), nsp_scores (B, 2))`` and
-    ``label`` ``(mlm_labels (B, P), nsp_labels (B,))``; returns (B,)."""
+    ``label`` ``(mlm_labels (B, P), nsp_labels (B,))``; returns (B,) f32:
+    like the bench's loss, it casts the scores to f32 before the
+    ``log_softmax``, so 16-bit scores give an f32 loss."""
     ce = SoftmaxCrossEntropyLoss()
     (mlm_scores, nsp_scores), (mlm_y, nsp_y) = pred, label
-    return ce(mlm_scores, mlm_y) + ce(nsp_scores, nsp_y)
+    return ce(mlm_scores.float(), mlm_y) + ce(nsp_scores.float(), nsp_y)
 
 
 _BERT_SPECS = {

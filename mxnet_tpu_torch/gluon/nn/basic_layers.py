@@ -66,10 +66,13 @@ class Dense(HybridBlock):
 class Dropout(HybridBlock):
     """Dropout with rate ``rate`` in training
     (``autograd.is_training()``); the identity outside it, which is all
-    that serving runs.  The keep-mask is drawn from the port's seeded
-    generator of ``x``'s device
-    (:func:`mxnet_tpu_torch.random.generator`), never from torch's
-    global RNG, and kept values are scaled by ``1 / (1 - rate)``."""
+    that serving runs.  The keep-mask comes from a uniform drawn in f32,
+    whatever ``x``'s type, from the port's seeded generator of ``x``'s
+    device (:func:`mxnet_tpu_torch.random.generator`), never from torch's
+    global RNG; kept values are ``x / keep`` in ``x``'s type, ``keep = 1 -
+    rate`` taken in that type, as the JAX package's ``dropout`` computes
+    ``jnp.where(mask, x / keep, 0)`` (``mxnet_tpu/ops/nn.py``).  A uniform
+    drawn in bf16 takes a few thousand values and keeps the wrong share."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -79,8 +82,11 @@ class Dropout(HybridBlock):
         if not _ag.is_training() or self._rate == 0.0:
             return x
         u = torch.rand(x.shape, generator=_random.generator(x.device),
-                       device=x.device, dtype=x.dtype)
-        return x * ((u >= self._rate).to(x.dtype) / (1.0 - self._rate))
+                       device=x.device, dtype=torch.float32)
+        # keep rounded to x's type on the host, as JAX rounds the weakly
+        # typed scalar; the division itself runs in f32 and rounds once
+        keep = torch.tensor(1.0 - self._rate, dtype=x.dtype).item()
+        return torch.where(u >= self._rate, x / keep, 0.0)
 
 
 class Embedding(HybridBlock):

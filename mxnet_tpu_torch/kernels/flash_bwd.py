@@ -12,11 +12,13 @@ output ``out`` and row log-sum-exp ``lse`` (B, H, Tq):
 
 with the forward's masks (per-row ``kv_len``, ``causal``).  CUDA tensors
 launch the two hand-written kernels of ``csrc/flash_attention_bwd.cu``
-(f32, contiguous, any Tq and Tk >= 1, any d >= 1; products on tensor
-cores with a 3xTF32 split, no global TF32 flag) or raise: the dq kernel
-computes delta in its prologue and hands it to the dk/dv kernel.  CPU
-tensors run :func:`flash_attention_bwd_reference`, which materializes
-the score matrix.
+(contiguous, any Tq and Tk >= 1, any d >= 1; products on tensor cores,
+no global TF32 flag) or raise: the dq kernel computes delta in its
+prologue and hands it to the dk/dv kernel.  f32 inputs take the 3xTF32
+kernels; bf16 and f16 inputs (q, k, v, g and out of one type, lse f32)
+take 16-bit kernels of their own, which write dq, dk and dv in that type.
+CPU tensors run :func:`flash_attention_bwd_reference`, which
+materializes the score matrix.
 """
 from __future__ import annotations
 
@@ -32,6 +34,15 @@ from . import registry as _kreg
 __all__ = ["flash_attention_bwd", "flash_attention_bwd_reference",
            "launch_dq", "launch_dkv"]
 
+# bf16 and f16 take the 16-bit kernels (here and in ops.attention's
+# forward): their C entries' suffix and launch counts' name
+_HALF = {torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
+def _name(kernel: str, dtype) -> str:
+    """``kernel``'s launch-count name for inputs of ``dtype``."""
+    return kernel if dtype == torch.float32 else f"{kernel}.{_HALF[dtype]}"
+
 
 def flash_attention_bwd_reference(q, k, v, g, out, lse, kv_len=None,
                                   causal: bool = False,
@@ -39,11 +50,14 @@ def flash_attention_bwd_reference(q, k, v, g, out, lse, kv_len=None,
     """The kernels' plain version: ``(dq, dk, dv)`` from the materialized
     (B, H, Tq, Tk) score matrix, by the formulas of the module docstring.
     A masked entry of p and ds is 0 by selection, so a row with nothing
-    to attend (lse = -inf) gives zeros, not NaN."""
+    to attend (lse = -inf) gives zeros, not NaN.  Every operand is cast to
+    f32 and the gradients back to the inputs' types at the end, as the
+    TPU kernels do (``mxnet_tpu/kernels/flash_bwd.py``)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     from ..ops.attention import _merge_mask
 
+    dts = (q.dtype, k.dtype, v.dtype)
     q, k, v, g, out = (t.float() for t in (q, k, v, g, out))
     live = _merge_mask(None, kv_len, q.shape[2], k.shape[2], causal,
                        q.device)
@@ -59,7 +73,7 @@ def flash_attention_bwd_reference(q, k, v, g, out, lse, kv_len=None,
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale
     dv = torch.einsum("bhqk,bhqd->bhkd", p, g)
-    return dq, dk, dv
+    return dq.to(dts[0]), dk.to(dts[1]), dv.to(dts[2])
 
 
 def _check_args(q, k, v, g, out, lse, kv_len):
@@ -73,11 +87,15 @@ def _check_args(q, k, v, g, out, lse, kv_len):
         raise MXNetError(
             f"flash_attention_bwd kernels take d >= 1 and Tk >= 1; got "
             f"d={d}, Tk={tk}")
-    want = [("q", q, torch.float32, (b, h, tq, d)),
-            ("k", k, torch.float32, (b, h, tk, d)),
-            ("v", v, torch.float32, (b, h, tk, d)),
-            ("g", g, torch.float32, (b, h, tq, d)),
-            ("out", out, torch.float32, (b, h, tq, d)),
+    dt = q.dtype
+    if dt != torch.float32 and dt not in _HALF:
+        raise MXNetError(f"flash_attention_bwd kernels take float32, "
+                         f"bfloat16 or float16; got {dt}")
+    want = [("q", q, dt, (b, h, tq, d)),
+            ("k", k, dt, (b, h, tk, d)),
+            ("v", v, dt, (b, h, tk, d)),
+            ("g", g, dt, (b, h, tq, d)),
+            ("out", out, dt, (b, h, tq, d)),
             ("lse", lse, torch.float32, (b, h, tq))]
     if kv_len is not None:
         want.append(("kv_len", kv_len, torch.int32, (b,)))
@@ -104,7 +122,8 @@ def launch_dq(q, k, v, g, out, lse, kv_len, causal: bool, scale: float):
     dq = torch.empty_like(q)
     delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _entry("mx_flash_attention_bwd_dq_f32", 9)(
+        err = _entry(f"mx_flash_attention_bwd_dq_{_HALF.get(q.dtype, 'f32')}",
+                     9)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             out.data_ptr(), lse.data_ptr(),
             kv_len.data_ptr() if kv_len is not None else None, dq.data_ptr(),
@@ -113,7 +132,7 @@ def launch_dq(q, k, v, g, out, lse, kv_len, causal: bool, scale: float):
     if err != 0:
         raise MXNetError(f"flash_attention_bwd_dq kernel launch failed: "
                          f"CUDA error {err}")
-    _kreg.count_launch("flash_attention_bwd_dq")
+    _kreg.count_launch(_name("flash_attention_bwd_dq", q.dtype))
     return dq, delta
 
 
@@ -124,7 +143,8 @@ def launch_dkv(q, k, v, g, lse, delta, kv_len, causal: bool, scale: float):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
-        err = _entry("mx_flash_attention_bwd_dkv_f32", 9)(
+        err = _entry(
+            f"mx_flash_attention_bwd_dkv_{_HALF.get(q.dtype, 'f32')}", 9)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(),
             kv_len.data_ptr() if kv_len is not None else None, dk.data_ptr(),
@@ -133,7 +153,7 @@ def launch_dkv(q, k, v, g, lse, delta, kv_len, causal: bool, scale: float):
     if err != 0:
         raise MXNetError(f"flash_attention_bwd_dkv kernel launch failed: "
                          f"CUDA error {err}")
-    _kreg.count_launch("flash_attention_bwd_dkv")
+    _kreg.count_launch(_name("flash_attention_bwd_dkv", q.dtype))
     return dk, dv
 
 

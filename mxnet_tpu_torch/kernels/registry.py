@@ -36,6 +36,16 @@ KERNELS: Dict[str, Tuple[str, str]] = {
     "flash_attention_bwd_dkv": (
         "flash_attention_bwd.cu",
         "mxnet_tpu/kernels/flash_bwd.py:97 _dkv_kernel"),
+    # the 16-bit variants: bf16 and f16 inputs, a kernel each
+    **{f"{name}.{dt}": (src, f"{tpu} ({dt})")
+       for name, src, tpu in (
+           ("flash_attention", "flash_attention.cu",
+            "mxnet_tpu/ops/attention.py:59 _flash_kernel"),
+           ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
+            "mxnet_tpu/kernels/flash_bwd.py:59 _dq_kernel"),
+           ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+            "mxnet_tpu/kernels/flash_bwd.py:97 _dkv_kernel"))
+       for dt in ("bf16", "f16")},
     "opt_arena": (
         "opt_arena.cu",
         "mxnet_tpu/kernels/opt_arena.py:131 _arena_kernel"),

@@ -38,6 +38,7 @@ __all__ = ["attention_reference", "flash_attention", "flash_attention_reference"
            "SPLIT_TQ"]
 
 _NEG_INF = float("-inf")
+_HALF = _fbwd._HALF       # bf16 and f16 take the 16-bit kernels
 
 # The decode kernel's split-K path takes Tq <= SPLIT_TQ query rows and
 # d <= 256; longer chunks and wider heads run its tensor-core chunk path.
@@ -84,12 +85,17 @@ def flash_attention_reference(q, k, v, mask=None, causal: bool = False,
                               kv_valid_length=None, return_lse: bool = False):
     """The flash kernel's plain version: the mask, ``kv_valid_length`` and
     ``causal`` merged into one boolean mask, then
-    :func:`attention_reference`.  With ``return_lse`` also the (B, H, Tq)
-    f32 row log-sum-exp (-inf for a row with nothing to attend)."""
+    :func:`attention_reference` (f32), or for bf16 / f16 inputs the TPU
+    kernel's roundings (:func:`_flash16_reference`).  With ``return_lse``
+    also the (B, H, Tq) f32 row log-sum-exp (-inf for a row with nothing
+    to attend)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     m = _merge_mask(mask, kv_valid_length, q.shape[2], k.shape[2], causal,
                     q.device)
+    if q.dtype in _HALF:
+        out, lse = _flash16_reference(q, k, v, m, scale)
+        return (out, lse) if return_lse else out
     out = attention_reference(q, k, v, mask=m, scale=scale)
     if not return_lse:
         return out
@@ -97,6 +103,29 @@ def flash_attention_reference(q, k, v, mask=None, causal: bool = False,
     if m is not None:
         logits = logits.masked_fill(~m, _NEG_INF)
     return out, torch.logsumexp(logits, dim=-1)
+
+
+def _flash16_reference(q, k, v, m, scale: float):
+    """``(out, lse)`` for 16-bit q, k, v as the TPU kernel computes them
+    (``mxnet_tpu/ops/attention.py`` ``_flash_kernel``): S in f32 from
+    upcast q and k; ``p = exp(s - max)`` rounded to v's type for P V, the
+    products summed in f32; ``l`` summed from the f32 p; ``out = acc / l``
+    rounded to q's type once; the lse f32.  The row max here is over every
+    key at once where the kernels take a running max over key tiles, so
+    each rounded p may differ by one 16-bit ulp from theirs."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if m is not None:
+        s = s.masked_fill(~m, _NEG_INF)
+    mx = s.amax(-1, keepdim=True)
+    safe = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
+    p = torch.where(torch.isfinite(s), torch.exp(s - safe),
+                    torch.zeros((), dtype=s.dtype, device=s.device))
+    l = p.sum(-1, keepdim=True)
+    acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    out = (acc / torch.where(l == 0, torch.ones_like(l), l)).to(q.dtype)
+    lse = (safe + torch.log(torch.where(l == 0, torch.ones_like(l), l)))
+    lse = torch.where(l == 0, torch.full_like(l, _NEG_INF), lse)
+    return out, lse[..., 0]
 
 
 def _check_flash_args(q, k, v, kv_len):
@@ -109,9 +138,13 @@ def _check_flash_args(q, k, v, kv_len):
         raise MXNetError(
             f"flash_attention kernel takes d >= 1 and Tk >= 1; got d={d}, "
             f"Tk={tk}")
-    want = [("q", q, torch.float32, (b, h, tq, d)),
-            ("k", k, torch.float32, (b, h, tk, d)),
-            ("v", v, torch.float32, (b, h, tk, d))]
+    dt = q.dtype
+    if dt != torch.float32 and dt not in _HALF:
+        raise MXNetError(f"flash_attention kernels take float32, bfloat16 "
+                         f"or float16; got {dt}")
+    want = [("q", q, dt, (b, h, tq, d)),
+            ("k", k, dt, (b, h, tk, d)),
+            ("v", v, dt, (b, h, tk, d))]
     if kv_len is not None:
         want.append(("kv_valid_length", kv_len, torch.int32, (b,)))
     _kreg.check_tensors("flash_attention", q.device, want, aligned=False)
@@ -127,7 +160,9 @@ def _launch_flash(q, k, v, kv_len, causal, scale, return_lse):
         if return_lse else None
     if out.numel() == 0:                      # nothing to launch
         return (out, lse) if return_lse else out
-    fn = _build.load("flash_attention.cu").mx_flash_attention_f32
+    suffix = _HALF.get(q.dtype, "f32")
+    fn = getattr(_build.load("flash_attention.cu"),
+                 f"mx_flash_attention_{suffix}")
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
             [ctypes.c_float, ctypes.c_void_p]
@@ -141,7 +176,7 @@ def _launch_flash(q, k, v, kv_len, causal, scale, return_lse):
     if err != 0:
         raise MXNetError(f"flash_attention kernel launch failed: CUDA error "
                          f"{err}")
-    _kreg.count_launch("flash_attention")
+    _kreg.count_launch(_fbwd._name("flash_attention", q.dtype))
     return (out, lse) if return_lse else out
 
 
@@ -210,8 +245,9 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
         a row with nothing to attend).
 
     Without ``mask``, CUDA tensors launch the hand-written kernel
-    (``csrc/flash_attention.cu``: f32, contiguous, any Tq and Tk >= 1,
-    any d >= 1) or raise; CPU tensors run
+    (``csrc/flash_attention.cu``: f32, bf16 or f16 q, k and v of one
+    type, each type its own kernel; contiguous, any Tq and Tk >= 1, any
+    d >= 1) or raise; CPU tensors run
     :func:`flash_attention_reference`.  When q, k or v requires grad the
     call goes through :class:`FlashAttentionFunction`, whose backward is
     the dq and dk/dv kernel pair."""

@@ -38,13 +38,25 @@ def fully_connected(x, weight, bias=None, flatten: bool = True):
 
 def layer_norm(x, gamma, beta, eps: float = 1e-5):
     """Normalize over the last axis: ``(x - mean) / sqrt(var + eps)``
-    (biased variance), then ``* gamma + beta``."""
-    return F.layer_norm(x, (x.shape[-1],), gamma, beta, eps)
+    (biased variance), then ``* gamma + beta``.
+
+    f32 runs one fused ``F.layer_norm``.  Other types follow the JAX
+    op's dtypes (``mxnet_tpu/ops/nn.py`` ``layer_norm``): the statistics
+    accumulate in f32 and the normalized rows come back in ``x``'s type
+    (rounded once here, where the JAX op rounds ``x - mean`` and the
+    product apart), then ``* gamma + beta`` in the promoted type of
+    ``x``, ``gamma`` and ``beta`` (bf16 under a bf16 policy; f32 where
+    bf16 rows meet f32 parameters)."""
+    n = (x.shape[-1],)
+    if x.dtype == gamma.dtype == beta.dtype == torch.float32:
+        return F.layer_norm(x, n, gamma, beta, eps)
+    return F.layer_norm(x, n, None, None, eps) * gamma + beta
 
 
 def erf_gelu(x):
     """Exact GELU, ``x * Phi(x)`` with the erf form (not the tanh
-    approximation)."""
+    approximation); in ``x``'s type, as ``jax.nn.gelu`` (the 16-bit types
+    computed in f32 inside and rounded once)."""
     return F.gelu(x, approximate="none")
 
 

@@ -27,13 +27,33 @@ counterpart of the JAX step's single gradient concatenate.  The arena is
 zeroed in place before each backward; a ``.grad`` that was replaced or
 set to None (``zero_grad(set_to_none=True)``) is put back as the view.
 
+Low precision (``compute_dtype=torch.bfloat16`` or ``torch.float16``)
+is the JAX trainer's policy, not ``torch.autocast``: the master
+parameters stay f32 and the optimizer sees f32 parameters and f32
+gradients; once a step every floating parameter, buffer and input is
+cast to ``compute_dtype`` (one cast a parameter, however often the net
+uses it: BERT's tied decoder sums its 16-bit cotangents before the
+cast's gradient, as in JAX), the forward runs on the cast copies
+(``torch.func.functional_call``), and autograd through the casts writes
+the f32 gradients into the arena.  The loss is ``mean(loss_fn(pred,
+y))`` cast to f32.  Dynamic loss scaling (``loss_scaling="auto"``: on
+exactly for f16) multiplies the loss by the scale before the backward,
+divides the gradients by it in f32 and checks them as :func:`all_finite`
+does; on overflow every parameter and optimizer state is left as it was
+(a per-leaf select against a copy taken before the update), the scale
+halves (floored at 1) and the skipped count rises;
+after 2000 clean steps the scale doubles.  The check, the select and the
+scale stay on the device, so a step never waits on the host.  A net with
+BatchNorm under ``compute_dtype`` raises (ROADMAP A1.4.1b: f32 running
+statistics out of a 16-bit forward).
+
 Steps are dispatched asynchronously: ``step`` returns the loss as a lazy
 0-d tensor, and at most ``MXNET_MAX_INFLIGHT_STEPS`` (default 2) steps
 are in flight (``engine.BoundedInflight`` waits on a CUDA event recorded
-after each step).  What the JAX trainer offers beyond one device and
-f32 (meshes, ``partition="zero1"``, ``overlap``, gradient accumulation,
-``compute_dtype``, ``multi_tensor``, ``lr_scheduler``, checkpoints)
-raises :class:`MXNetError` naming the roadmap item that ports it.
+after each step).  What the JAX trainer offers beyond one device
+(meshes, ``partition="zero1"``, ``overlap``, gradient accumulation,
+``multi_tensor``, ``lr_scheduler``, checkpoints) raises
+:class:`MXNetError` naming the roadmap item that ports it.
 """
 from __future__ import annotations
 
@@ -45,11 +65,46 @@ import torch
 
 from .. import autograd as _ag
 from .. import optimizer as _opt_mod
+from .. import telemetry as _tel
 from ..base import MXNetError, get_env
 from ..engine import BoundedInflight
 from ..kernels import opt_arena as _oa
 
-__all__ = ["ShardedTrainer"]
+__all__ = ["ShardedTrainer", "all_finite"]
+
+# compute_dtype names -> torch dtypes
+_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+           "float16": torch.float16, "fp16": torch.float16,
+           "float32": torch.float32, "fp32": torch.float32}
+_GROWTH_INTERVAL = 2000    # clean steps before the loss scale doubles
+
+
+def all_finite(grads) -> torch.Tensor:
+    """A 0-d bool tensor: whether every gradient's f32 sum is finite (the
+    reference's all_finite op, as the JAX package ports it), on the
+    gradients' device, with no host sync."""
+    sums = torch.stack([g.float().sum() for g in grads])
+    return torch.isfinite(sums).all()
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    """Every tensor of a state tree (None, a tensor, or tuples / lists of
+    them), in order."""
+    if tree is None:
+        return []
+    if torch.is_tensor(tree):
+        return [tree]
+    return [t for e in tree for t in _tensors(e)]
+
+
+def _cast(x, dtype):
+    """``x`` (a tensor, or a tuple / list of them) with every floating
+    tensor cast to ``dtype``; integer tensors as they are."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(_cast(e, dtype) for e in x)
+    if torch.is_tensor(x) and x.is_floating_point():
+        return x.to(dtype)
+    return x
 
 _LATER = "is not ported yet ({item}, a later slice of the trainer)"
 
@@ -235,7 +290,9 @@ class ShardedTrainer:
                  max_inflight: Optional[int] = None,
                  partition: Optional[str] = None,
                  fused_opt: Optional[str] = None,
-                 overlap: Optional[bool] = None):
+                 overlap: Optional[bool] = None,
+                 init_loss_scale: float = 2.0 ** 16,
+                 loss_scaling: Any = "auto"):
         if mesh is not None and int(getattr(mesh, "size", 1)) > 1:
             raise _not_ported(f"a mesh of {mesh.size} devices",
                               "ROADMAP A6, multi-device")
@@ -250,9 +307,6 @@ class ShardedTrainer:
             raise _not_ported("overlap=True", "ROADMAP A6, multi-device")
         if int(grad_accum) != 1:
             raise _not_ported(f"grad_accum={grad_accum}")
-        if compute_dtype is not None:
-            raise _not_ported(f"compute_dtype={compute_dtype} (bf16/fp16 "
-                              "policies)")
         if multi_tensor:
             raise _not_ported("multi_tensor=True")
         if lr_scheduler is not None:
@@ -290,10 +344,128 @@ class ShardedTrainer:
                                                     self.layout.sizes,
                                                     self.layout.shapes)]
         self._attach_grads()
+        self._init_policy(compute_dtype, loss_scaling, init_loss_scale)
         self._adapter.init_state(self.params, self.layout)
         self._lr = float(opt.lr) if optimizer is opt else float(learning_rate)
         self._t = 0
         self._inflight = BoundedInflight(max_inflight)
+
+    # -- the low-precision policy -------------------------------------------
+    def _init_policy(self, compute_dtype, loss_scaling, init_loss_scale):
+        """``compute_dtype`` and dynamic loss scaling (module docstring),
+        with the JAX trainer's errors."""
+        if isinstance(compute_dtype, str):
+            if compute_dtype not in _DTYPES:
+                raise MXNetError(f"compute_dtype={compute_dtype!r} unknown; "
+                                 f"use one of {sorted(_DTYPES)}")
+            compute_dtype = _DTYPES[compute_dtype]
+        if compute_dtype is not None and (
+                not isinstance(compute_dtype, torch.dtype)
+                or not compute_dtype.is_floating_point):
+            raise MXNetError(f"compute_dtype={compute_dtype!r} is not a "
+                             "floating torch dtype")
+        #: the policy's forward dtype (None = pure f32)
+        self.compute_dtype = compute_dtype
+        if loss_scaling not in ("auto", True, False):
+            raise MXNetError(f"loss_scaling={loss_scaling!r} unknown; use "
+                             "'auto', True or False")
+        if loss_scaling == "auto":
+            dynamic = compute_dtype == torch.float16
+        else:
+            dynamic = bool(loss_scaling)
+            if dynamic and compute_dtype is None:
+                raise MXNetError(
+                    "loss_scaling=True without a compute_dtype: f32 steps "
+                    "cannot overflow, scaling would only mask a config bug")
+        if compute_dtype is not None:
+            from ..gluon.nn import BatchNorm
+
+            bn = [n for n, m in self.net.named_modules()
+                  if isinstance(m, BatchNorm)]
+            if bn:
+                raise _not_ported(
+                    f"compute_dtype={compute_dtype} with BatchNorm layers "
+                    f"({bn[0]}, ...): f32 running statistics out of a 16-bit"
+                    " forward and the 16-bit bn_act kernels",
+                    "ROADMAP A1.4.1b, ResNet-50 in bf16")
+        self._dynamic_scaling = dynamic
+        kw = dict(device=self.device)
+        lay = self.layout    # the arena's segments: each leaf, the padding
+        tail = [lay.padded - lay.total] if lay.padded > lay.total else []
+        self._segments = torch.tensor(list(lay.sizes) + tail, **kw)
+        self._scale = torch.tensor(float(init_loss_scale) if dynamic else 1.0,
+                                   dtype=torch.float32, **kw)
+        self._good = torch.zeros((), dtype=torch.int32, **kw)
+        self._skipped = torch.zeros((), dtype=torch.int32, **kw)
+        self._amp_tel_every = int(get_env("MXNET_AMP_TELEMETRY_EVERY", 50,
+                                          int))
+
+    @property
+    def loss_scale(self) -> float:
+        """The dynamic loss scale (1.0 when scaling is off); reading it
+        waits for the last dispatched step."""
+        return float(self._scale)
+
+    @property
+    def skipped_steps(self) -> int:
+        """Updates skipped on non-finite gradients since construction
+        (dynamic loss scaling only; 0 otherwise).  Reading it waits for
+        the last dispatched step."""
+        return int(self._skipped)
+
+    def _forward(self, xs):
+        """The net on ``xs``, under the policy: the f32 net as it is, or
+        the net on copies of its floating parameters and buffers (and of
+        the floating inputs) cast to ``compute_dtype``."""
+        if self.compute_dtype is None:
+            return self.net(*xs)
+        dt = self.compute_dtype
+        swap = {n: _cast(t, dt) for n, t in self.net.named_parameters()}
+        swap.update((n, _cast(t, dt)) for n, t in self.net.named_buffers())
+        return torch.func.functional_call(self.net, swap, _cast(xs, dt))
+
+    def _update_scaled(self, lr):
+        """The update under dynamic loss scaling: unscale, check, update,
+        then keep the old parameters and optimizer states where the check
+        failed, and move the scale; all on the device.
+
+        The check is :func:`all_finite` on the arena: the f32 sum of each
+        gradient's segment.  The select works on the f32 leaves' bits as
+        int32 (``new * ok + old * (1 - ok)`` is exact in integers, where
+        in floats a NaN or inf of a skipped update would survive a
+        multiply by 0): a copy before the update and three multi-tensor
+        ops after it, in place of a clone and a ``where`` a leaf."""
+        self._garena.div_(self._scale)
+        # unsafe: the lengths are the layout's own, and their validation
+        # reads them back to the host, a sync a step
+        ok = torch.isfinite(torch.segment_reduce(
+            self._garena, "sum", lengths=self._segments, unsafe=True)).all()
+        leaves = [t.view(torch.int32) for t in
+                  self.params + _tensors(self._adapter.states)]
+        old = torch._foreach_mul(leaves, 1)
+        self._adapter.update(self.params, self._gviews, self._garena, lr,
+                             self._t)
+        keep = ok.to(torch.int32)
+        torch._foreach_mul_(leaves, keep)
+        torch._foreach_add_(leaves, torch._foreach_mul(old, 1 - keep))
+        grown = self._good + 1 >= _GROWTH_INTERVAL
+        self._scale = torch.where(
+            ok, torch.where(grown, self._scale * 2.0, self._scale),
+            torch.clamp(self._scale * 0.5, min=1.0))
+        self._good = torch.where(ok, torch.where(grown, 0, self._good + 1),
+                                 0).to(torch.int32)
+        self._skipped = torch.where(ok, self._skipped, self._skipped + 1)
+
+    def _publish_amp_gauges(self):
+        """``amp.loss_scale`` / ``amp.skipped_steps`` every
+        ``MXNET_AMP_TELEMETRY_EVERY`` (default 50) steps: the read waits
+        for the step, so it is gated to keep the in-flight window deep."""
+        if not (self._dynamic_scaling and _tel._ENABLED
+                and self._amp_tel_every
+                and self._t % self._amp_tel_every == 0):
+            return
+        _tel.set_gauge("amp.loss_scale", self.loss_scale)
+        _tel.set_gauge("amp.skipped_steps", self.skipped_steps)
 
     # -- adapters -----------------------------------------------------------
     @property
@@ -334,11 +506,16 @@ class ShardedTrainer:
         self._attach_grads()
         self._garena.zero_()
         with _ag.record():
-            loss = self.loss_fn(self.net(*xs), y).mean().float()
-            loss.backward()
+            loss = self.loss_fn(self._forward(xs), y).mean().float()
+            (loss * self._scale if self._dynamic_scaling else loss).backward()
         with torch.no_grad():
-            self._adapter.update(self.params, self._gviews, self._garena,
-                                 self.learning_rate, self._t)
+            if self._dynamic_scaling:
+                self._update_scaled(self.learning_rate)
+            else:
+                self._adapter.update(self.params, self._gviews,
+                                     self._garena, self.learning_rate,
+                                     self._t)
+        self._publish_amp_gauges()
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()

@@ -109,8 +109,21 @@ def test_bert_specs_and_limits():
     tb.initialize(seed=1)
     with pytest.raises(ValueError, match="max_length"):
         tb(np.zeros((1, 9), np.int32))
-    with pytest.raises(MXNetError):
-        tbert.get_bert(device="cpu", dtype=torch.float16, **TINY)
+    # dtype= is the embeddings' type, every other layer f32, as in JAX
+    import jax.numpy as jnp
+
+    jb = jax_get_bert(dtype=jnp.float16, **TINY)
+    jb.initialize(mx.init.Xavier())
+    jb(nd_i32(np.zeros((1, 4))), nd_i32(np.zeros((1, 4))),
+       nd_i32(np.full((1,), 4)))
+    want = {n: str(jnp.dtype(p.data()._data.dtype))
+            for n, p in jb.collect_params().items()}
+    tb = tbert.get_bert(device="cpu", dtype=torch.float16, **TINY)
+    got = {n: str(p.dtype).replace("torch.", "")
+           for n, p in tb.named_parameters()}
+    assert got == want and "float16" in got.values()
+    seq, pooled = tb.initialize(seed=1)(np.zeros((1, 4), np.int32))
+    assert seq.dtype == pooled.dtype == torch.float32
 
 
 def test_initialize_is_seeded_and_device_independent():

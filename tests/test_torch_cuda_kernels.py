@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card, against their plain versions:
-decode attention, the flash-attention forward and backward (dq, dk/dv),
-the flat-arena optimizer update, the batch-norm stats and apply
-kernels and the extension example's squared ReLU (forward, backward) and
-``a * x + b``.
+decode attention, the flash-attention forward and backward (dq, dk/dv)
+in f32 and in their bf16 / f16 variants, the flat-arena optimizer
+update, the batch-norm stats and apply kernels and the extension
+example's squared ReLU (forward, backward) and ``a * x + b``.
 
 These tests need a CUDA device and ``nvcc``; they carry the ``cuda``
 marker and skip without a card.  On the card::
@@ -10,7 +10,8 @@ marker and skip without a card.  On the card::
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q
 
 Tolerance atol = rtol = 1e-4 with TF32 off (f32, different summation
-order), the bar of ``chip_smoke.py``; the batch-norm statistics within
+order), the bar of ``chip_smoke.py``; the 16-bit variants at 16-bit
+scale (the constants above their tests); the batch-norm statistics within
 1e-5 of the channel's scale (sqrt(E[x^2]) for the mean, E[x^2] for the
 variance) of a float64 reference; the extension kernels equal bit for
 bit, except f32 ``axpb`` within 1 ulp (the plain version rounds a
@@ -192,6 +193,8 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
                 torch.zeros(1, 1, 8, 4, device=dev).transpose(2, 3)):
         with pytest.raises(MXNetError):
             att.flash_attention(bad, bad, bad)
+    with pytest.raises(MXNetError):                          # mixed types
+        att.flash_attention(ok.bfloat16(), ok.bfloat16(), ok)
     with pytest.raises(MXNetError):                          # lengths shape
         att.flash_attention(ok, ok, ok,
                             kv_valid_length=torch.zeros(2, device=dev))
@@ -353,6 +356,177 @@ def test_flash_bwd_refuses_what_it_does_not_take(dev):
             fb.flash_attention_bwd(ok, bad, bad, ok, ok, lse)
     with pytest.raises(MXNetError):                         # lse on the CPU
         fb.flash_attention_bwd(ok, ok, ok, ok, ok, lse.cpu())
+
+
+# ------------------------------------------------------ 16-bit variants
+# Tolerances against the plain version (the TPU kernel's roundings, in
+# f32 on the card): the forward within 2^-7 (bf16) and 2^-10 (f16) of
+# max|ref| (a rounded p and the rounded output may each flip one 16-bit
+# ulp: the kernel's running max over key tiles against the plain
+# version's max over the row), the lse within 1e-4; dq, dk and dv within
+# 2^-6 (bf16) and 2^-9 (f16) of the larger of max|g| and max|ref| (their
+# products keep f32 accuracy and the gradients are rounded once at the
+# end, at their own scale where that is above g's: dv of a key that
+# every query attends with p ~ 1 sums T rows of g).
+HALF = [torch.bfloat16, torch.float16]
+FWD16_TOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+BWD16_TOL = {torch.bfloat16: 2.0 ** -6, torch.float16: 2.0 ** -9}
+
+
+def _half_inputs(b, h, tq, tk, d, lens, dtype, seed, dev):
+    """16-bit q, k, v (NaN past each row's length in k and v), g, the
+    lengths, and v with the garbage zeroed for the plain version."""
+    q, k, v, lens_t = _flash_case(b, h, tq, tk, d, lens, seed)
+    g = torch.rand(b, h, tq, d, generator=torch.Generator().manual_seed(d))
+    q, k, v, g = ((2 * x).to(dtype).to(dev) for x in (q, k, v, g - 0.5))
+    lens_d = None if lens_t is None else lens_t.to(dev)
+    return q, k, v, g, lens_d, torch.nan_to_num(v)
+
+
+def _half_check(dtype, q, k, v, g, lens_d, ref_v, causal, lens):
+    from mxnet_tpu_torch.kernels import flash_bwd as fb
+
+    sfx = "bf16" if dtype == torch.bfloat16 else "f16"
+    names = [f"{n}.{sfx}" for n in ("flash_attention",
+                                    "flash_attention_bwd_dq",
+                                    "flash_attention_bwd_dkv")]
+    before = registry.launches()
+    out, lse = att.flash_attention(q, k, v, causal=causal,
+                                   kv_valid_length=lens_d, return_lse=True)
+    got = fb.flash_attention_bwd(q, k, v, g, out, lse, lens_d, causal)
+    torch.cuda.synchronize()
+    after = registry.launches()
+    assert [after[n] - before[n] for n in names] == [1, 1, 1]
+    for n in ("flash_attention", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        assert after[n] == before[n]          # never the f32 kernels
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    ref, ref_lse = att.flash_attention_reference(
+        q, k, ref_v, causal=causal, kv_valid_length=lens_d, return_lse=True)
+    assert torch.isfinite(out).all()
+    tol = FWD16_TOL[dtype] * float(ref.float().abs().max())
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    want = fb.flash_attention_bwd_reference(
+        q, torch.nan_to_num(k), ref_v, g, out, lse, lens_d, causal)
+    gmax = float(g.float().abs().max())
+    for a, r in zip(got, want):
+        assert a.dtype == dtype and torch.isfinite(a).all()
+        tol = BWD16_TOL[dtype] * max(gmax, float(r.float().abs().max()))
+        torch.testing.assert_close(a.float(), r.float(), atol=tol, rtol=0)
+    for row, n in enumerate(lens or []):      # exact zeros past lengths
+        assert not got[1][row, :, n:].any() and not got[2][row, :, n:].any()
+        if n == 0:
+            assert not got[0][row].any() and not out[row].any()
+    again = att.flash_attention(q, k, v, causal=causal,
+                                kv_valid_length=lens_d)
+    again_g = fb.flash_attention_bwd(q, k, v, g, out, lse, lens_d, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)            # the same bits, run to run
+    for a, b in zip(got, again_g):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", HALF, ids=["bf16", "f16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["dense", "causal"])
+@pytest.mark.parametrize("b,h,tq,tk,d,lens", [
+    (2, 3, 1, 1, 8, None), (2, 2, 37, 37, 64, [0, 37]),
+    (3, 2, 70, 130, 36, [1, 64, 129]), (2, 1, 129, 65, 128, [65, 63]),
+    (2, 2, 96, 96, 192, [33, 96]), (3, 1, 70, 130, 320, [1, 64, 129]),
+    (2, 2, 33, 33, 7, [5, 33]), (2, 2, 130, 33, 64, None)])
+def test_half_kernels_match_plain(dev, dtype, causal, b, h, tq, tk, d, lens):
+    """bf16 and f16 forward, dq and dk/dv against their plain versions:
+    one launch each of the 16-bit kernels and none of the f32 ones,
+    outputs in the input type, exact zeros past each length, the same
+    bits from a second call."""
+    args = _half_inputs(b, h, tq, tk, d, lens, dtype, tq * 3 + d, dev)
+    _half_check(dtype, *args, causal, lens)
+
+
+@pytest.mark.parametrize("dtype", HALF, ids=["bf16", "f16"])
+@pytest.mark.parametrize("b,t,lens", [
+    (32, 128, [64 + (64 * i) // 31 for i in range(32)]),
+    (16, 512, [24 + (488 * i) // 15 for i in range(16)])],
+    ids=["train", "serve"])
+@pytest.mark.parametrize("d", [36, 64, 128, 320])
+def test_half_kernels_at_main_path_shapes(dev, dtype, b, t, lens, d):
+    """The training shape (B=32, H=12, T=128, kv_len 64-128) and the
+    serving shape (B=16, H=12, T=512, kv_len 24-512) at d = 36, 64, 128
+    and 320 (64 is BERT's width)."""
+    if t == 512 and d == 320:
+        b, lens = 4, lens[::4]                # the plain version's memory
+    args = _half_inputs(b, 12, t, t, d, lens, dtype, b + d, dev)
+    _half_check(dtype, *args, False, lens)
+
+
+@pytest.mark.parametrize("dtype", HALF, ids=["bf16", "f16"])
+@pytest.mark.parametrize("d", [36, 64, 320])
+def test_half_kernels_take_unaligned_inputs(dev, dtype, d):
+    """Views at storage offset 1 (2-byte aligned) take the element copies
+    and the scalar stores."""
+    def view(x):
+        flat = torch.empty(x.numel() + 1, device=dev, dtype=x.dtype)
+        flat[1:] = x.reshape(-1)
+        return flat[1:].view(x.shape)
+
+    lens = [0, 1, 63, 64]
+    q, k, v, g, lens_d, ref_v = _half_inputs(4, 2, 64, 64, d, lens, dtype,
+                                             d, dev)
+    q, k, v, g = (view(x) for x in (q, k, v, g))
+    assert q.data_ptr() % 4
+    _half_check(dtype, q, k, v, g, lens_d, ref_v, True, lens)
+
+
+def test_half_autograd_launches_the_16bit_kernels(dev):
+    x = [(torch.rand(2, 2, 40, 64, device=dev) - 0.5).bfloat16()
+         .requires_grad_() for _ in range(3)]
+    lens = torch.tensor([40, 7], dtype=torch.int32, device=dev)
+    before = registry.launches()
+    out = att.flash_attention(*x, kv_valid_length=lens)
+    grads = torch.autograd.grad(out.float().square().sum(), x)
+    torch.cuda.synchronize()
+    after = registry.launches()
+    assert [after[n] - before[n] for n in
+            ("flash_attention.bf16", "flash_attention_bwd_dq.bf16",
+             "flash_attention_bwd_dkv.bf16", "flash_attention")] == \
+        [1, 1, 1, 0]
+    assert all(gr.dtype == torch.bfloat16 for gr in grads)
+
+
+@pytest.mark.parametrize("dtype,opt,kw", [
+    (torch.bfloat16, "adamw", {}), (torch.float16, "adamw", {}),
+    (torch.float16, "sgd", {"momentum": 0.9})],
+    ids=["bf16_adamw", "f16_adamw", "f16_sgd_arena"])
+def test_16bit_trainer_step_never_syncs_the_host(dev, dtype, opt, kw):
+    """A 16-bit step (f16: the loss scale, the finite check and the skip's
+    select on the card) queues its work without a host sync, so the
+    in-flight window stays deep; under ``set_sync_debug_mode("error")``
+    a sync raises."""
+    from mxnet_tpu_torch.gluon.model_zoo import BERTForPretrain, get_bert
+    from mxnet_tpu_torch.gluon.model_zoo.bert import pretrain_loss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    net = BERTForPretrain(get_bert(num_layers=2, units=64, hidden_size=128,
+                                   num_heads=4, vocab_size=97, max_length=32,
+                                   dropout=0.1, device=dev)).initialize(0)
+    tr = ShardedTrainer(net, pretrain_loss, optimizer=opt,
+                        learning_rate=1e-3, compute_dtype=dtype, **kw)
+    g = torch.Generator().manual_seed(0)
+    x = (torch.randint(0, 97, (4, 32), generator=g),
+         torch.zeros(4, 32, dtype=torch.int64),
+         torch.tensor([32, 20, 9, 32]), torch.randint(0, 9, (4, 5),
+                                                       generator=g))
+    y = (torch.randint(0, 97, (4, 5), generator=g), torch.arange(4) % 2)
+    x, y = tuple(t.to(dev) for t in x), tuple(t.to(dev) for t in y)
+    tr.step(x, y, block=True)
+    before = tr.loss_scale
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = tr.step(x, y)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    tr.drain()
+    assert torch.isfinite(loss) and tr.loss_scale == before
 
 
 @pytest.mark.parametrize("t", [1, 7])

@@ -263,10 +263,35 @@ def test_dropout_draws_from_the_seeded_generator_only():
     torch.testing.assert_close(a[kept], torch.full_like(a[kept], 1 / 0.75))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_16bit_dropout_keeps_the_share_and_jax_values(dtype):
+    """Fault C5: the keep-mask's uniform was drawn in x's type; 4 M bf16
+    draws take ~2,000 distinct values and kept 0.898 at rate 0.1.  Now
+    it is drawn in f32: the kept share is within 1e-3 of 0.9, and every
+    kept value equals the JAX package's ``x / keep`` in x's type (JAX
+    rounds ``keep`` to that type first: for bf16, x / 0.8984375)."""
+    rs = np.random.RandomState(5)
+    xf = rs.randn(1 << 22).astype("float32")
+    x = torch.from_numpy(xf).to(dtype)
+    trandom.seed(3)
+    with autograd.record():
+        y = Dropout(0.1)(x)
+    assert y.dtype == dtype
+    kept = (y != 0).numpy() & (xf != 0)
+    assert abs(float(kept.mean()) - 0.9) < 1e-3
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float16
+    want = np.asarray((jnp.asarray(x.float().numpy()).astype(jdt) / 0.9)
+                      .astype(jnp.float32))
+    got = y.float().numpy()
+    np.testing.assert_array_equal(got[kept], want[kept])
+    assert not got[~kept].any()
+
+
 @pytest.mark.parametrize("kw", [
     dict(mesh=types.SimpleNamespace(size=4)), dict(partition="zero1"),
     dict(overlap=True), dict(grad_accum=2),
-    dict(compute_dtype=torch.bfloat16), dict(multi_tensor=True),
+    dict(loss_scaling=True), dict(multi_tensor=True),
     dict(lr_scheduler=lambda t: 0.1), dict(fused_opt="bogus")],
     ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(kw):
@@ -274,6 +299,33 @@ def test_unported_options_raise(kw):
                       for n, p in _jax_mlp().collect_params().items()})
     with pytest.raises(MXNetError):
         ShardedTrainer(net, tloss.SoftmaxCELoss(), **kw)
+
+
+def test_loss_scaling_without_compute_dtype_raises_in_both_packages():
+    from mxnet_tpu.base import MXNetError as JMXNetError
+
+    jnet = _jax_mlp()
+    with pytest.raises(JMXNetError, match="loss_scaling=True"):
+        JTrainer(jnet, _jax_ce, mesh=_mesh1(), loss_scaling=True)
+    net = _torch_mlp({n: p.data().asnumpy()
+                      for n, p in jnet.collect_params().items()})
+    with pytest.raises(MXNetError, match="loss_scaling=True"):
+        ShardedTrainer(net, tloss.SoftmaxCELoss(), loss_scaling=True)
+    with pytest.raises(MXNetError, match="loss_scaling"):
+        ShardedTrainer(net, tloss.SoftmaxCELoss(), loss_scaling="always",
+                       compute_dtype=torch.float16)
+
+
+def test_batchnorm_under_compute_dtype_raises_naming_the_later_slice():
+    from mxnet_tpu_torch.gluon.nn import BatchNorm, HybridSequential
+
+    net = HybridSequential().add(
+        Dense(8, in_units=4, device="cpu"),
+        BatchNorm(in_channels=8, device="cpu")).initialize(0)
+    for dt in (torch.bfloat16, torch.float16):
+        with pytest.raises(MXNetError, match="A1.4.1b"):
+            ShardedTrainer(net, tloss.SoftmaxCELoss(), compute_dtype=dt)
+    ShardedTrainer(net, tloss.SoftmaxCELoss())           # f32 trains
 
 
 def test_checkpoints_raise_naming_the_later_slice():

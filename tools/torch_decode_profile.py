@@ -2,6 +2,8 @@
 port's serving and training paths, on one CUDA card.
 
     python3 tools/torch_decode_profile.py [--steps 20] [--cache-len 500]
+        [--only decode,bert_batch,train_step,train_step_adamw,
+                train_step_bf16,train_step_fp16,resnet_step,eager]
 
 Decode: builds ``transformer_lm`` at GPT-2-small widths (seeded random
 weights, f32) on ``cuda:0`` and runs the decode tier's two forwards
@@ -15,7 +17,11 @@ from 16-512 with a seed.  Training: builds
 TF32 off) behind ``parallel.ShardedTrainer`` (adam, lr 1e-4, wd 0.01)
 and runs steps on the bench's pretraining batch (32 rows of 128 tokens,
 lengths 64-128, 20 masked positions), dispatched as a training loop
-dispatches them (at most two in flight).  ResNet training: builds
+dispatches them (at most two in flight); then the same with the
+per-parameter adamw, and in bf16 and f16 (dynamic loss scaling) at
+``bench_bert_base``'s settings (``compute_dtype``, adamw); each step's
+device time is split into GEMMs, the port's 16-bit attention kernels
+and the rest.  ResNet training: builds
 ``resnet50_v1(layout="NHWC", fused_bn_relu=True)`` (seeded weights,
 f32, TF32 off) behind ``parallel.ShardedTrainer`` (sgd, lr 0.05,
 momentum 0.9, as ``bench.py``'s ``bench_resnet50``) on a B=128 batch of
@@ -118,7 +124,17 @@ PORT_KERNELS = ("decode_split_kernel", "decode_combine_kernel",
                 "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                 "flash_bwd_dq_wide_kernel", "flash_bwd_dkv_wide_kernel",
                 "opt_arena_kernel", "bn_stats_partial", "bn_stats_combine",
-                "bn_apply_kernel", "ew_kernel")
+                "bn_apply_kernel", "ew_kernel", "flash_fwd16_kernel",
+                "flash_bwd16_dq_kernel", "flash_bwd16_dkv_kernel")
+
+# the training step's split, first match wins (else "other")
+HALF_GROUPS = {
+    "16-bit attention kernels": lambda k: any(w in k for w in (
+        "flash_fwd16_kernel", "flash_bwd16_dq_kernel",
+        "flash_bwd16_dkv_kernel")),
+    "GEMMs": lambda k: any(w in k.lower() for w in (
+        "gemm", "xmma", "cutlass", "nvjet", "cublas")),
+}
 
 _CONV_WORDS = ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit",
                "winograd", "xmma", "gemm", "fft")
@@ -191,8 +207,10 @@ def eager_step_profiles(steps):
     return out
 
 
-def train_step_profile(steps):
-    """Profile BERT-base pretraining steps (module docstring)."""
+def train_step_profile(steps, compute_dtype=None, opt=None):
+    """Profile BERT-base pretraining steps (module docstring): f32 with
+    adam (or ``opt``), or with ``compute_dtype`` at bench_bert_base's
+    adamw."""
     from mxnet_tpu_torch import random as mxrandom
     from mxnet_tpu_torch.gluon.model_zoo import BERTForPretrain, \
         bert_12_768_12
@@ -202,8 +220,10 @@ def train_step_profile(steps):
     mxrandom.seed(0)
     net = BERTForPretrain(bert_12_768_12(dropout=0.1, device="cuda")
                           ).initialize(seed=0)
-    tr = ShardedTrainer(net, pretrain_loss, optimizer="adam",
-                        learning_rate=1e-4, weight_decay=0.01)
+    opt = opt or ("adam" if compute_dtype is None else "adamw")
+    tr = ShardedTrainer(net, pretrain_loss, optimizer=opt,
+                        learning_rate=1e-4, weight_decay=0.01,
+                        compute_dtype=compute_dtype)
     rs = np.random.RandomState(21)
     b, t, n_pred = 32, 128, 20
     lens = rs.randint(64, t + 1, size=b).astype(np.int32)
@@ -216,27 +236,19 @@ def train_step_profile(steps):
     y = (torch.as_tensor(rs.randint(0, 30522, size=(b, n_pred)),
                          device="cuda"),
          torch.as_tensor(np.arange(b) % 2, device="cuda"))
-    return profile(f"BERT-base pretraining step (B={b}, T={t}, {n_pred} "
-                   "masked, adam)", lambda: tr.step(x, y), steps)
+    dt = "f32" if compute_dtype is None else str(compute_dtype)[6:]
+    return profile(f"BERT-base pretraining step ({dt}, B={b}, T={t}, "
+                   f"{n_pred} masked, {opt})", lambda: tr.step(x, y), steps,
+                   groups=HALF_GROUPS)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--cache-len", type=int, default=500)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("torch_decode_profile: no CUDA device", file=sys.stderr)
-        return 1
-    from mxnet_tpu_torch.gluon.model_zoo import transformer_lm
-
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60, check=True).stdout.strip()
+def decode_profiles(steps, cache_len):
+    """The decode step and a prefill of GPT-2-small widths (module
+    docstring)."""
     lm = transformer_lm(device="cuda", **GPT2_SMALL).initialize(seed=0)
     slots = 8
     cache = lm.begin_cache(slots, 1024)
-    lens = np.full(slots, args.cache_len, np.int64)
+    lens = np.full(slots, cache_len, np.int64)
     toks = np.zeros((slots, 1), np.int64)
 
     def step():
@@ -249,18 +261,17 @@ def main() -> int:
         logits, _ = lm(prompt, lm.begin_cache(1, 256), [0], [256])
         return logits[0, -1].float().cpu()
 
-    out = {"card": card,
-           "decode_step": profile(f"decode step (8 slots, C=1024, "
-                                  f"cache_len={args.cache_len})", step,
-                                  args.steps),
-           "prefill": profile("prefill (1 row, 256 tokens, C=256)", prefill,
-                              max(2, args.steps // 4))}
-    del lm, cache
+    return {"decode_step": profile(f"decode step (8 slots, C=1024, "
+                                   f"cache_len={cache_len})", step, steps),
+            "prefill": profile("prefill (1 row, 256 tokens, C=256)",
+                               prefill, max(2, steps // 4))}
 
+
+def bert_batch_profile(steps):
+    """One BERT-base batch as the batch tier dispatches it (module
+    docstring)."""
     from mxnet_tpu_torch.gluon.model_zoo import bert_12_768_12
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     bert = bert_12_768_12(dropout=0.0, device="cuda").initialize(seed=0)
     rs = np.random.RandomState(3)
     lens = rs.randint(16, 513, size=16).astype(np.int32)
@@ -275,15 +286,45 @@ def main() -> int:
         return seq.cpu(), pooled.cpu()
 
     with torch.inference_mode():
-        out["bert_batch"] = profile(
-            f"BERT-base batch (16 rows x 512 tokens, {int(lens.sum())} "
-            "valid)", bert_batch, max(2, args.steps // 4))
-    del bert
-    out["train_step"] = train_step_profile(max(2, args.steps // 2))
-    torch.cuda.empty_cache()
-    out["resnet_step"] = resnet_step_profile(max(2, args.steps // 2))
-    torch.cuda.empty_cache()
-    out.update(eager_step_profiles(args.steps))
+        return profile(f"BERT-base batch (16 rows x 512 tokens, "
+                       f"{int(lens.sum())} valid)", bert_batch, steps)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--cache-len", type=int, default=500)
+    ap.add_argument("--only", default="decode,bert_batch,train_step,"
+                    "train_step_adamw,train_step_bf16,train_step_fp16,"
+                    "resnet_step,eager",
+                    help="comma-separated profiles to run")
+    args = ap.parse_args()
+    only = set(args.only.split(","))
+    if not torch.cuda.is_available():
+        print("torch_decode_profile: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+    out = {"card": card}
+    if "decode" in only:
+        out.update(decode_profiles(args.steps, args.cache_len))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if "bert_batch" in only:
+        out["bert_batch"] = bert_batch_profile(max(2, args.steps // 4))
+    for key, dt, opt in (("train_step", None, None),
+                         ("train_step_adamw", None, "adamw"),
+                         ("train_step_bf16", torch.bfloat16, None),
+                         ("train_step_fp16", torch.float16, None)):
+        if key in only:
+            out[key] = train_step_profile(max(2, args.steps // 2), dt, opt)
+            torch.cuda.empty_cache()
+    if "resnet_step" in only:
+        out["resnet_step"] = resnet_step_profile(max(2, args.steps // 2))
+        torch.cuda.empty_cache()
+    if "eager" in only:
+        out.update(eager_step_profiles(args.steps))
     print(card)
     print(json.dumps(out))
     return 0
