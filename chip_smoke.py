@@ -159,23 +159,37 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     roundings: the training shape (B=32, H=12, T=128, kv_len 64-128) and
     the serving shape (B=16, T=512, kv_len 24-512) at d=64, d in {36,
     128, 320} at B=4, T in {128, 512}, causal off and on, unaligned
-    views; NaN in k/v past each row's length.  Bars: the output within
+    views; either side of the fused mode's edge (Tk <= 128 and d <= 64:
+    the dk/dv kernel alone computes dq, dk and dv): Tk in {1, 64, 127,
+    128, 129, 200, 512} with Tq != Tk at d in {36, 64, 128, 320}, key
+    lengths {0, 1, Tk}, causal off and on, and unaligned views at Tk 128
+    and 129; NaN in k/v past each row's length.  Bars: the output within
     2^-7 (bf16) / 2^-10 (f16) x max|ref|, the lse within 1e-4, dq / dk /
     dv within 2^-6 / 2^-9 x the larger of max|g| and max|ref| (a gradient
     larger than g, as dv of a key that 512 queries attend with p ~ 1,
     rounds at its own scale); exact zeros past lengths, the same bits
-    twice.
-23. Their device times (``torch.profiler``) at the training and serving
-    shapes beside SDPA's forward and backward in the same type and key
-    lengths (yardsticks the port never calls), the plain versions
-    (events) and the bounds: bytes at 3.35e12 B/s, 16-bit MMAs at
-    989e12 flop/s, the two-term TF32 products at 495e12.
+    twice.  In f16 also four cases whose |dS| passes 65504 while dq, dk
+    and dv are nonzero and fit, |dS| rising tile by tile
+    (``half_large_ds``): finite, within the bar.  And dq where a split
+    of dS that kept only its high term would show (``half_split_probe``,
+    keys 1 + e, Tk 128 fused and 192 two-launch, bf16 and f16): within
+    2^-6 / 2^-9 x max|dq|.
+23. Their device times (``torch.profiler``) at the training shape (the
+    fused dk/dv launch) and the serving shape (dq, then dk/dv) beside
+    SDPA's forward and backward in the same type and key lengths
+    (yardsticks the port never calls), the plain versions (events) and
+    the bounds (``half_bounds``): bytes at 3.35e12 B/s, every product on
+    16-bit MMAs at 989e12 flop/s, each f32 x 16-bit product counted as
+    the two MMAs of its split.
 24. Phase 11's BERT-base in bf16 at ``bench_bert_base``'s settings:
     ``ShardedTrainer(compute_dtype=torch.bfloat16)``, adamw, lr 1e-4, wd
     0.01, dropout 0.1; 2 warm + 20 timed steps: samples/s, step p50 and
-    peak memory beside phase 11's f32; 12 + 12 + 12 launches a step of
-    the bf16 forward, dq and dk/dv and none of an f32 kernel; the loss
-    finite and falling; the master parameters f32.
+    peak memory beside phase 11's f32; 12 launches a step of the bf16
+    forward and 12 of the dk/dv kernel's fused mode, none of dq and none
+    of an f32 kernel; the loss finite and falling; the master parameters
+    f32.  Then 3 timed steps of BERT's 512-token phase (B=8, T=512, 76
+    masked a row): 12 + 12 + 12 launches a step of the forward, dq and
+    dk/dv, the loss finite.
 25. The same in f16 with dynamic loss scaling; then 24 steps from a
     loss scale of 2^30 (dropout 0): steps skip while the scale halves,
     then the loss falls over the steps taken.
@@ -1314,6 +1328,8 @@ def phase_arena(dev):
 
 # ------------------------------------------------ BERT-base pretraining
 PRETRAIN = dict(batch=32, seq=128, masked=20)
+# the 512-token phase (phases 24-25): 76 masked a row, ~15% of 512
+PRETRAIN_512 = dict(batch=8, seq=512, masked=76, steps=3)
 
 
 def pretrain_batch(b, t, n_pred, seed):
@@ -2115,6 +2131,7 @@ HALF_FWD_TOL = {"bf16": 2.0 ** -7, "f16": 2.0 ** -10}   # x max|ref|
 HALF_BWD_TOL = {"bf16": 2.0 ** -6, "f16": 2.0 ** -9}    # x max|g|
 HALF_FLOP_PER_S = 989e12     # H100 SXM dense bf16 / f16 on tensor cores
 HALF_SHAPES = dict(train=(32, 128, 64), serve=(16, 512, 24))  # B, T, lo
+HALF_EDGE_TK = (1, 64, 127, 128, 129, 200, 512)   # either side of Tk = 128
 # phase 26's bars, the CPU tests' (tests/test_torch_amp.py): two bf16
 # computations of one step differ at bf16's scale, not f32's
 HALF_LOSS_RTOL = 2e-2
@@ -2128,16 +2145,17 @@ def half_lens(b, t, lo, seed):
     return lens
 
 
-def half_case(b, t, d, lens, dt, seed, dev, offset=False):
-    """16-bit q, k, v, g (B, H, T, d), NaN in k/v past each row's length,
-    on the card (as views at storage offset 1 with ``offset``): the
-    kernels' inputs, the plain version's (garbage zeroed) and the
-    lengths."""
+def half_case(b, t, d, lens, dt, seed, dev, offset=False, tk=None):
+    """16-bit q, g (B, H, T, d) and k, v (B, H, Tk, d; Tk = T unless
+    given), NaN in k/v past each row's length, on the card (as views at
+    storage offset 1 with ``offset``): the kernels' inputs, the plain
+    version's (garbage zeroed) and the lengths."""
+    tk = t if tk is None else tk
     g = torch.Generator(device="cpu").manual_seed(seed)
-    x = [((torch.rand(b, H, t, d, generator=g) - 0.5) * 2).to(dt)
-         for _ in range(4)]
+    x = [((torch.rand(b, H, n, d, generator=g) - 0.5) * 2).to(dt)
+         for n in (t, tk, tk, t)]
     lens_t = torch.tensor(lens, dtype=torch.int32)
-    past = (torch.arange(t)[None, :] >= lens_t[:, None])[:, None, :, None]
+    past = (torch.arange(tk)[None, :] >= lens_t[:, None])[:, None, :, None]
     x[1] = x[1].masked_fill(past, float("nan"))
     x[2] = x[2].masked_fill(past, float("nan"))
 
@@ -2208,9 +2226,76 @@ def half_check(sfx, kern, plain, lt, causal, label):
     return err
 
 
+def half_large_ds(tk, d, dev):
+    """Phase 22's f16 case whose |dS| passes 65504, f16's largest value,
+    while dq, dk and dv are nonzero and fit in f16, |dS| rising from one
+    64-query tile to the next (``test_utils.attention_large_ds_inputs``,
+    which the card and CPU tests share).  The backward's gradients finite
+    and within phase 22's bar of the plain version's, the same bits
+    twice; returns the worst absolute error."""
+    from mxnet_tpu_torch.kernels import flash_bwd as fb
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.test_utils import (attention_large_ds_inputs,
+                                            attention_p_ds)
+
+    q, k, v, g = (x.half().to(dev)
+                  for x in attention_large_ds_inputs(2, H, tk, d))
+    lt = torch.tensor([tk, 2], dtype=torch.int32, device=dev)
+    out, lse = att.flash_attention(q, k, v, kv_valid_length=lt,
+                                   return_lse=True)
+    got = fb.flash_attention_bwd(q, k, v, g, out, lse, lt)
+    again = fb.flash_attention_bwd(q, k, v, g, out, lse, lt)
+    want = fb.flash_attention_bwd_reference(q, k, v, g, out, lse, lt)
+    torch.cuda.synchronize()
+    ds = attention_p_ds(q, k, v, g, out, lse, lt)[1]
+    label = f"f16 |dS| > 65504 Tk={tk} d={d}"
+    check(ds.abs().max().item() > 65504, f"{label}: max|dS| "
+          f"{ds.abs().max().item():.3e}, not past f16's range")
+    gmax = g.float().abs().max().item()
+    worst = 0.0
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        e = (a.float() - r.float()).abs().max().item()
+        top = r.float().abs().max().item()
+        check(bool(torch.isfinite(a).all()) and top > 1000 and
+              e <= HALF_BWD_TOL["f16"] * max(gmax, top),
+              f"{label}: {name} err {e:.3e}, max|ref| {top:.3e}, finite "
+              f"{bool(torch.isfinite(a).all())}")
+        worst = max(worst, e)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{label}: two calls differ")
+    return worst
+
+
+def half_split_probe(dt, sfx, tk, dev):
+    """Phase 22's dq where the split's low term shows: keys 1 + e
+    (``test_utils.attention_split_probe_inputs``) make dq one ulp's size
+    of dS, so a split that kept only dS's high term errs by a quarter of
+    dq or more (measured against the JAX package on the CPU,
+    ``tests/test_torch_half_attention.py``).  dq within HALF_BWD_TOL x
+    max|dq| of the plain version's; returns the error over max|dq|."""
+    from mxnet_tpu_torch.kernels import flash_bwd as fb
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.test_utils import attention_split_probe_inputs
+
+    q, k, v, g = (x.to(dt).to(dev) for x in attention_split_probe_inputs(
+        2, H, 96, tk, D, dt, seed=tk))
+    lt = torch.tensor([tk, tk - 30], dtype=torch.int32, device=dev)
+    out, lse = att.flash_attention(q, k, v, kv_valid_length=lt,
+                                   return_lse=True)
+    dq = fb.flash_attention_bwd(q, k, v, g, out, lse, lt)[0]
+    ref = fb.flash_attention_bwd_reference(q, k, v, g, out, lse, lt)[0]
+    top = ref.float().abs().max().item()
+    e = (dq.float() - ref.float()).abs().max().item() / top
+    check(fb.fused(q, k) == (tk <= 128) and e <= HALF_BWD_TOL[sfx],
+          f"{sfx} split probe Tk={tk}: dq err {e:.3e} x max|dq| {top:.3e}")
+    return e
+
+
 def phase_half_kernels(dev):
     """Phase 22: the 16-bit forward, dq and dk/dv against their plain
-    versions, bf16 and f16."""
+    versions, bf16 and f16; both sides of the fused mode's edge."""
+    from mxnet_tpu_torch.kernels import flash_bwd as fb
+
     worst = {sfx: dict(fwd=0.0, dq=0.0, dkv=0.0) for _, sfx in HALF}
     n = 0
     for dt, sfx in HALF:
@@ -2218,28 +2303,54 @@ def phase_half_kernels(dev):
         for shape, (b, t, lo) in HALF_SHAPES.items():
             lens = half_lens(b, t, lo, seed=t)
             for causal in ((False, True) if shape == "train" else (False,)):
-                cases.append((f"{shape} d=64", b, t, 64, lens, causal,
+                cases.append((f"{shape} d=64", b, t, t, 64, lens, causal,
                               False))
         for d in (36, 128, 320):
             for t in (128, 512):
                 for causal in (False, True):
-                    cases.append((f"B=4 T={t} d={d}", 4, t, d,
+                    cases.append((f"B=4 T={t} d={d}", 4, t, t, d,
                                   [0, 1, 63, t], causal, False))
         for d in (36, 64):
-            cases.append((f"unaligned d={d}", 4, 128, d, [0, 1, 63, 128],
-                          True, True))
-        for label, b, t, d, lens, causal, offset in cases:
+            cases.append((f"unaligned d={d}", 4, 128, 128, d,
+                          [0, 1, 63, 128], True, True))
+        # the fused mode's edge (Tk <= 128 and d <= 64), Tq != Tk
+        for tk in HALF_EDGE_TK:
+            for d in (36, 64, 128, 320):
+                for causal in (False, True):
+                    tq = max(1, tk - 5) if causal else tk + 37
+                    cases.append((f"Tq={tq} Tk={tk} d={d}", 3, tq, tk, d,
+                                  [0, 1, tk], causal, False))
+        for tk in (128, 129):
+            for d in (36, 64):
+                cases.append((f"unaligned Tq=100 Tk={tk} d={d}", 3, 100, tk,
+                              d, [0, 1, tk], True, True))
+        fused = 0
+        for label, b, t, tk, d, lens, causal, offset in cases:
             kern, plain, lt = half_case(b, t, d, lens, dt, seed=b + t + d,
-                                        dev=dev, offset=offset)
+                                        dev=dev, offset=offset, tk=tk)
             err = half_check(sfx, kern, plain, lt, causal,
                              f"{sfx} {label} causal={causal}")
             for k_ in err:
                 worst[sfx][k_] = max(worst[sfx][k_], err[k_])
+            fused += fb.fused(kern[0], kern[1])
             n += 1
-        print(f"  {sfx}: {len(cases)} cases (training and serving shapes at"
-              f" d=64, d in 36/128/320 at T 128/512, causal off/on, "
-              f"unaligned views), worst abs err fwd {worst[sfx]['fwd']:.3e},"
-              f" dq {worst[sfx]['dq']:.3e}, dk/dv {worst[sfx]['dkv']:.3e}")
+        line = (f"  {sfx}: {len(cases)} cases ({fused} on the fused mode; "
+                f"training and serving shapes at d=64, d in 36/128/320 at T "
+                f"128/512, Tk in {list(HALF_EDGE_TK)} at d in 36/64/128/"
+                f"320 with Tq != Tk, causal off/on, unaligned views)")
+        if dt == torch.float16:
+            for tk, d in ((128, 64), (200, 64), (128, 320), (200, 320)):
+                e = half_large_ds(tk, d, dev)
+                for k_ in ("dq", "dkv"):
+                    worst[sfx][k_] = max(worst[sfx][k_], e)
+                n += 1
+            line += " and 4 with |dS| > 65504 (Tk 128/200, d 64/320)"
+        probe = max(half_split_probe(dt, sfx, tk, dev) for tk in (128, 192))
+        n += 2
+        line += (f"; dq on keys 1 + e (Tk 128/192) within {probe:.3e} x "
+                 "max|dq|")
+        print(f"{line}, worst abs err fwd {worst[sfx]['fwd']:.3e}, dq "
+              f"{worst[sfx]['dq']:.3e}, dk/dv {worst[sfx]['dkv']:.3e}")
     print(f"phase 22 16-bit attention kernels vs plain: {n} cases within "
           f"2^-7 / 2^-10 x max|ref| (forward, bf16 / f16) and 2^-6 / 2^-9 "
           f"x max(max|g|, max|ref|) (dq, dk, dv), exact zeros past "
@@ -2248,25 +2359,32 @@ def phase_half_kernels(dev):
 
 
 def half_bounds(b, t, d, lens):
-    """Least times (ms) of the 16-bit forward, dq and dk/dv on these
-    inputs, as ``(ms, by)``.  Bytes (2 a 16-bit value, 4 an f32 one):
-    forward q, out, lse in full and k, v over the valid keys; dq adds g
-    and out in, delta out; dk/dv reads q, g, lse, delta, writes dk, dv.
-    Operations per attended (query, key) pair: 16-bit MMAs at 989e12
-    flop/s, 4 d (forward: S and P V; dq and dk/dv: S and dP), and the
-    two-term TF32 products at 495e12, 2 x 2 d for dq (dS K) and 2 x 4 d
-    for dk/dv (P^T G, dS^T Q)."""
+    """Least times (ms) of the 16-bit forward, dq, dk/dv and the fused
+    backward on these inputs, as ``(ms, by, bytes)``.  Bytes (2 a 16-bit
+    value, 4 an f32 one), each input read once and each output written
+    once: the forward reads q, lse's rows and k, v over the valid keys
+    and writes out; dq reads q, g, out, lse and those keys' k, v and
+    writes dq and delta; dk/dv reads q, g, lse, delta and the keys' k, v
+    and writes dk, dv; the fused backward (Tk <= 128, d <= 64, one
+    launch) reads q, g, out, lse and the keys' k, v and writes dq, dk,
+    dv, delta staying in the block.  Operations per attended (query,
+    key) pair, all 16-bit MMAs at 989e12 flop/s, as the d <= 64 kernels
+    run them: S and dP (the forward: S and P V) exact, 2 d each; each
+    product of an f32 operand with a 16-bit one (dS K, dS^T Q, P^T G)
+    2 x 2 d, the two terms of its split.  dq does S, dP and dS K (8 d);
+    dk/dv S, dP, P^T G, dS^T Q (12 d); the fused backward all five once
+    (16 d)."""
     keys = sum(min(x, t) for x in lens) * H
     rows = b * H * t
     pairs = t * keys
     kv = 2 * keys * d * 2
+    kv_out = 2 * b * H * t * d * 2
     nbytes = dict(fwd=2 * rows * d * 2 + rows * 4 + kv + b * 4,
                   dq=4 * rows * d * 2 + 2 * rows * 4 + kv + b * 4,
-                  dkv=2 * rows * d * 2 + 2 * rows * 4 + kv + 2 * b * H * t
-                  * d * 2 + b * 4)
-    t16 = 4 * d * pairs / HALF_FLOP_PER_S
-    ops = dict(fwd=t16, dq=t16 + 2 * 2 * d * pairs / TF32_FLOP_PER_S,
-               dkv=t16 + 2 * 4 * d * pairs / TF32_FLOP_PER_S)
+                  dkv=2 * rows * d * 2 + 2 * rows * 4 + kv + kv_out + b * 4,
+                  fused=4 * rows * d * 2 + rows * 4 + kv + kv_out + b * 4)
+    ops = {k_: n * d * pairs / HALF_FLOP_PER_S
+           for k_, n in dict(fwd=4, dq=8, dkv=12, fused=16).items()}
     out = {}
     for k_ in nbytes:
         tb, to = nbytes[k_] / HBM_BYTES_PER_S * 1e3, ops[k_] * 1e3
@@ -2276,7 +2394,9 @@ def half_bounds(b, t, d, lens):
 
 
 def time_half(dt, sfx, shape, dev):
-    """Device times (profiler) of the 16-bit forward, dq and dk/dv beside
+    """Device times (profiler) of the 16-bit forward and of what
+    ``flash_attention_bwd`` launches on this shape's path (the fused
+    dk/dv kernel alone where Tk <= 128, else dq, then dk/dv) beside
     SDPA's forward and backward in the same type and key lengths, the
     plain versions (CUDA events) and the bounds."""
     from mxnet_tpu_torch.kernels import flash_bwd as fb
@@ -2298,16 +2418,21 @@ def time_half(dt, sfx, shape, dev):
                        .to(dt).to(dev) for _ in range(4))
         out, lse = att.flash_attention(q, k, v, kv_valid_length=lt,
                                        return_lse=True)
-        _, delta = fb.launch_dq(q, k, v, go, out, lse, lt, False, scale)
-        bufs.append((q, k, v, go, out, lse, delta))
+        bufs.append([q, k, v, go, out, lse])
         leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
         graphs.append((leaves, F.scaled_dot_product_attention(
             *leaves, attn_mask=mask), go))
-    fns = dict(
-        fwd=lambda i: att.flash_attention(*bufs[i][:3], kv_valid_length=lt),
-        dq=lambda i: fb.launch_dq(*bufs[i][:6], lt, False, scale),
-        dkv=lambda i: fb.launch_dkv(*bufs[i][:4], bufs[i][5], bufs[i][6],
-                                    lt, False, scale))
+    fused = fb.fused(bufs[0][0], bufs[0][1])
+    fns = dict(fwd=lambda i: att.flash_attention(*bufs[i][:3],
+                                                 kv_valid_length=lt))
+    if fused:
+        fns["fused"] = lambda i: fb.launch_fused(*bufs[i], lt, False, scale)
+    else:
+        for buf in bufs:
+            buf.append(fb.launch_dq(*buf, lt, False, scale)[1])
+        fns["dq"] = lambda i: fb.launch_dq(*bufs[i][:6], lt, False, scale)
+        fns["dkv"] = lambda i: fb.launch_dkv(*bufs[i][:4], bufs[i][5],
+                                             bufs[i][6], lt, False, scale)
     dev_ms = {k_: device_ms_per_call(fn, nbuf) for k_, fn in fns.items()}
     lib = dict(
         fwd=device_ms_per_call(lambda i: F.scaled_dot_product_attention(
@@ -2322,7 +2447,7 @@ def time_half(dt, sfx, shape, dev):
             *bufs[i][:6], lt, False, scale), nbuf, iters=5, reps=3))
     bnds = half_bounds(b, t, d, lens)
     rows = {}
-    for k_ in ("fwd", "dq", "dkv"):
+    for k_ in fns:
         bnd, by, nbytes = bnds[k_]
         rows[k_] = dict(
             shape=dict(B=b, H=H, T=t, d=d, kv_len=[min(lens), max(lens)],
@@ -2335,11 +2460,13 @@ def time_half(dt, sfx, shape, dev):
               f"{bnd:.4f} ms ({by}; {nbytes} B), plain "
               f"{rows[k_]['plain_ms']:.4f} ms (events"
               f"{'' if k_ == 'fwd' else ', dq dk dv together'})")
-    whole = dev_ms["dq"] + dev_ms["dkv"]
+    whole = sum(v_ for k_, v_ in dev_ms.items() if k_ != "fwd")
     print(f"  time {sfx} {shape}: SDPA ({sfx}, boolean key-padding mask) "
           f"forward {lib['fwd']:.4f} ms against {dev_ms['fwd']:.4f}; "
-          f"backward {lib['bwd']:.4f} ms against dq + dk/dv {whole:.4f} "
-          f"(device time, profiler); {nbuf} input copies")
+          f"backward {lib['bwd']:.4f} ms against "
+          f"{'the fused dk/dv launch' if fused else 'dq + dk/dv'} "
+          f"{whole:.4f} (device time, profiler); {nbuf} input copies")
+    rows["whole_bwd_ms"] = whole
     return rows
 
 
@@ -2354,7 +2481,8 @@ def train_half(dev, card, dt, sfx, f32):
     """Phases 24 (bf16) and 25 (f16, dynamic loss scaling): BERT-base
     pretraining at bench_bert_base's settings through ShardedTrainer
     (adamw, lr 1e-4, wd 0.01, dropout 0.1, compute_dtype), 2 warm and 20
-    timed steps on phase 11's batch."""
+    timed steps on phase 11's batch, then 2 warm and 3 timed steps of
+    PRETRAIN_512's rows of 512 tokens."""
     from mxnet_tpu_torch import random as mxrandom
     from mxnet_tpu_torch.gluon.model_zoo.bert import pretrain_loss
     from mxnet_tpu_torch.parallel import ShardedTrainer
@@ -2368,13 +2496,10 @@ def train_half(dev, card, dt, sfx, f32):
                           PRETRAIN["masked"], seed=21)
     steps = 20
     losses, p50, wall, launches, peak = timed_steps(tr, x, y, dev, steps)
-    for name in ("flash_attention", "flash_attention_bwd_dq",
-                 "flash_attention_bwd_dkv"):
-        check(launches[f"{name}.{sfx}"] == 12 * steps,
-              f"{name}.{sfx}: {launches[f'{name}.{sfx}']} launches in "
-              f"{steps} steps, want 12 a step")
-    check(not any(v for k, v in launches.items() if "." not in k),
-          f"an f32 kernel launched in a {sfx} step: {launches}")
+    # T = 128: the backward is the dk/dv kernel's fused mode alone
+    half_launches(launches, sfx, steps, dict(flash_attention=12,
+                                             flash_attention_bwd_dq=0,
+                                             flash_attention_bwd_dkv=12))
     vals = [float(v) for v in losses]
     check(all(math.isfinite(v) for v in vals), f"non-finite loss: {vals}")
     check(vals[-1] < vals[0], f"loss did not fall: {vals[0]} -> {vals[-1]}")
@@ -2390,6 +2515,25 @@ def train_half(dev, card, dt, sfx, f32):
           f"{len(vals)}); loss scale {tr.loss_scale:g}, skipped "
           f"{tr.skipped_steps}; launches over {steps} steps: "
           f"{out['launches']}")
+    # BERT's second pretraining phase runs rows of 512 (Devlin et al.
+    # 2019: 90% of the steps at 128, 10% at 512): past 128 keys the
+    # backward is dq, then dk/dv
+    b5, t5, p5 = PRETRAIN_512["batch"], PRETRAIN_512["seq"], \
+        PRETRAIN_512["masked"]
+    x5, y5 = pretrain_batch(b5, t5, p5, seed=23)
+    n5 = PRETRAIN_512["steps"]
+    l5, p50_5, _, launches5, _ = timed_steps(tr, x5, y5, dev, n5)
+    half_launches(launches5, sfx, n5, dict(flash_attention=12,
+                                           flash_attention_bwd_dq=12,
+                                           flash_attention_bwd_dkv=12))
+    l5 = [float(v) for v in l5]
+    check(all(math.isfinite(v) for v in l5), f"T=512: non-finite loss {l5}")
+    out["seq512"] = dict(batch=b5, seq=t5, masked=p5, steps=n5,
+                         step_p50_ms=p50_5, losses=l5,
+                         launches={k: v for k, v in launches5.items() if v})
+    print(f"  then {n5} steps of B={b5}, T={t5} ({p5} masked): loss "
+          f"{l5[-1]:.4f}, step p50 {p50_5:.3f} ms; launches "
+          f"{out['seq512']['launches']}")
     print(f"  {sfx} {sps:.2f} samples/s, step p50 {p50:.3f} ms, peak "
           f"{peak / 2**30:.2f} GiB against phase 11's f32 (adam) "
           f"{f32['samples_per_s']:.2f} samples/s, {f32['step_p50_ms']:.3f} "
@@ -2397,6 +2541,17 @@ def train_half(dev, card, dt, sfx, f32):
           f"{sps / f32['samples_per_s']:.3f} samples/s)")
     del tr, net
     return out
+
+
+def half_launches(launches, sfx, steps, per_step):
+    """Every 16-bit attention kernel launched ``per_step[name]`` times a
+    step and no f32 kernel at all."""
+    for name, n in per_step.items():
+        got = launches[f"{name}.{sfx}"]
+        check(got == n * steps, f"{name}.{sfx}: {got} launches in {steps} "
+              f"steps, want {n} a step")
+    check(not any(v for k, v in launches.items() if "." not in k),
+          f"an f32 kernel launched in a {sfx} step: {launches}")
 
 
 def phase_train_bf16(dev, card, f32):
@@ -2643,30 +2798,47 @@ def main() -> int:
             main_path_shape="ExtLeNet, B=64: 64x1x28x28 (axpb), 64x500 "
                             "(squared ReLU)"))
     for sfx, run in (("bf16", train_bf16), ("f16", train_fp16)):
-        for name, key in (("flash_attention", "fwd"),
-                          ("flash_attention_bwd_dq", "dq"),
-                          ("flash_attention_bwd_dkv", "dkv")):
+        # each kernel's row at the shape of its main path: the forward
+        # and the fused dk/dv launch at the training shape (T = 128), dq
+        # at T = 512 (the serving shape's times; the 512-token phase's
+        # launches), with the two-launch dk/dv there beside it
+        for name, key, shape in (("flash_attention", "fwd", "train"),
+                                 ("flash_attention_bwd_dq", "dq", "serve"),
+                                 ("flash_attention_bwd_dkv", "fused",
+                                  "train")):
             full = f"{name}.{sfx}"
             src, replaces = registry.KERNELS[full]
-            row = half_times[sfx]["train"][key]
+            row = half_times[sfx][shape][key]
+            n128 = run["launches"].get(full, 0)
+            n512 = run["seq512"]["launches"].get(full, 0)
             kernels.append(dict(
                 name=full, variant=sfx, route="cuda",
                 source=f"mxnet_tpu_torch/csrc/{src}", replaces=replaces,
-                launches=run["launches"][full],
-                max_abs_err=half_worst[sfx][key], ms=row["ms"],
+                launches=n128 + n512, launches_seq128=n128,
+                launches_seq512=n512,
+                max_abs_err=half_worst[sfx]["dkv" if key == "fused"
+                                            else key], ms=row["ms"],
                 time_by="device time (profiler)", plain_ms=row["plain_ms"],
                 plain="events" + ("" if key == "fwd" else
                                   ", dq dk dv together"),
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 bound_note="max(bytes / 3.35e12, 16-bit MMA flops / "
-                           "989e12 + two-term TF32 flops / 495e12)",
+                           "989e12): S, dP exact, each f32 x 16-bit "
+                           "product as two 16-bit MMAs",
                 library_ms=row["library_ms"],
                 library=f"scaled_dot_product_attention ({sfx}, boolean "
                         "key-padding mask), " + ("forward" if key == "fwd"
                                                   else "backward, dq dk dv "
                                                   "together") + ", device "
                         "time", shape=row["shape"],
-                serve=half_times[sfx]["serve"][key]))
+                mode=("fused: dq, dk and dv in one launch" if key == "fused"
+                      else None),
+                **({"two_launch_dkv": half_times[sfx]["serve"]["dkv"],
+                    "serve_whole_bwd_ms":
+                        half_times[sfx]["serve"]["whole_bwd_ms"]}
+                   if key == "fused" else {}),
+                **({"serve": half_times[sfx]["serve"]["fwd"]}
+                   if key == "fwd" else {})))
     print(f"end to end: f32 {f32['tokens_per_s']:.1f} tokens/s, int8 "
           f"{i8['tokens_per_s']:.1f} tokens/s, BERT-base "
           f"{bert['requests_per_s']:.1f} requests/s, BERT-base training "

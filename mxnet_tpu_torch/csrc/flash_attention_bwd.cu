@@ -101,16 +101,32 @@
 // The TPU kernels cast every operand to f32 and multiply in f32, so:
 // S = Q K^T and dP = G V^T (dk/dv: K Q^T and V G^T), whose operands are
 // all 16-bit, are one exact `mma.sync.m16n8k16` a product; dS K, dS^T Q
-// and P^T G, where P and dS are f32, are two TF32 MMAs, a_hi b + a_lo b
-// (the 16-bit b is exact in TF32, tf32x3.cuh), reading b by transposed
-// `ldmatrix` in the permuted depth order of the accumulator fragment.
-// delta = rowsum(g * out) in f32 (exact products) in the dq kernel;
-// dq, dk and dv are rounded to 16 bits once, at the end.  Tiles: 64 owned
-// rows (4 warps of 16), 64-row streamed tiles.  d <= 64 keeps the owned
-// rows in shared memory and double-buffers the streamed ones by
-// `cp.async` (55-56 KB); d > 64 runs WIDE (slabs of 64 for the
-// contractions over d, groups of 64 output columns over the grid's second
-// axis, synchronous loads).
+// and P^T G, where P and dS are f32, split P and dS in the inputs' own
+// type, x = hi + lo (16 mantissa bits of x in bf16, 22 in f16), and run
+// two m16n8k16 MMAs, lo b + hi b, the 16-bit b read by `ldmatrix` and not
+// converted: half the tensor-core time of two TF32 MMAs.  f16 tops out at
+// 65504, and dS under a loss scale does not, so in f16 dS is scaled by an
+// exact power of two first (its largest |dS| below 2^15) and the
+// accumulators unscaled at the end (tf32x3.cuh, "f16's range").  dq, dk
+// and dv are rounded to 16 bits once, at the end; delta = rowsum(g * out)
+// in f32.  For d <= 64 (BERT's 64):
+//   Tk <= 128: one launch of the dk/dv kernel in its fused mode.  A block
+//     owns every key of a head (8 warps of 16 keys) and walks its query
+//     tiles (64): per tile it forms delta from g and out, S^T, dP^T, P
+//     and dS once, dV and dK in registers, and writes dS^T (hi, lo) to
+//     shared memory, from which the eight warps compute the tile's dQ =
+//     dS K whole, one tile later (no dQ sum across blocks, no atomics,
+//     no delta in memory: five products, each input read once).  The
+//     grid is persistent: a block walks heads, and the next head's K, V
+//     and first query tile load while its last tile computes.
+//   Tk > 128: the dq kernel (128 query rows, 64-key tiles, delta in its
+//     prologue), then the dk/dv kernel (128 keys, 64-query tiles), each
+//     streaming through a two-stage `cp.async` ring.
+// Every 16-bit operand is read by `ldmatrix`, and every output tile is
+// staged in shared memory and stored by 16-byte rows.  d > 64 runs the
+// WIDE forms (two-term TF32 products; slabs of 64 for the contractions
+// over d, groups of 64 output columns over the grid's second axis,
+// synchronous loads), as the f32 kernels' wide path does.
 
 #include "tf32x3.cuh"
 
@@ -872,29 +888,27 @@ struct Bwd16Args {
   int H, Tq, Tk, d, causal;
   float scale;
   int mode;                              // elements a copy moves (mode16)
+  int BH;                                // B * H
 };
 
-constexpr int B16_BM = 64, B16_BN = 64, B16_NT = 128;
+constexpr float kLog2e = 1.4426950408889634f;
 
-// 16-bit tiles (two owned, two streamed: two stages each unless WIDE),
-// and for dk/dv the stages' lse and delta.
-template <bool WIDE, bool DKV>
-constexpr size_t bwd16_smem() {
-  return 2 * (size_t)DS16 * (2 * B16_BM + (WIDE ? 2 : 4) * B16_BN) +
-         (DKV && !WIDE ? 4 * 4 * B16_BN : 0);
-}
+// ---- d > 64: the WIDE forms.  64 owned rows (4 warps of 16), 64-row
+// streamed tiles, synchronous loads of 64-column slabs for the
+// contractions over d, 64-column output groups over the grid's second
+// axis (each group recomputes its scores), two-term TF32 products.
+constexpr int W16_BM = 64, W16_BN = 64, W16_NT = 128;
+constexpr size_t W16_SMEM = 2 * (size_t)DS16 * (2 * W16_BM + 2 * W16_BN);
 
-template <typename T, bool WIDE>
-__global__ void __launch_bounds__(B16_NT)
-flash_bwd16_dq_kernel(const Bwd16Args a) {
-  constexpr int BM = B16_BM, BN = B16_BN, NT = B16_NT, NB = BN / 8, NJ = 8;
-  constexpr int ST = WIDE ? 1 : 2;
-  static_assert(BN >= BM, "the out rows borrow a stage");
+template <typename T>
+__global__ void __launch_bounds__(W16_NT)
+flash_bwd16_dq_wide_kernel(const Bwd16Args a) {
+  constexpr int BM = W16_BM, BN = W16_BN, NT = W16_NT, NB = BN / 8, NJ = 8;
   extern __shared__ __align__(16) uint16_t sm16[];
   uint16_t* sq = sm16;
   uint16_t* sg = sq + BM * DS16;
   uint16_t* sk = sg + BM * DS16;
-  uint16_t* sv = sk + ST * BN * DS16;
+  uint16_t* sv = sk + BN * DS16;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, gq = lane >> 2, tq = lane & 3;
@@ -917,48 +931,22 @@ flash_bwd16_dq_kernel(const Bwd16Args a) {
   const uint16_t* vb = a.v + koff * d;
   const int qa = q0 + r0 + gq;  // this thread's rows: qa and qa + 8
 
-  // delta of rows qa, qa + 8 in f32, each sum in a fixed order
+  // delta of rows qa, qa + 8 in f32, a quad's lanes over columns tq,
+  // tq + 4, .., each sum in a fixed order
   float dl0 = 0.f, dl1 = 0.f;
-  if constexpr (!WIDE) {
-    uint16_t* so = sk + BN * DS16;  // the out rows borrow stage 1
-    load_tile16<BM, NT>(sq, qb, q0, Tq, d, 0, d, 64, mode, tid);
-    load_tile16<BM, NT>(sg, gb, q0, Tq, d, 0, d, 64, mode, tid);
-    load_tile16<BM, NT>(so, a.out + qoff * d, q0, Tq, d, 0, d, 64, mode,
-                        tid);
-    cp_commit();
-    if (ntiles > 0) {
-      load_tile16<BN, NT>(sk, kb, 0, kv_end, d, 0, d, 64, mode, tid);
-      load_tile16<BN, NT>(sv, vb, 0, kv_end, d, 0, d, 64, mode, tid);
-    }
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    // lane pair (2r, 2r+1) sums row r, a half of the columns each
-    const int rr = lane >> 1, h = lane & 1;
-    const uint16_t* gr = sg + (r0 + rr) * DS16 + 32 * h;
-    const uint16_t* orow = so + (r0 + rr) * DS16 + 32 * h;
-    float sum = 0.f;
-    for (int c = 0; c < 32; ++c)
-      sum = fmaf(float16<T>(gr[c]), float16<T>(orow[c]), sum);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    dl0 = __shfl_sync(0xffffffffu, sum, 2 * gq);
-    dl1 = __shfl_sync(0xffffffffu, sum, 2 * gq + 16);
-  } else {
-    // a quad's lanes over columns tq, tq + 4, ..
-    const uint16_t* ob = a.out + qoff * d;
-    if (qa < Tq)
-      for (int c = tq; c < d; c += 4)
-        dl0 = fmaf(float16<T>(gb[(size_t)qa * d + c]),
-                   float16<T>(ob[(size_t)qa * d + c]), dl0);
-    if (qa + 8 < Tq)
-      for (int c = tq; c < d; c += 4)
-        dl1 = fmaf(float16<T>(gb[(size_t)(qa + 8) * d + c]),
-                   float16<T>(ob[(size_t)(qa + 8) * d + c]), dl1);
+  const uint16_t* ob = a.out + qoff * d;
+  if (qa < Tq)
+    for (int c = tq; c < d; c += 4)
+      dl0 = fmaf(float16<T>(gb[(size_t)qa * d + c]),
+                 float16<T>(ob[(size_t)qa * d + c]), dl0);
+  if (qa + 8 < Tq)
+    for (int c = tq; c < d; c += 4)
+      dl1 = fmaf(float16<T>(gb[(size_t)(qa + 8) * d + c]),
+                 float16<T>(ob[(size_t)(qa + 8) * d + c]), dl1);
 #pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      dl0 += __shfl_xor_sync(0xffffffffu, dl0, o);
-      dl1 += __shfl_xor_sync(0xffffffffu, dl1, o);
-    }
+  for (int o = 1; o <= 2; o <<= 1) {
+    dl0 += __shfl_xor_sync(0xffffffffu, dl0, o);
+    dl1 += __shfl_xor_sync(0xffffffffu, dl1, o);
   }
   if (blockIdx.y == 0 && tq == 0) {
     if (qa < Tq) a.delta[qoff + qa] = dl0;
@@ -978,48 +966,25 @@ flash_bwd16_dq_kernel(const Bwd16Args a) {
   for (int it = 0; it < ntiles; ++it) {
     const int k0 = it * BN;
     const bool live = warp_live && k0 < w_end;
-    const uint16_t* kt = sk;
-    const uint16_t* vt = sv;
-    if constexpr (!WIDE) {
-      cp_wait<0>();
-      __syncthreads();  // tile `it` landed; stage it + 1's readers are done
-      const int st = it & 1;
-      kt = sk + st * BN * DS16;
-      vt = sv + st * BN * DS16;
-      if (it + 1 < ntiles) {
-        const int nx = (st ^ 1) * BN * DS16;
-        load_tile16<BN, NT>(sk + nx, kb, k0 + BN, kv_end, d, 0, d, 64, mode,
-                            tid);
-        load_tile16<BN, NT>(sv + nx, vb, k0 + BN, kv_end, d, 0, d, 64, mode,
-                            tid);
-      }
-      cp_commit();
-      if (!live) continue;
-    }
     float s[NB][4], dpv[NB][4];
 #pragma unroll
     for (int j = 0; j < NB; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dpv[j][e] = 0.f;
-    if constexpr (WIDE) {
-      for (int cs = 0; cs < d; cs += 64) {
-        const int n = min(64, d - cs);
-        __syncthreads();
-        load_tile16<BM, NT>(sq, qb, q0, Tq, d, cs, n, 64, mode, tid);
-        load_tile16<BM, NT>(sg, gb, q0, Tq, d, cs, n, 64, mode, tid);
-        load_tile16<BN, NT>(sk, kb, k0, kv_end, d, cs, n, 64, mode, tid);
-        load_tile16<BN, NT>(sv, vb, k0, kv_end, d, cs, n, 64, mode, tid);
-        cp_commit();
-        cp_wait<0>();
-        __syncthreads();
-        if (live) {
-          scores16<T, NB>(s, sq + r0 * DS16, sk, gq, tq);
-          scores16<T, NB>(dpv, sg + r0 * DS16, sv, gq, tq);
-        }
+    for (int cs = 0; cs < d; cs += 64) {
+      const int n = min(64, d - cs);
+      __syncthreads();
+      load_tile16<BM, NT>(sq, qb, q0, Tq, d, cs, n, 64, mode, tid);
+      load_tile16<BM, NT>(sg, gb, q0, Tq, d, cs, n, 64, mode, tid);
+      load_tile16<BN, NT>(sk, kb, k0, kv_end, d, cs, n, 64, mode, tid);
+      load_tile16<BN, NT>(sv, vb, k0, kv_end, d, cs, n, 64, mode, tid);
+      cp_commit();
+      cp_wait<0>();
+      __syncthreads();
+      if (live) {
+        scores16<T, NB>(s, sq + r0 * DS16, sk, gq, tq);
+        scores16<T, NB>(dpv, sg + r0 * DS16, sv, gq, tq);
       }
-    } else {
-      scores16<T, NB>(s, sq + r0 * DS16, kt, gq, tq);
-      scores16<T, NB>(dpv, sg + r0 * DS16, vt, gq, tq);
     }
     if (live) {
 #pragma unroll
@@ -1035,49 +1000,43 @@ flash_bwd16_dq_kernel(const Bwd16Args a) {
           s[j][e] = ok ? p * (dpv[j][e] - ((e >> 1) ? dl1 : dl0)) : 0.f;
         }
     }
-    if constexpr (WIDE) {  // this group's columns of the key tile
-      __syncthreads();
-      load_tile16<BN, NT>(sk, kb, k0, kv_end, d, c0, nc, 64, mode, tid);
-      cp_commit();
-      cp_wait<0>();
-      __syncthreads();
-    }
+    __syncthreads();  // this group's columns of the key tile
+    load_tile16<BN, NT>(sk, kb, k0, kv_end, d, c0, nc, 64, mode, tid);
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
     // acc += dS K, 8 keys at a time (dS is 0 at every masked key)
     if (live) {
 #pragma unroll
       for (int j = 0; j < NB; ++j)
-        mma2_c16<T, NJ>(acc, s[j], kt + j * 8 * DS16, lane);
+        mma2_c16<T, NJ>(acc, s[j], sk + j * 8 * DS16, lane);
     }
   }
-  cp_wait<0>();
 
   const bool vec2 = d % 2 == 0 && aligned_to(a.dq, 4);
-  uint16_t* ob = a.dq + qoff * d + c0;
+  uint16_t* dqb = a.dq + qoff * d + c0;
 #pragma unroll
   for (int n = 0; n < NJ; ++n) {
     const int col = n * 8 + 2 * tq;
     if (col >= nc) continue;
     if (qa < Tq)
-      store_pair16<T>(ob + (size_t)qa * d + col, acc[n][0] * a.scale,
+      store_pair16<T>(dqb + (size_t)qa * d + col, acc[n][0] * a.scale,
                       acc[n][1] * a.scale, col, nc, vec2);
     if (qa + 8 < Tq)
-      store_pair16<T>(ob + (size_t)(qa + 8) * d + col, acc[n][2] * a.scale,
+      store_pair16<T>(dqb + (size_t)(qa + 8) * d + col, acc[n][2] * a.scale,
                       acc[n][3] * a.scale, col, nc, vec2);
   }
 }
 
-template <typename T, bool WIDE>
-__global__ void __launch_bounds__(B16_NT)
-flash_bwd16_dkv_kernel(const Bwd16Args a) {
-  constexpr int BM = B16_BM, BN = B16_BN, NT = B16_NT, NB = BN / 8, NJ = 8;
-  constexpr int ST = WIDE ? 1 : 2;
+template <typename T>
+__global__ void __launch_bounds__(W16_NT)
+flash_bwd16_dkv_wide_kernel(const Bwd16Args a) {
+  constexpr int BM = W16_BM, BN = W16_BN, NT = W16_NT, NB = BN / 8, NJ = 8;
   extern __shared__ __align__(16) uint16_t sm16[];
   uint16_t* sk = sm16;
   uint16_t* sv = sk + BM * DS16;
   uint16_t* sq = sv + BM * DS16;
-  uint16_t* sg = sq + ST * BN * DS16;
-  float* sl = reinterpret_cast<float*>(sg + ST * BN * DS16);  // 2 stages
-  float* sd = sl + 2 * BN;
+  uint16_t* sg = sq + BN * DS16;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, gq = lane >> 2, tq = lane & 3;
@@ -1112,18 +1071,6 @@ flash_bwd16_dkv_kernel(const Bwd16Args a) {
   const float* lb = a.lse + qoff;
   const float* db = a.delta + qoff;
 
-  if constexpr (!WIDE) {
-    load_tile16<BM, NT>(sk, kb, k0, kv_end, d, 0, d, 64, mode, tid);
-    load_tile16<BM, NT>(sv, vb, k0, kv_end, d, 0, d, 64, mode, tid);
-    if (ntiles > 0) {
-      load_tile16<BN, NT>(sq, qb, i_begin, Tq, d, 0, d, 64, mode, tid);
-      load_tile16<BN, NT>(sg, gb, i_begin, Tq, d, 0, d, 64, mode, tid);
-      load_vec<NT>(sl, lb, i_begin, BN, Tq, tid);
-      load_vec<NT>(sd, db, i_begin, BN, Tq, (tid + BN) % NT);
-    }
-    cp_commit();
-  }
-
   const int ka = k0 + r0 + gq;  // this thread's key rows: ka and ka + 8
   const bool warp_live = k0 + r0 < kv_end;
   float acck[NJ][4], accv[NJ][4];
@@ -1135,54 +1082,25 @@ flash_bwd16_dkv_kernel(const Bwd16Args a) {
   for (int it = 0; it < ntiles; ++it) {
     const int i0 = i_begin + it * BN;
     const bool live = warp_live && !(a.causal && i0 + BN <= k0 + r0);
-    const uint16_t* qt = sq;
-    const uint16_t* gt = sg;
-    const float* lt = sl;
-    const float* dt = sd;
-    if constexpr (!WIDE) {
-      cp_wait<0>();
-      __syncthreads();  // tile `it` landed; stage it + 1's readers are done
-      const int st = it & 1;
-      qt = sq + st * BN * DS16;
-      gt = sg + st * BN * DS16;
-      lt = sl + st * BN;
-      dt = sd + st * BN;
-      if (it + 1 < ntiles) {
-        const int nx = st ^ 1, i1 = i0 + BN;
-        load_tile16<BN, NT>(sq + nx * BN * DS16, qb, i1, Tq, d, 0, d, 64,
-                            mode, tid);
-        load_tile16<BN, NT>(sg + nx * BN * DS16, gb, i1, Tq, d, 0, d, 64,
-                            mode, tid);
-        load_vec<NT>(sl + nx * BN, lb, i1, BN, Tq, tid);
-        load_vec<NT>(sd + nx * BN, db, i1, BN, Tq, (tid + BN) % NT);
-      }
-      cp_commit();
-      if (!live) continue;
-    }
     float s[NB][4], dpv[NB][4];
 #pragma unroll
     for (int j = 0; j < NB; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dpv[j][e] = 0.f;
-    if constexpr (WIDE) {
-      for (int cs = 0; cs < d; cs += 64) {
-        const int n = min(64, d - cs);
-        __syncthreads();
-        load_tile16<BM, NT>(sk, kb, k0, kv_end, d, cs, n, 64, mode, tid);
-        load_tile16<BM, NT>(sv, vb, k0, kv_end, d, cs, n, 64, mode, tid);
-        load_tile16<BN, NT>(sq, qb, i0, Tq, d, cs, n, 64, mode, tid);
-        load_tile16<BN, NT>(sg, gb, i0, Tq, d, cs, n, 64, mode, tid);
-        cp_commit();
-        cp_wait<0>();
-        __syncthreads();
-        if (live) {
-          scores16<T, NB>(s, sk + r0 * DS16, sq, gq, tq);
-          scores16<T, NB>(dpv, sv + r0 * DS16, sg, gq, tq);
-        }
+    for (int cs = 0; cs < d; cs += 64) {
+      const int n = min(64, d - cs);
+      __syncthreads();
+      load_tile16<BM, NT>(sk, kb, k0, kv_end, d, cs, n, 64, mode, tid);
+      load_tile16<BM, NT>(sv, vb, k0, kv_end, d, cs, n, 64, mode, tid);
+      load_tile16<BN, NT>(sq, qb, i0, Tq, d, cs, n, 64, mode, tid);
+      load_tile16<BN, NT>(sg, gb, i0, Tq, d, cs, n, 64, mode, tid);
+      cp_commit();
+      cp_wait<0>();
+      __syncthreads();
+      if (live) {
+        scores16<T, NB>(s, sk + r0 * DS16, sq, gq, tq);
+        scores16<T, NB>(dpv, sv + r0 * DS16, sg, gq, tq);
       }
-    } else {
-      scores16<T, NB>(s, sk + r0 * DS16, qt, gq, tq);
-      scores16<T, NB>(dpv, sv + r0 * DS16, gt, gq, tq);
     }
     if (live) {
 #pragma unroll
@@ -1190,40 +1108,34 @@ flash_bwd16_dkv_kernel(const Bwd16Args a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kpos = ka + (e >> 1) * 8;
-          const int col = j * 8 + 2 * tq + (e & 1);
-          const int qpos = i0 + col;
+          const int qpos = i0 + j * 8 + 2 * tq + (e & 1);
           const bool ok =
               kpos < kv_end && qpos < Tq && (!a.causal || qpos >= kpos);
           float p = 0.f, ds = 0.f;
           if (ok) {
-            const float ls = WIDE ? lb[qpos] : lt[col];
-            const float dl = WIDE ? db[qpos] : dt[col];
-            p = expf(s[j][e] * a.scale - ls);
-            ds = p * (dpv[j][e] - dl);
+            p = expf(s[j][e] * a.scale - lb[qpos]);
+            ds = p * (dpv[j][e] - db[qpos]);
           }
           s[j][e] = p;
           dpv[j][e] = ds;
         }
     }
-    if constexpr (WIDE) {  // this group's columns of the query tile
-      __syncthreads();
-      load_tile16<BN, NT>(sq, qb, i0, Tq, d, c0, nc, 64, mode, tid);
-      load_tile16<BN, NT>(sg, gb, i0, Tq, d, c0, nc, 64, mode, tid);
-      cp_commit();
-      cp_wait<0>();
-      __syncthreads();
-    }
+    __syncthreads();  // this group's columns of the query tile
+    load_tile16<BN, NT>(sq, qb, i0, Tq, d, c0, nc, 64, mode, tid);
+    load_tile16<BN, NT>(sg, gb, i0, Tq, d, c0, nc, 64, mode, tid);
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
     // dV += P^T G and dK += dS^T Q, 8 queries at a time (P and dS are 0
     // at every masked query; rows past Tq are zeros)
     if (live) {
 #pragma unroll
       for (int j = 0; j < NB; ++j) {
-        mma2_c16<T, NJ>(accv, s[j], gt + j * 8 * DS16, lane);
-        mma2_c16<T, NJ>(acck, dpv[j], qt + j * 8 * DS16, lane);
+        mma2_c16<T, NJ>(accv, s[j], sg + j * 8 * DS16, lane);
+        mma2_c16<T, NJ>(acck, dpv[j], sq + j * 8 * DS16, lane);
       }
     }
   }
-  cp_wait<0>();
 
   // rows at or past kv_end get exact zeros, whatever was accumulated
   const bool vec2 =
@@ -1247,37 +1159,564 @@ flash_bwd16_dkv_kernel(const Bwd16Args a) {
   }
 }
 
-template <typename T, bool DKV>
-int launch_bwd16(const Bwd16Args& a, int B, cudaStream_t st) {
-  const bool wide = a.d > 64;
-  size_t smem;
-  void (*kern)(const Bwd16Args);
-  if constexpr (DKV) {
-    smem = wide ? bwd16_smem<true, true>() : bwd16_smem<false, true>();
-    kern = wide ? flash_bwd16_dkv_kernel<T, true>
-                : flash_bwd16_dkv_kernel<T, false>;
-  } else {
-    smem = wide ? bwd16_smem<true, false>() : bwd16_smem<false, false>();
-    kern = wide ? flash_bwd16_dq_kernel<T, true>
-                : flash_bwd16_dq_kernel<T, false>;
+// ---- d <= 64: 8 warps own 128 rows (16 each), padded to 64 columns in
+// shared memory; streamed tiles of 64 rows (both modes of dk/dv: 64
+// queries) through a two-stage `cp.async` ring.
+constexpr int R16_BM = 128, R16_BN = 64, R16_NT = 256;
+
+// The largest |x| of each of a thread's two rows over its quad (the four
+// lanes that hold a row), and the rows' exponents raised to it: every
+// accumulator row rescaled to the new exponent.
+template <int NJ>
+__device__ __forceinline__ void raise_rows(float m0, float m1, int& eb0,
+                                           int& eb1, float (&acc)[NJ][4]) {
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
   }
-  static int done[2][64] = {};
-  const int e = set_smem(kern, smem, done[wide]);
+  const int n0 = max(eb0, ebits(m0)), n1 = max(eb1, ebits(m1));
+  const float f0 = eb_rescale(eb0, n0), f1 = eb_rescale(eb1, n1);
+#pragma unroll
+  for (int n = 0; n < NJ; ++n) {
+    acc[n][0] *= f0;
+    acc[n][1] *= f0;
+    acc[n][2] *= f1;
+    acc[n][3] *= f1;
+  }
+  eb0 = n0;
+  eb1 = n1;
+}
+
+// dq (two-launch mode): a block owns 128 query rows and streams 64-key
+// tiles.  S = Q K^T and dP = G V^T with fragments by `ldmatrix`, then
+// dQ += dS K from the accumulators split in T (per-row scale under f16).
+// delta in the prologue from the block's g and out rows, written for the
+// dk/dv kernel.  Two blocks an SM (128 registers, a few spills): faster
+// at T = 512 than one block without spills (PERF.md).
+template <typename T>
+__global__ void __launch_bounds__(R16_NT, 2)
+flash_bwd16_dq_kernel(const Bwd16Args a) {
+  constexpr int BM = R16_BM, BN = R16_BN, NT = R16_NT, NB = BN / 8, NJ = 8;
+  constexpr bool SC = kF16<T>;
+  extern __shared__ __align__(16) uint16_t sm16[];
+  uint16_t* sq = sm16;
+  uint16_t* sg = sq + BM * DS16;
+  uint16_t* so = sg + BM * DS16;
+  uint16_t* sk = so + BM * DS16;  // 2 stages
+  uint16_t* sv = sk + 2 * BN * DS16;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int r0 = 16 * (tid >> 5);
+  const int Tq = a.Tq, d = a.d, mode = a.mode;
+  const int ntq = (Tq + BM - 1) / BM;
+  const int bhx = blockIdx.x / ntq;
+  const int q0 = (blockIdx.x - bhx * ntq) * BM;
+  const int nrows = min(BM, Tq - q0);
+
+  const size_t qoff = (size_t)bhx * Tq, koff = (size_t)bhx * a.Tk;
+  // the owned rows first: their copies need not wait for the key length
+  load_tile16<BM, NT>(sq, a.q + qoff * d, q0, Tq, d, 0, d, 64, mode, tid);
+  load_tile16<BM, NT>(sg, a.g + qoff * d, q0, Tq, d, 0, d, 64, mode, tid);
+  load_tile16<BM, NT>(so, a.out + qoff * d, q0, Tq, d, 0, d, 64, mode, tid);
+  cp_commit();
+  int kv_end = a.Tk;
+  if (a.kv_len != nullptr) kv_end = min(kv_end, max(0, a.kv_len[bhx / a.H]));
+  if (a.causal) kv_end = min(kv_end, q0 + nrows);
+  const int ntiles = (kv_end + BN - 1) / BN;
+  const uint16_t* kb = a.k + koff * d;
+  const uint16_t* vb = a.v + koff * d;
+  const int qa = q0 + r0 + gq;  // this thread's rows: qa and qa + 8
+
+  if (ntiles > 0) {
+    load_tile16<BN, NT>(sk, kb, 0, kv_end, d, 0, d, 64, mode, tid);
+    load_tile16<BN, NT>(sv, vb, 0, kv_end, d, 0, d, 64, mode, tid);
+  }
+  cp_commit();
+  cp_wait<1>();
+  __syncthreads();
+  // delta of rows qa, qa + 8 in f32: lane pair (2r, 2r+1) sums row r of
+  // the warp, a half of the columns each, in a fixed order
+  float dl0, dl1;
+  {
+    const int rr = lane >> 1, h = lane & 1;
+    const uint16_t* gr = sg + (r0 + rr) * DS16 + 32 * h;
+    const uint16_t* orow = so + (r0 + rr) * DS16 + 32 * h;
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < 32; c += 2) {
+      const float2 x = unpack_f2<T>(ld32(gr + c));
+      const float2 y = unpack_f2<T>(ld32(orow + c));
+      sum = fmaf(x.x, y.x, sum);
+      sum = fmaf(x.y, y.y, sum);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    dl0 = __shfl_sync(0xffffffffu, sum, 2 * gq);
+    dl1 = __shfl_sync(0xffffffffu, sum, 2 * gq + 16);
+  }
+  if (tq == 0) {
+    if (qa < Tq) a.delta[qoff + qa] = dl0;
+    if (qa + 8 < Tq) a.delta[qoff + qa + 8] = dl1;
+  }
+  // lse in log2 units: p = 2^(s scale log2(e) - lse log2(e))
+  const float ls0 = qa < Tq ? a.lse[qoff + qa] * kLog2e : 0.f;
+  const float ls1 = qa + 8 < Tq ? a.lse[qoff + qa + 8] * kLog2e : 0.f;
+  const float sl2 = a.scale * kLog2e;
+  const int w_end = a.causal ? min(kv_end, q0 + r0 + 16) : kv_end;
+  const bool warp_live = q0 + r0 < Tq;
+
+  float acc[NJ][4];
+#pragma unroll
+  for (int n = 0; n < NJ; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  int eb0 = kEbMin, eb1 = kEbMin;  // f16: the rows' exponents
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * BN, st = it & 1;
+    cp_wait<0>();
+    __syncthreads();  // tile `it` landed; stage it + 1's readers are done
+    if (it + 1 < ntiles) {
+      const int nx = (st ^ 1) * BN * DS16;
+      load_tile16<BN, NT>(sk + nx, kb, k0 + BN, kv_end, d, 0, d, 64, mode,
+                          tid);
+      load_tile16<BN, NT>(sv + nx, vb, k0 + BN, kv_end, d, 0, d, 64, mode,
+                          tid);
+    }
+    cp_commit();
+    if (!(warp_live && k0 < w_end)) continue;
+    const uint16_t* kt = sk + st * BN * DS16;
+    const uint16_t* vt = sv + st * BN * DS16;
+    float s[NB][4], dpv[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dpv[j][e] = 0.f;
+    scores16_ldsm<T, NB>(s, sq + r0 * DS16, kt, lane);
+    scores16_ldsm<T, NB>(dpv, sg + r0 * DS16, vt, lane);
+    float m0 = 0.f, m1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qpos = qa + (e >> 1) * 8;
+        const int kpos = k0 + j * 8 + 2 * tq + (e & 1);
+        const bool ok =
+            kpos < kv_end && qpos < Tq && (!a.causal || qpos >= kpos);
+        const float p = exp2f(fmaf(s[j][e], sl2, -((e >> 1) ? ls1 : ls0)));
+        const float ds = ok ? p * (dpv[j][e] - ((e >> 1) ? dl1 : dl0)) : 0.f;
+        s[j][e] = ds;
+        if (e >> 1)
+          m1 = fmaxf(m1, fabsf(ds));
+        else
+          m0 = fmaxf(m0, fabsf(ds));
+      }
+    // acc += dS K, 16 keys a step (dS is 0 at every masked key)
+    if constexpr (SC) raise_rows<NJ>(m0, m1, eb0, eb1, acc);
+    const float sc0 = SC ? eb_scale(eb0) : 1.f;
+    const float sc1 = SC ? eb_scale(eb1) : 1.f;
+#pragma unroll
+    for (int i = 0; i < NB / 2; ++i) {
+      uint32_t h[4], l[4];
+      frag_split16<T, NB>(s, i, sc0, sc1, h, l);
+      mma_hl16<T, NJ>(acc, h, l, kt + 16 * i * DS16, lane);
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();  // the Q rows are free: dQ stages there
+  stage16<T, NJ>(sq + r0 * DS16, acc, a.scale * (SC ? eb_unscale(eb0) : 1.f),
+                 a.scale * (SC ? eb_unscale(eb1) : 1.f), true, true, lane);
+  __syncthreads();
+  store_tile16<NT>(a.dq + (qoff + q0) * d, sq, nrows, d, tid);
+}
+
+// dk/dv: a block owns 128 keys (a warp 16) and streams tiles of BQ
+// queries.  S^T = K Q^T and dP^T = V G^T with fragments by `ldmatrix`;
+// P^T and dS^T go from the accumulators, split in T, into
+// dV += P^T G and dK += dS^T Q (B by transposed `ldmatrix`).
+//
+// FUSED (Tk <= 128): the block owns every key of its head, so it also
+// forms delta (from each tile's g and out rows) and dQ: each warp writes
+// its dS^T rows (hi and lo) to shared memory (two buffers), and in the
+// next tile, before the barrier that tile needs for its delta anyway, the
+// eight warps compute this tile's dQ = dS K (A by transposed `ldmatrix`
+// from those rows, B = the block's K, the depth cut at kv_end) and stage
+// it for one coalesced store.  No dQ sum crosses blocks: five products,
+// every input read once, no delta in memory, no atomics.  Under f16 the
+// split's scale is one for the block (dQ's rows are queries, dK's keys),
+// raised tile by tile from the tile's largest |dS| (a shared-memory max
+// and one more barrier).  The grid is persistent (one block an SM walks
+// heads), and the next head's K, V (the other of two buffers) and first
+// query tile load during the last tile: measured, that hid most of the
+// fixed cost a block paid per head when each block had one.
+template <bool FUSED>
+constexpr size_t dkv16_smem() {
+  // K and V (FUSED: two heads' buffers), Q and G (FUSED: and out) in two
+  // stages, FUSED: dS^T hi and lo twice and a dQ tile; lse, delta, smax
+  constexpr size_t BQ = R16_BN;
+  return 2 * (size_t)DS16 * ((FUSED ? 4 : 2) * R16_BM + (FUSED ? 7 : 4) * BQ) +
+         (FUSED ? 2 * 2 * 2 * (size_t)R16_BM * (BQ + 8) : 0) + 4 * 4 * BQ +
+         16;
+}
+
+// One block an SM in both modes: the fused mode's registers allow no
+// more; two-launch blocks at two an SM spilled 372-524 B for 1-4.5% at
+// T = 512 (PERF.md).
+template <typename T, bool FUSED>
+__global__ void __launch_bounds__(R16_NT, 1)
+flash_bwd16_dkv_kernel(const Bwd16Args a) {
+  constexpr int BM = R16_BM, NT = R16_NT, NJ = 8;
+  constexpr int BQ = R16_BN, NB = BQ / 8;
+  constexpr int DSQ = BQ + 8;  // row stride of the dS^T tiles (elements)
+  constexpr bool SC = kF16<T>;
+  extern __shared__ __align__(16) uint16_t sm16[];
+  constexpr int NKV = FUSED ? 2 : 1;  // K and V buffers
+  uint16_t* skv = sm16;              // K, V of buffer j at skv + 2 j BM DS16
+  uint16_t* sq = skv + 2 * NKV * BM * DS16;  // 2 stages
+  uint16_t* sg = sq + 2 * BQ * DS16;
+  uint16_t* so = sg + 2 * BQ * DS16;                 // FUSED: 2 stages
+  uint16_t* sdh = so + (FUSED ? 2 * BQ * DS16 : 0);  // FUSED: dS^T hi
+  uint16_t* sdl = sdh + (FUSED ? 2 * BM * DSQ : 0);  //        and lo, 2 each
+  uint16_t* sdq = sdl + (FUSED ? 2 * BM * DSQ : 0);  // FUSED: a dQ tile
+  float* sl = reinterpret_cast<float*>(sdq + (FUSED ? BQ * DS16 : 0));
+  float* sd = sl + 2 * BQ;  // delta: 2 stages (FUSED: the tile's)
+  unsigned* smax = reinterpret_cast<unsigned*>(sd + 2 * BQ);  // 2 slots
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int r0 = 16 * warp;
+  const int Tq = a.Tq, d = a.d, mode = a.mode;
+  const int ntk = (a.Tk + BM - 1) / BM;  // FUSED: 1
+  // A block's units of work: one (head, 128 keys) a block; FUSED, the
+  // heads blockIdx.x, + gridDim.x, .. (a persistent grid), the next
+  // head's K, V and first query tile prefetched during the last tile
+  const int nunits = FUSED ? a.BH : (int)gridDim.x;
+  auto unit_end = [&](int u) {  // kv_end of unit u's head
+    int e = a.Tk;
+    if (a.kv_len != nullptr) e = min(e, max(0, a.kv_len[u / ntk / a.H]));
+    return e;
+  };
+  auto load_stage = [&](int st, int u, int i0) {
+    const size_t qo = (size_t)(u / ntk) * Tq;
+    load_tile16<BQ, NT>(sq + st * BQ * DS16, a.q + qo * d, i0, Tq, d, 0, d,
+                        64, mode, tid);
+    load_tile16<BQ, NT>(sg + st * BQ * DS16, a.g + qo * d, i0, Tq, d, 0, d,
+                        64, mode, tid);
+    load_vec<NT>(sl + st * BQ, a.lse + qo, i0, BQ, Tq, tid);
+    if constexpr (FUSED)
+      load_tile16<BQ, NT>(so + st * BQ * DS16, a.out + qo * d, i0, Tq, d,
+                          0, d, 64, mode, tid);
+    else
+      load_vec<NT>(sd + st * BQ, a.delta + qo, i0, BQ, Tq, (tid + BQ) % NT);
+  };
+  auto load_kv = [&](int buf, int u, int kv_end) {
+    const size_t ko = (size_t)(u / ntk) * a.Tk;
+    const int k0 = (u % ntk) * BM;
+    uint16_t* dst = skv + 2 * buf * BM * DS16;
+    load_tile16<BM, NT>(dst, a.k + ko * d, k0, kv_end, d, 0, d, 64, mode,
+                        tid);
+    load_tile16<BM, NT>(dst + BM * DS16, a.v + ko * d, k0, kv_end, d, 0, d,
+                        64, mode, tid);
+  };
+  if (FUSED && SC && tid < 2) smax[tid] = 0;
+  int gs = 0;              // query tiles consumed: stage and dS^T buffer gs & 1
+  int buf = 0;             // FUSED: the unit's K and V buffer
+  int next_end = -1;       // FUSED: kv_end of a unit already issued, else -1
+
+  for (int unit = blockIdx.x; unit < nunits; unit += gridDim.x) {
+  const int bhx = unit / ntk;
+  const int k0 = (unit - bhx * ntk) * BM;
+  const int nkeys = min(BM, a.Tk - k0);
+  const size_t qoff = (size_t)bhx * Tq, koff = (size_t)bhx * a.Tk;
+  uint16_t* dkb = a.dk + koff * d;
+  uint16_t* dvb = a.dv + koff * d;
+  uint16_t* sk = skv + 2 * buf * BM * DS16;
+  uint16_t* sv = sk + BM * DS16;
+  // with `causal` no query before the block's first key attends it
+  const int i_begin = a.causal ? (k0 / BQ) * BQ : 0;
+  const int ntiles = Tq > i_begin ? (Tq - i_begin + BQ - 1) / BQ : 0;
+  const int nx = unit + (int)gridDim.x;
+  const int nx_end = FUSED && nx < nunits ? unit_end(nx) : 0;
+  int kv_end = next_end;
+  if (next_end < 0) {
+    // FUSED: the first query tile's copies need not wait for the length
+    if (FUSED) load_stage(gs & 1, unit, 0);
+    kv_end = unit_end(unit);
+    if (k0 >= kv_end) {  // no live key: exact zeros
+      cp_wait<0>();
+      for (int i = tid; i < nkeys * d; i += NT) {
+        dkb[(size_t)k0 * d + i] = 0;
+        dvb[(size_t)k0 * d + i] = 0;
+      }
+      if constexpr (FUSED)
+        for (int i = tid; i < Tq * d; i += NT) a.dq[qoff * d + i] = 0;
+      continue;
+    }
+    load_kv(buf, unit, kv_end);
+    if (!FUSED && ntiles > 0) load_stage(0, unit, i_begin);
+    cp_commit();
+  }
+
+  const int ka = k0 + r0 + gq;  // this thread's key rows: ka and ka + 8
+  const bool warp_live = k0 + r0 < kv_end;
+  const float sl2 = a.scale * kLog2e;
+  float acck[NJ][4], accv[NJ][4];
+#pragma unroll
+  for (int n = 0; n < NJ; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acck[n][e] = accv[n][e] = 0.f;
+  int eb0 = kEbMin, eb1 = kEbMin;  // f16: the key rows' (FUSED: block's)
+
+  // FUSED: dQ = dS K of a tile from dS^T buffer `dsb` (exponent eb under
+  // f16) into the shared dQ tile; warp w takes rows 16 (w % RG).. and CW
+  // columns, A by transposed `ldmatrix` from the dS^T rows, B = K
+  auto tile_dq = [&](int dsb, int eb) {
+    constexpr int RG = BQ / 16, CW = 64 / (8 / RG), NJQ = CW / 8;
+    const int qr0 = 16 * (warp % RG), cq0 = CW * (warp / RG);
+    float accq[NJQ][4];
+#pragma unroll
+    for (int n = 0; n < NJQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) accq[n][e] = 0.f;
+    const int at = dsb * BM * DSQ +
+                   ((lane & 7) + ((lane >> 4) << 3)) * DSQ + qr0 + (lane & 8);
+#pragma unroll
+    for (int c = 0; c < BM / 16; ++c) {  // dS is 0 past kv_end
+      if (16 * c >= kv_end) break;
+      uint32_t h[4], l[4];
+      ldsm_x4_t(h, sdh + at + 16 * c * DSQ);
+      ldsm_x4_t(l, sdl + at + 16 * c * DSQ);
+      mma_hl16<T, NJQ>(accq, h, l, sk + 16 * c * DS16 + cq0, lane);
+    }
+    const float f = a.scale * (SC ? eb_unscale(eb) : 1.f);
+    stage16<T, NJQ>(sdq + qr0 * DS16 + cq0, accq, f, f, true, true, lane);
+  };
+  // the staged dQ tile of query i0 to memory (after a barrier)
+  auto store_dq = [&](int i0) {
+    store_tile16<NT>(a.dq + (qoff + i0) * d, sdq, min(BQ, Tq - i0), d, tid);
+  };
+
+  for (int it = 0; it < ntiles; ++it, ++gs) {
+    const int i0 = i_begin + it * BQ, st = gs & 1;
+    cp_wait<0>();
+    // tile `it` landed; stage it + 1's readers (FUSED: also the last
+    // tile's dS^T and smax slot's) are done
+    __syncthreads();
+    if (it + 1 < ntiles) {
+      load_stage(st ^ 1, unit, i0 + BQ);
+    } else if (nx_end > 0) {  // FUSED: the next head's first loads
+      load_stage(st ^ 1, nx, 0);
+      load_kv(buf ^ 1, nx, nx_end);
+    }
+    cp_commit();
+    const bool live = warp_live && !(a.causal && i0 + BQ <= k0 + r0);
+    if (!FUSED && !live) continue;
+    const uint16_t* qt = sq + st * BQ * DS16;
+    const uint16_t* gt = sg + st * BQ * DS16;
+    const float* lt = sl + st * BQ;
+    float* dt = sd + (FUSED ? 0 : st * BQ);
+    if constexpr (FUSED) {
+      if (SC && tid == 0) smax[st ^ 1] = 0;
+      // the tile's delta: BQ rows, NT / BQ threads a row, in a fixed order
+      constexpr int TPR = NT / BQ, CPT = 64 / TPR;
+      const int row = tid / TPR, part = tid % TPR;
+      const uint16_t* gr = gt + row * DS16 + part * CPT;
+      const uint16_t* orow = so + st * BQ * DS16 + row * DS16 + part * CPT;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < CPT; c += 2) {
+        const float2 x = unpack_f2<T>(ld32(gr + c));
+        const float2 y = unpack_f2<T>(ld32(orow + c));
+        sum = fmaf(x.x, y.x, sum);
+        sum = fmaf(x.y, y.y, sum);
+      }
+#pragma unroll
+      for (int o = 1; o < TPR; o <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (part == 0) dt[row] = sum;
+    }
+    float s[NB][4], dpv[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dpv[j][e] = 0.f;
+    if (live) {
+      scores16_ldsm<T, NB>(s, sk + r0 * DS16, qt, lane);
+      scores16_ldsm<T, NB>(dpv, sv + r0 * DS16, gt, lane);
+    }
+    if constexpr (FUSED) {
+      // the last tile's dQ (its dS^T whole since the barrier above), to
+      // memory once staged
+      if (it > 0) tile_dq(st ^ 1, eb0);
+      __syncthreads();  // the tile's delta (and the last dQ tile) whole
+      if (it > 0) store_dq(i0 - BQ);
+    }
+    float m0 = 0.f, m1 = 0.f;
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = ka + (e >> 1) * 8;
+          const int col = j * 8 + 2 * tq + (e & 1);
+          const int qpos = i0 + col;
+          const bool ok =
+              kpos < kv_end && qpos < Tq && (!a.causal || qpos >= kpos);
+          const float p = exp2f(fmaf(s[j][e], sl2, -lt[col] * kLog2e));
+          const float ds = p * (dpv[j][e] - dt[col]);
+          s[j][e] = ok ? p : 0.f;
+          dpv[j][e] = ok ? ds : 0.f;
+          if (e >> 1)
+            m1 = fmaxf(m1, fabsf(dpv[j][e]));
+          else
+            m0 = fmaxf(m0, fabsf(dpv[j][e]));
+        }
+    }
+    if constexpr (SC) {
+      if constexpr (FUSED) {
+        const unsigned m =
+            __reduce_max_sync(0xffffffffu, __float_as_uint(fmaxf(m0, m1)));
+        if (lane == 0) atomicMax(&smax[st], m);
+        __syncthreads();  // the tile's largest |dS|
+        const int eb = max(eb0, ebits(__uint_as_float(smax[st])));
+        if (eb != eb0) {
+          const float f = eb_rescale(eb0, eb);
+#pragma unroll
+          for (int n = 0; n < NJ; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acck[n][e] *= f;
+          eb0 = eb1 = eb;
+        }
+      } else {
+        raise_rows<NJ>(m0, m1, eb0, eb1, acck);
+      }
+    }
+    // dV += P^T G and dK += dS^T Q, 16 queries a step (P and dS are 0 at
+    // every masked query; rows past Tq are zeros)
+    if (live) {
+      const float sc0 = SC ? eb_scale(eb0) : 1.f;
+      const float sc1 = SC ? eb_scale(eb1) : 1.f;
+#pragma unroll
+      for (int i = 0; i < NB / 2; ++i) {
+        uint32_t h[4], l[4];
+        frag_split16<T, NB>(s, i, 1.f, 1.f, h, l);
+        mma_hl16<T, NJ>(accv, h, l, gt + 16 * i * DS16, lane);
+        frag_split16<T, NB>(dpv, i, sc0, sc1, h, l);
+        mma_hl16<T, NJ>(acck, h, l, qt + 16 * i * DS16, lane);
+        if constexpr (FUSED) {  // dS^T rows r0.., columns 16i.. (A order)
+          const int at = st * BM * DSQ + (r0 + gq) * DSQ + 16 * i + 2 * tq;
+          uint32_t* ph = reinterpret_cast<uint32_t*>(sdh + at);
+          uint32_t* pl = reinterpret_cast<uint32_t*>(sdl + at);
+          ph[0] = h[0];
+          ph[4 * DSQ] = h[1];
+          ph[4] = h[2];
+          ph[4 * DSQ + 4] = h[3];
+          pl[0] = l[0];
+          pl[4 * DSQ] = l[1];
+          pl[4] = l[2];
+          pl[4 * DSQ + 4] = l[3];
+        }
+      }
+    } else if constexpr (FUSED) {  // a dead warp's dS^T rows are zeros
+      for (int i = lane; i < 16 * BQ / 2; i += 32) {
+        const int at =
+            st * BM * DSQ + (r0 + i / (BQ / 2)) * DSQ + 2 * (i % (BQ / 2));
+        *reinterpret_cast<uint32_t*>(sdh + at) = 0u;
+        *reinterpret_cast<uint32_t*>(sdl + at) = 0u;
+      }
+    }
+  }
+  if constexpr (FUSED) {  // the last tile's dQ
+    __syncthreads();      // its dS^T is whole
+    tile_dq((gs - 1) & 1, eb0);
+  }
+  // K and V rows free: dK and dV stage there.  Two-launch mode: no copy
+  // in flight (with no query tile, the K and V copies were still); FUSED:
+  // the next head's, into the other buffer, stay in flight
+  if constexpr (!FUSED) cp_wait<0>();
+  __syncthreads();
+  if constexpr (FUSED) store_dq(i_begin + (ntiles - 1) * BQ);
+  // rows at or past kv_end get exact zeros, whatever was accumulated
+  const float fk0 = a.scale * (SC ? eb_unscale(eb0) : 1.f);
+  const float fk1 = a.scale * (SC ? eb_unscale(eb1) : 1.f);
+  stage16<T, NJ>(sk + r0 * DS16, acck, fk0, fk1, ka < kv_end,
+                 ka + 8 < kv_end, lane);
+  stage16<T, NJ>(sv + r0 * DS16, accv, 1.f, 1.f, ka < kv_end,
+                 ka + 8 < kv_end, lane);
+  __syncthreads();
+  store_tile16<NT>(dkb + (size_t)k0 * d, sk, nkeys, d, tid);
+  store_tile16<NT>(dvb + (size_t)k0 * d, sv, nkeys, d, tid);
+  next_end = nx_end > 0 ? nx_end : -1;
+  buf ^= NKV - 1;
+  }
+  cp_wait<0>();
+}
+
+template <typename K>
+int launch16(K kern, size_t smem, int (&done)[64], dim3 grid, int nt,
+             const Bwd16Args& a, cudaStream_t st) {
+  const int e = set_smem(kern, smem, done);
   if (e != 0) return e;
-  const int rows = DKV ? a.Tk : a.Tq;
-  const dim3 grid((unsigned)(B * a.H) * ((rows + B16_BM - 1) / B16_BM),
-                  (a.d + 63) / 64);
-  kern<<<grid, B16_NT, smem, st>>>(a);
+  kern<<<grid, nt, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool DKV>
+// mode: 0 dq, 1 dk/dv, 2 the fused backward (Tk <= 128, d <= 64)
+template <typename T>
+int launch_bwd16(const Bwd16Args& a, int B, int mode, cudaStream_t st) {
+  const unsigned bh = (unsigned)(B * a.H);
+  if (a.d > 64) {  // the WIDE forms
+    static int done[2][64] = {};
+    const int rows = mode ? a.Tk : a.Tq;
+    const dim3 grid(bh * ((rows + W16_BM - 1) / W16_BM), (a.d + 63) / 64);
+    return mode ? launch16(flash_bwd16_dkv_wide_kernel<T>, W16_SMEM, done[1],
+                           grid, W16_NT, a, st)
+                : launch16(flash_bwd16_dq_wide_kernel<T>, W16_SMEM, done[0],
+                           grid, W16_NT, a, st);
+  }
+  static int done[3][64] = {};
+  if (mode == 0)
+    return launch16(flash_bwd16_dq_kernel<T>,
+                    2 * (size_t)DS16 * (3 * R16_BM + 4 * R16_BN), done[0],
+                    dim3(bh * ((a.Tq + R16_BM - 1) / R16_BM)), R16_NT, a, st);
+  if (mode == 1)
+    return launch16(flash_bwd16_dkv_kernel<T, false>,
+                    dkv16_smem<false>(), done[1],
+                    dim3(bh * ((a.Tk + R16_BM - 1) / R16_BM)), R16_NT, a, st);
+  // the fused mode's persistent grid: as many blocks as fit the card
+  auto kern = flash_bwd16_dkv_kernel<T, true>;
+  constexpr size_t smem = dkv16_smem<true>();
+  int e = set_smem(kern, smem, done[2]);
+  if (e != 0) return e;
+  static int slots[64] = {};  // per device: SMs times blocks an SM
+  int dev = 0, n = 0;
+  if ((e = (int)cudaGetDevice(&dev)) != 0) return e;
+  if (dev < 64) n = slots[dev];
+  if (n == 0) {
+    int sms = 0, per_sm = 0;
+    if ((e = (int)cudaDeviceGetAttribute(
+             &sms, cudaDevAttrMultiProcessorCount, dev)) != 0 ||
+        (e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kern, R16_NT, smem)) != 0)
+      return e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    n = sms * per_sm;
+    if (dev < 64) slots[dev] = n;
+  }
+  return launch16(kern, smem, done[2], dim3(min(bh, (unsigned)n)), R16_NT,
+                  a, st);
+}
+
+template <typename T>
 int bwd16(const void* q, const void* k, const void* v, const void* g,
           const void* out, const void* lse, void* delta, const void* kv_len,
           void* dq, void* dk, void* dv, int B, int H, int Tq, int Tk, int d,
-          int causal, float scale, void* stream) {
-  if (B * H == 0 || (!DKV && Tq == 0)) return 0;
-  if (bad_shape(d, Tk) || (DKV && Tq < 1)) return (int)cudaErrorInvalidValue;
+          int causal, float scale, int mode, void* stream) {
+  if (B * H == 0 || (mode == 0 && Tq == 0)) return 0;
+  if (bad_shape(d, Tk) || (mode != 0 && Tq < 1) ||
+      (mode == 2 && (d > 64 || Tk > R16_BM)))
+    return (int)cudaErrorInvalidValue;
   Bwd16Args a;
   a.q = static_cast<const uint16_t*>(q);
   a.k = static_cast<const uint16_t*>(k);
@@ -1297,7 +1736,8 @@ int bwd16(const void* q, const void* k, const void* v, const void* g,
   a.causal = causal;
   a.scale = scale;
   a.mode = mode16(d, q, k, v, g, out);
-  return launch_bwd16<T, DKV>(a, B, static_cast<cudaStream_t>(stream));
+  a.BH = B * H;
+  return launch_bwd16<T>(a, B, mode, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -1392,49 +1832,36 @@ int mx_flash_attention_bwd_dkv_f32(const void* q, const void* k,
 
 // As the f32 entries with q, k, v, g, out, dq, dk and dv bf16 (f16),
 // contiguous, any alignment; lse and delta stay f32.
-int mx_flash_attention_bwd_dq_bf16(const void* q, const void* k,
-                                   const void* v, const void* g,
-                                   const void* out, const void* lse,
-                                   const void* kv_len, void* dq, void* delta,
-                                   int B, int H, int Tq, int Tk, int d,
-                                   int causal, float scale, void* stream) {
-  return bwd16<__nv_bfloat16, false>(q, k, v, g, out, lse, delta, kv_len,
-                                     dq, nullptr, nullptr, B, H, Tq, Tk, d,
-                                     causal, scale, stream);
-}
+#define MX_BWD16_ENTRIES(SFX, T)                                            \
+  int mx_flash_attention_bwd_dq_##SFX(                                      \
+      const void* q, const void* k, const void* v, const void* g,           \
+      const void* out, const void* lse, const void* kv_len, void* dq,       \
+      void* delta, int B, int H, int Tq, int Tk, int d, int causal,         \
+      float scale, void* stream) {                                          \
+    return bwd16<T>(q, k, v, g, out, lse, delta, kv_len, dq, nullptr,      \
+                    nullptr, B, H, Tq, Tk, d, causal, scale, 0, stream);    \
+  }                                                                         \
+  int mx_flash_attention_bwd_dkv_##SFX(                                     \
+      const void* q, const void* k, const void* v, const void* g,           \
+      const void* lse, const void* delta, const void* kv_len, void* dk,     \
+      void* dv, int B, int H, int Tq, int Tk, int d, int causal,            \
+      float scale, void* stream) {                                          \
+    return bwd16<T>(q, k, v, g, nullptr, lse, const_cast<void*>(delta),    \
+                    kv_len, nullptr, dk, dv, B, H, Tq, Tk, d, causal,       \
+                    scale, 1, stream);                                      \
+  }                                                                         \
+  /* one launch of the dk/dv kernel in its fused mode: dq, dk and dv of  */ \
+  /* inputs with Tk <= 128 and d <= 64 (else cudaErrorInvalidValue)      */ \
+  int mx_flash_attention_bwd_fused_##SFX(                                   \
+      const void* q, const void* k, const void* v, const void* g,           \
+      const void* out, const void* lse, const void* kv_len, void* dq,       \
+      void* dk, void* dv, int B, int H, int Tq, int Tk, int d, int causal,  \
+      float scale, void* stream) {                                          \
+    return bwd16<T>(q, k, v, g, out, lse, nullptr, kv_len, dq, dk, dv, B,  \
+                    H, Tq, Tk, d, causal, scale, 2, stream);                \
+  }
 
-int mx_flash_attention_bwd_dq_f16(const void* q, const void* k,
-                                  const void* v, const void* g,
-                                  const void* out, const void* lse,
-                                  const void* kv_len, void* dq, void* delta,
-                                  int B, int H, int Tq, int Tk, int d,
-                                  int causal, float scale, void* stream) {
-  return bwd16<__half, false>(q, k, v, g, out, lse, delta, kv_len, dq,
-                              nullptr, nullptr, B, H, Tq, Tk, d, causal,
-                              scale, stream);
-}
-
-int mx_flash_attention_bwd_dkv_bf16(const void* q, const void* k,
-                                    const void* v, const void* g,
-                                    const void* lse, const void* delta,
-                                    const void* kv_len, void* dk, void* dv,
-                                    int B, int H, int Tq, int Tk, int d,
-                                    int causal, float scale, void* stream) {
-  return bwd16<__nv_bfloat16, true>(q, k, v, g, nullptr, lse,
-                                    const_cast<void*>(delta), kv_len,
-                                    nullptr, dk, dv, B, H, Tq, Tk, d, causal,
-                                    scale, stream);
-}
-
-int mx_flash_attention_bwd_dkv_f16(const void* q, const void* k,
-                                   const void* v, const void* g,
-                                   const void* lse, const void* delta,
-                                   const void* kv_len, void* dk, void* dv,
-                                   int B, int H, int Tq, int Tk, int d,
-                                   int causal, float scale, void* stream) {
-  return bwd16<__half, true>(q, k, v, g, nullptr, lse,
-                             const_cast<void*>(delta), kv_len, nullptr, dk,
-                             dv, B, H, Tq, Tk, d, causal, scale, stream);
-}
+MX_BWD16_ENTRIES(bf16, __nv_bfloat16)
+MX_BWD16_ENTRIES(f16, __half)
 
 }  // extern "C"

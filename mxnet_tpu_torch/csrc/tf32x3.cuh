@@ -35,10 +35,12 @@
 // fragment load touches start on eight distinct 4-bank groups).  Products
 // of two 16-bit operands are exact in f32, so they run as one
 // `mma.sync.m16n8k16` with f32 accumulators.  Products of an f32 operand
-// (a probability or dS, from an accumulator) with a 16-bit one keep f32
-// accuracy as two TF32 MMAs, a_hi b + a_lo b: every bf16 and f16 value is
-// exact in TF32 (8 + 7 and 5 + 10 exponent and mantissa bits; f16
-// subnormals are normal there), so the 16-bit side has no low part.
+// (a probability or dS, from an accumulator) with a 16-bit one run either
+// as two TF32 MMAs, a_hi b + a_lo b (`mma2_c16`: every bf16 and f16 value
+// is exact in TF32, so the 16-bit side has no low part), or, at half the
+// tensor-core time, as two m16n8k16 MMAs on a split in the operand's own
+// type, a = hi + lo (`split16`, `mma_hl16`), f16 scaled by a power of two
+// first to stay in its range.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -555,6 +557,166 @@ __device__ __forceinline__ void mma2_c16(float (&acc)[NJ][4],
   for (int n = 0; n < NJ; ++n) mma(acc[n], al, bb[n]);
 #pragma unroll
   for (int n = 0; n < NJ; ++n) mma(acc[n], ah, bb[n]);
+}
+
+// Four 8 x 8 16-bit matrices: lanes 8e..8e+7 give the row addresses of
+// matrix e (16 bytes each); register e of lane (g, t) holds
+// (M_e[g][2t], M_e[g][2t + 1]).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint16_t* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// s[j] += A B^T over depth [0, 64), exact products: A rows [0, 16) of the
+// shared 16-bit tile `a`, B^T rows [0, 8 NB) of the tile `b` (row n of b
+// is column n of the product); both fragments by `ldmatrix`, one x4 for A
+// and one for each pair of 8-column tiles a 16-deep step.
+template <typename T, int NB>
+__device__ __forceinline__ void scores16_ldsm(float (&s)[NB][4],
+                                              const uint16_t* a,
+                                              const uint16_t* b, int lane) {
+  const uint16_t* ar = a + ((lane & 7) + (lane & 8)) * DS16 + (lane >> 4) * 8;
+  const uint16_t* br =
+      b + ((lane & 7) + ((lane >> 4) << 3)) * DS16 + (lane & 8);
+#pragma unroll
+  for (int kk = 0; kk < 64; kk += 16) {
+    uint32_t af[4];
+    ldsm_x4(af, ar + kk);
+#pragma unroll
+    for (int j = 0; j < NB / 2; ++j) {
+      uint32_t bf[4];
+      ldsm_x4(bf, br + j * 16 * DS16 + kk);
+      mma16<T>(s[2 * j], af, bf[0], bf[1]);
+      mma16<T>(s[2 * j + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// The two values of a packed T pair as floats.
+template <typename T>
+__device__ __forceinline__ float2 unpack_f2(uint32_t r) {
+  if constexpr (kF16<T>)
+    return __half22float2(*reinterpret_cast<const __half2*>(&r));
+  else
+    return make_float2(__uint_as_float(r << 16),
+                       __uint_as_float(r & 0xffff0000u));
+}
+
+// (x, y) as two T pairs, hi = T(x, y) and lo = T((x, y) - hi): x - hi is
+// exact in f32, so hi + lo keeps 16 (bf16) or 22 (f16) mantissa bits of
+// x, where hi and lo stay in T's range.
+template <typename T>
+__device__ __forceinline__ void split16(float x, float y, uint32_t& hi,
+                                        uint32_t& lo) {
+  hi = pack16<T>(x, y);
+  const float2 h = unpack_f2<T>(hi);
+  lo = pack16<T>(x - h.x, y - h.y);
+}
+
+// The A fragments (hi, lo) of chunk i (columns 16i..16i+15) of a row of
+// 16 x 8 accumulator tiles x, each value times `s0` (rows g) or `s1`
+// (rows g + 8): tiles 2i and 2i+1 are an m16n8k16 A fragment as they
+// stand.
+template <typename T, int NB>
+__device__ __forceinline__ void frag_split16(const float (&x)[NB][4], int i,
+                                             float s0, float s1,
+                                             uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4]) {
+  split16<T>(x[2 * i][0] * s0, x[2 * i][1] * s0, hi[0], lo[0]);
+  split16<T>(x[2 * i][2] * s1, x[2 * i][3] * s1, hi[1], lo[1]);
+  split16<T>(x[2 * i + 1][0] * s0, x[2 * i + 1][1] * s0, hi[2], lo[2]);
+  split16<T>(x[2 * i + 1][2] * s1, x[2 * i + 1][3] * s1, hi[3], lo[3]);
+}
+
+// acc[n] += (ah + al) B: B rows [0, 16) of the shared 16-bit tile `b`
+// (the depth) at columns 8n.. by transposed `ldmatrix`, not converted;
+// two m16n8k16 MMAs a tile, every lo before any hi.
+template <typename T, int NJ>
+__device__ __forceinline__ void mma_hl16(float (&acc)[NJ][4],
+                                         const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         const uint16_t* b, int lane) {
+  const uint16_t* br =
+      b + ((lane & 7) + (lane & 8)) * DS16 + (lane >> 4) * 8;
+  uint32_t bb[NJ][2];
+#pragma unroll
+  for (int m = 0; m < NJ / 2; ++m) {
+    uint32_t r[4];
+    ldsm_x4_t(r, br + 16 * m);
+    bb[2 * m][0] = r[0];
+    bb[2 * m][1] = r[1];
+    bb[2 * m + 1][0] = r[2];
+    bb[2 * m + 1][1] = r[3];
+  }
+#pragma unroll
+  for (int n = 0; n < NJ; ++n) mma16<T>(acc[n], al, bb[n][0], bb[n][1]);
+#pragma unroll
+  for (int n = 0; n < NJ; ++n) mma16<T>(acc[n], ah, bb[n][0], bb[n][1]);
+}
+
+// f16's range in the split.  |x| above 65504 overflows hi, so f16
+// operands are scaled by an exact power of two first: a row group that
+// has seen values up to M (biased f32 exponent eb of M, at least
+// kEbMin) multiplies by 2^(14 - e) (e = eb - 127), so |x| < 2^15, and its
+// accumulators carry the factor 2^(e - 14) until they are stored.
+constexpr int kEbMin = 15;  // 2^-126 <= every factor <= 2^126
+
+__device__ __forceinline__ int ebits(float m) {
+  return max(kEbMin, (int)(__float_as_uint(m) >> 23));
+}
+__device__ __forceinline__ float eb_scale(int eb) {  // 2^(14 - e)
+  return __uint_as_float((uint32_t)(268 - eb) << 23);
+}
+__device__ __forceinline__ float eb_unscale(int eb) {  // 2^(e - 14)
+  return __uint_as_float((uint32_t)(eb - 14) << 23);
+}
+// 2^(from - to) for to >= from: what accumulators at `from` are
+// multiplied by when the group's exponent rises to `to` (0 below 2^-126).
+__device__ __forceinline__ float eb_rescale(int from, int to) {
+  const int b = 127 + from - to;
+  return b > 0 ? __uint_as_float((uint32_t)b << 23) : 0.f;
+}
+
+// A warp's 16 x 8 NJ accumulator tiles (rows g and g + 8 of lane (g, t),
+// columns 8n + 2t..) into a shared 16-bit tile at `s` (its row 0, column
+// 0; stride DS16), rounded to T: rows g times f0, rows g + 8 times f1,
+// each row written as 0 where its flag is false.
+template <typename T, int NJ>
+__device__ __forceinline__ void stage16(uint16_t* s, const float (&acc)[NJ][4],
+                                        float f0, float f1, bool ok0,
+                                        bool ok1, int lane) {
+  uint32_t* r0 = reinterpret_cast<uint32_t*>(s + (lane >> 2) * DS16) +
+                 (lane & 3);
+  uint32_t* r1 = r0 + 4 * DS16;
+#pragma unroll
+  for (int n = 0; n < NJ; ++n) {
+    r0[4 * n] = ok0 ? pack16<T>(acc[n][0] * f0, acc[n][1] * f0) : 0u;
+    r1[4 * n] = ok1 ? pack16<T>(acc[n][2] * f1, acc[n][3] * f1) : 0u;
+  }
+}
+
+// Rows [0, nrows) x columns [0, d) of a shared 16-bit tile (stride DS16)
+// to the rows of the row-major matrix `dst` (row stride d): 16-byte
+// stores where d % 8 == 0 and dst is 16-byte aligned, neighbouring
+// threads on neighbouring addresses; else one element a thread.
+template <int NT>
+__device__ __forceinline__ void store_tile16(uint16_t* dst, const uint16_t* s,
+                                             int nrows, int d, int tid) {
+  if (d % 8 == 0 && aligned_to(dst, 16)) {
+    const int cpr = d >> 3;
+    for (int c = tid; c < nrows * cpr; c += NT) {
+      const int r = c / cpr, k = c - r * cpr;
+      *reinterpret_cast<uint4*>(dst + (size_t)r * d + 8 * k) =
+          *reinterpret_cast<const uint4*>(s + r * DS16 + 8 * k);
+    }
+  } else {
+    for (int e = tid; e < nrows * d; e += NT) {
+      const int r = e / d;
+      dst[(size_t)r * d + (e - r * d)] = s[r * DS16 + (e - r * d)];
+    }
+  }
 }
 
 // (x, y) as T at p[0], p[1] (columns col, col + 1 of ncols): one 4-byte

@@ -17,6 +17,9 @@ no global TF32 flag) or raise: the dq kernel computes delta in its
 prologue and hands it to the dk/dv kernel.  f32 inputs take the 3xTF32
 kernels; bf16 and f16 inputs (q, k, v, g and out of one type, lse f32)
 take 16-bit kernels of their own, which write dq, dk and dv in that type.
+Where every key of a head fits one block of the 16-bit dk/dv kernel
+(Tk <= ``FUSED_TK`` and d <= ``FUSED_D``: BERT's training shape) that
+kernel runs alone in its fused mode, one launch for dq, dk and dv.
 CPU tensors run :func:`flash_attention_bwd_reference`, which
 materializes the score matrix.
 """
@@ -32,11 +35,22 @@ from ..base import MXNetError
 from . import registry as _kreg
 
 __all__ = ["flash_attention_bwd", "flash_attention_bwd_reference",
-           "launch_dq", "launch_dkv"]
+           "launch_dq", "launch_dkv", "launch_fused", "fused"]
 
 # bf16 and f16 take the 16-bit kernels (here and in ops.attention's
 # forward): their C entries' suffix and launch counts' name
 _HALF = {torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
+# the 16-bit dk/dv kernel's fused mode: one block owns a head's keys
+FUSED_TK, FUSED_D = 128, 64
+
+
+def fused(q, k) -> bool:
+    """Whether :func:`flash_attention_bwd` runs the fused mode (one launch
+    of the dk/dv kernel) for these inputs rather than dq, then dk/dv."""
+    return q.dtype in _HALF and k.shape[2] <= FUSED_TK and \
+        q.shape[3] <= FUSED_D
 
 
 def _name(kernel: str, dtype) -> str:
@@ -157,12 +171,35 @@ def launch_dkv(q, k, v, g, lse, delta, kv_len, causal: bool, scale: float):
     return dk, dv
 
 
+def launch_fused(q, k, v, g, out, lse, kv_len, causal: bool, scale: float):
+    """One launch of the 16-bit dk/dv kernel in its fused mode on checked
+    CUDA inputs with :func:`fused` true (delta formed in the block, dq
+    written whole by the block that owns the head's keys); returns
+    ``(dq, dk, dv)`` and counts a launch of the dk/dv kernel."""
+    b, h, tq, d = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = _entry(f"mx_flash_attention_bwd_fused_{_HALF[q.dtype]}", 10)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            out.data_ptr(), lse.data_ptr(),
+            kv_len.data_ptr() if kv_len is not None else None, dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, h, tq, k.shape[2], d,
+            int(causal), scale, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise MXNetError(f"flash_attention_bwd_dkv kernel (fused) launch "
+                         f"failed: CUDA error {err}")
+    _kreg.count_launch(_name("flash_attention_bwd_dkv", q.dtype))
+    return dq, dk, dv
+
+
 def _launch(q, k, v, g, out, lse, kv_len, causal, scale):
     _check_args(q, k, v, g, out, lse, kv_len)
     b, h, tq, _ = q.shape
     if b * h == 0 or tq == 0:                 # nothing attends: no launch
         return (torch.empty_like(q), torch.zeros_like(k),
                 torch.zeros_like(v))
+    if fused(q, k):
+        return launch_fused(q, k, v, g, out, lse, kv_len, causal, scale)
     dq, delta = launch_dq(q, k, v, g, out, lse, kv_len, causal, scale)
     dk, dv = launch_dkv(q, k, v, g, lse, delta, kv_len, causal, scale)
     return dq, dk, dv
@@ -175,8 +212,8 @@ def flash_attention_bwd(q, k, v, g, out, lse, kv_len=None,
     is the forward's optional (B,) key lengths.
 
     CUDA tensors launch the dq kernel, then the dk/dv kernel (one launch
-    each) or raise; CPU tensors run
-    :func:`flash_attention_bwd_reference`."""
+    each; 16-bit inputs with :func:`fused` true: the dk/dv kernel alone)
+    or raise; CPU tensors run :func:`flash_attention_bwd_reference`."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cuda":

@@ -396,7 +396,9 @@ def _half_check(dtype, q, k, v, g, lens_d, ref_v, causal, lens):
     got = fb.flash_attention_bwd(q, k, v, g, out, lse, lens_d, causal)
     torch.cuda.synchronize()
     after = registry.launches()
-    assert [after[n] - before[n] for n in names] == [1, 1, 1]
+    # Tk <= 128 and d <= 64: the dk/dv kernel's fused mode, one launch
+    assert [after[n] - before[n] for n in names] == \
+        [1, 0 if fb.fused(q, k) else 1, 1]
     for n in ("flash_attention", "flash_attention_bwd_dq",
               "flash_attention_bwd_dkv"):
         assert after[n] == before[n]          # never the f32 kernels
@@ -477,6 +479,95 @@ def test_half_kernels_take_unaligned_inputs(dev, dtype, d):
     _half_check(dtype, q, k, v, g, lens_d, ref_v, True, lens)
 
 
+@pytest.mark.parametrize("dtype", HALF, ids=["bf16", "f16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["dense", "causal"])
+@pytest.mark.parametrize("d", [36, 64, 128, 320])
+@pytest.mark.parametrize("tk", [1, 64, 127, 128, 129, 200, 512])
+def test_half_bwd_at_the_fused_boundary_matches_plain(dev, dtype, causal, d,
+                                                      tk):
+    """Either side of the fused mode's edge (Tk <= 128 and d <= 64: one
+    launch of the dk/dv kernel; else dq, then dk/dv): Tq != Tk, key
+    lengths 0, 1 and Tk."""
+    tq = max(1, tk - 5) if causal else tk + 37
+    lens = [0, 1, tk]
+    args = _half_inputs(3, 2, tq, tk, d, lens, dtype, tq + tk + d, dev)
+    _half_check(dtype, *args, causal, lens)
+
+
+@pytest.mark.parametrize("dtype", HALF, ids=["bf16", "f16"])
+@pytest.mark.parametrize("tk,d", [(128, 36), (128, 64), (129, 36),
+                                  (129, 64)])
+def test_half_bwd_at_the_fused_boundary_takes_unaligned_inputs(dev, dtype,
+                                                               tk, d):
+    def view(x):
+        flat = torch.empty(x.numel() + 1, device=dev, dtype=x.dtype)
+        flat[1:] = x.reshape(-1)
+        return flat[1:].view(x.shape)
+
+    lens = [0, 1, tk]
+    q, k, v, g, lens_d, ref_v = _half_inputs(3, 2, 100, tk, d, lens, dtype,
+                                             tk + d, dev)
+    q, k, v, g = (view(x) for x in (q, k, v, g))
+    _half_check(dtype, q, k, v, g, lens_d, ref_v, True, lens)
+
+
+@pytest.mark.parametrize("tk,d", [(128, 64), (200, 64), (128, 320),
+                                  (200, 320)])
+def test_half_bwd_f16_past_its_range_in_ds(dev, tk, d):
+    """|dS| above 65504, f16's largest value, while dq, dk and dv are
+    nonzero and fit in f16, |dS| rising from one query tile to the next
+    (``test_utils.attention_large_ds_inputs``): finite gradients within
+    the bar of the plain version's, where a split of dS in f16 without a
+    scale gives inf and a scale unmade by a wrong power of two misses by
+    half a gradient."""
+    from mxnet_tpu_torch.kernels import flash_bwd as fb
+    from mxnet_tpu_torch.test_utils import (attention_large_ds_inputs,
+                                            attention_p_ds)
+
+    q, k, v, g = (x.half().to(dev)
+                  for x in attention_large_ds_inputs(2, 2, tk, d))
+    lens = torch.tensor([tk, 2], dtype=torch.int32, device=dev)
+    out, lse = att.flash_attention(q, k, v, kv_valid_length=lens,
+                                   return_lse=True)
+    got = fb.flash_attention_bwd(q, k, v, g, out, lse, lens)
+    again = fb.flash_attention_bwd(q, k, v, g, out, lse, lens)
+    want = fb.flash_attention_bwd_reference(q, k, v, g, out, lse, lens)
+    assert attention_p_ds(q, k, v, g, out, lse, lens)[1].abs().max() > 65504
+    gmax = float(g.float().abs().max())
+    for a, r in zip(got, want):
+        assert a.dtype == torch.float16 and torch.isfinite(a).all()
+        assert r.float().abs().max() > 1000
+        tol = BWD16_TOL[torch.float16] * max(gmax,
+                                             float(r.float().abs().max()))
+        torch.testing.assert_close(a.float(), r.float(), atol=tol, rtol=0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("tk", [128, 192])
+def test_half_bwd_keeps_the_split_low_term(dev, dtype, tk):
+    """dq on keys 1 + e (``test_utils.attention_split_probe_inputs``),
+    where it is one ulp's size of dS: within 2^-6 (bf16) / 2^-9 (f16) of
+    max|dq| of the plain version's, which a split of dS that kept only
+    its high term misses by 4x or more (``tests/test_torch_half_attention
+    .py::test_half_split_keeps_its_low_term``); Tk = 128 on the fused
+    mode, 192 on two launches."""
+    from mxnet_tpu_torch.kernels import flash_bwd as fb
+    from mxnet_tpu_torch.test_utils import attention_split_probe_inputs
+
+    q, k, v, g = (x.to(dtype).to(dev) for x in attention_split_probe_inputs(
+        2, 2, 96, tk, 64, dtype, seed=tk))
+    assert fb.fused(q, k) == (tk <= 128)
+    lens = torch.tensor([tk, tk - 30], dtype=torch.int32, device=dev)
+    out, lse = att.flash_attention(q, k, v, kv_valid_length=lens,
+                                   return_lse=True)
+    dq = fb.flash_attention_bwd(q, k, v, g, out, lse, lens)[0]
+    ref = fb.flash_attention_bwd_reference(q, k, v, g, out, lse, lens)[0]
+    top = float(ref.float().abs().max())
+    err = float((dq.float() - ref.float()).abs().max())
+    assert err <= BWD16_TOL[dtype] * top, (err, top)
+
+
 def test_half_autograd_launches_the_16bit_kernels(dev):
     x = [(torch.rand(2, 2, 40, 64, device=dev) - 0.5).bfloat16()
          .requires_grad_() for _ in range(3)]
@@ -489,7 +580,7 @@ def test_half_autograd_launches_the_16bit_kernels(dev):
     assert [after[n] - before[n] for n in
             ("flash_attention.bf16", "flash_attention_bwd_dq.bf16",
              "flash_attention_bwd_dkv.bf16", "flash_attention")] == \
-        [1, 1, 1, 0]
+        [1, 0, 1, 0]                          # Tk = 40: the fused mode
     assert all(gr.dtype == torch.bfloat16 for gr in grads)
 
 
