@@ -203,6 +203,39 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     the card and on the CPU: the loss within 2e-2 relative and every
     gradient within 2^-4 x max|g| (bf16 computations in two orders;
     the bars of ``tests/test_torch_amp.py``).
+27. The 16-bit batch-norm kernels (``bn_act_stats.bf16`` / ``.f16``,
+    ``bn_act_apply.bf16`` / ``.f16``) against their plain versions, bf16
+    and f16: ResNet-50's five BatchNormReLU shapes at B=128 (the stem
+    1,605,632 x 64 to stage 4's 6,272 x 512), rows x C in {4097 x 3,
+    4097 x 12, 1 x 64, 1 x 8, 9 x 2048, 4097 x 77} (C % 8 != 0, one
+    row), views at a 2-byte storage offset, and an f16 case past 65,504
+    (inf, as the JAX op gives).  Bars: y bit for bit; scale and shift
+    equal (the f32 fold rounded to x's type); mean and var within 1e-5 of
+    each channel's scale of a float64 reference; the same bits twice.
+    Then their device times at the five shapes beside the bound (2-byte
+    x and y at 3.35e12 B/s), ``torch.var_mean`` and
+    ``F.batch_norm(training=True)`` + ``relu_`` in the same type
+    (yardsticks the port never calls), the plain versions by events at
+    the stem and stage 4.
+28. ``resnet50_v1(layout="NHWC")`` in bf16 as ``bench_resnet50`` runs
+    it: ``ShardedTrainer(sgd, lr 0.05, momentum 0.9,
+    compute_dtype=torch.bfloat16)`` with the bench's f32 cross entropy,
+    phase 15's seed and batch; once with plain BatchNorm (the bench's
+    default) and once with ``fused_bn_relu=True``.  2 warm and 20 timed
+    steps, then to step 60: img/s, step p50 (CUDA events), wall a step,
+    peak memory beside phase 15's f32; launches a step: fused 33
+    ``bn_act_stats.bf16`` + 33 ``bn_act_apply.bf16`` + 1 ``opt_arena``,
+    plain 1 ``opt_arena``, nothing else; the loss finite and lower at
+    step 60 than at step 1; masters and running statistics f32 and
+    moving.
+29. The same in f16 with dynamic loss scaling (fused): the loss scale
+    and the skipped steps.
+30. Phase 16's step in bf16 (fused, B=4, 64x64) on the card and on the
+    CPU: loss within 2e-2 relative (phase 26's bar); every gradient and
+    every running statistic within the larger of 2^-4 x max of its
+    tensor (phase 26's bar) and 3 times the distance between the CPU's
+    bf16 and f32 steps in that tensor (bf16 alone moves some gradients
+    of this step by half their max: ``phase_resnet_cpu_bf16``).
 
 It prints a ``{"kernels": [...]}`` line, the card line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -2162,6 +2195,7 @@ HALF_EDGE_TK = (1, 64, 127, 128, 129, 200, 512)   # either side of Tk = 128
 # computations of one step differ at bf16's scale, not f32's
 HALF_LOSS_RTOL = 2e-2
 HALF_GRAD_TOL = 2.0 ** -4     # x max|g| of each tensor
+HALF_NOISE_BARS = 3.0         # phase 30: x the CPU's bf16-to-f32 distance
 
 
 def half_lens(b, t, lo, seed):
@@ -2679,6 +2713,400 @@ def phase_train_cpu_bf16(dev):
     return dict(loss_rel_err=rel, grad_rel_err=worst, worst=worst_name)
 
 
+# ------------------------ 16-bit batch norm and ResNet-50 training
+# phase 27's shapes past ResNet-50's five: C % 8 != 0, one row, a wide C
+BN16_EDGE = ((4097, 3), (4097, 12), (1, 64), (1, 8), (9, 2048), (4097, 77))
+# views at a 2-byte storage offset (no 16-byte access): (rows, C, act)
+BN16_OFFSET = ((4097, 64, "relu"), (4097, 12, "relu"),
+               (100352, 128, "identity"))
+
+
+def bn16_case(rows, c, dt, seed, dev, offset=False):
+    """``bn_case``'s x, gamma and beta rounded to ``dt`` (the trainer
+    casts gamma and beta to the compute type); x as a view at storage
+    offset 1 (2 bytes) with ``offset``."""
+    x, gamma, beta = (t.to(dt) for t in bn_case(rows, c, seed, dev))
+    if offset:
+        flat = torch.empty(rows * c + 1, dtype=dt, device=dev)
+        flat[1:] = x.reshape(-1)
+        x = flat[1:].view(rows, c)
+    return x, gamma, beta
+
+
+def bn16_overflow(dt, dev):
+    """4097 x 8 with one outlier in channel 1 (x = 1000 in row 0, else 0)
+    and gamma 2048 there: its normalized value is about 64, so y there
+    is about 131,000, past f16's 65,504 (f16 gives inf, as the JAX op
+    does; bf16 a finite value)."""
+    x = torch.zeros(4097, 8, device=dev)
+    x[0, 1] = 1000.0
+    x[:, 2:] = torch.rand(4097, 6, generator=torch.Generator(
+        device=dev).manual_seed(7), device=dev)
+    gamma = torch.ones(8, device=dev)
+    gamma[1] = 2048.0
+    return x.to(dt), gamma.to(dt), torch.zeros(8, device=dev, dtype=dt)
+
+
+def _bits(t):
+    return t.view(torch.int16)
+
+
+def phase_bn16_kernels(dev):
+    """Phase 27: the bf16 / f16 stats and apply kernels against their
+    plain versions: y bit for bit, scale and shift equal (each the f32
+    fold rounded once), mean and var within STAT_TOL of each channel's
+    scale of a float64 reference, the same bits on two runs, one launch
+    each of the dtype's kernels."""
+    from mxnet_tpu_torch.kernels import bn_act as kbn
+    from mxnet_tpu_torch.kernels import registry
+
+    worst = {}
+    n_cases = 0
+    for dt, sfx in HALF:
+        s_name, a_name = f"bn_act_stats.{sfx}", f"bn_act_apply.{sfx}"
+        worst[s_name] = worst[a_name] = 0.0
+        worst_rel = 0.0
+        cases = [(r, c, "relu", False) for r, c in RESNET50_BN] + \
+            [(r, c, act, False) for r, c in BN16_EDGE
+             for act in ("relu", "identity")] + \
+            [(r, c, act, True) for r, c, act in BN16_OFFSET] + \
+            [("overflow", 8, "identity", False)]
+        for i, (rows, c, act, offset) in enumerate(cases):
+            if rows == "overflow":
+                x, gamma, beta = bn16_overflow(dt, dev)
+                rows = x.shape[0]
+            else:
+                x, gamma, beta = bn16_case(rows, c, dt, seed=300 + i,
+                                           dev=dev, offset=offset)
+            label = (f"{sfx} rows={rows} C={c} {act}"
+                     + (" offset 2 B" if offset else ""))
+            before = registry.launches()
+            got = kbn.bn_stats(x, gamma, beta, BN_EPS)
+            mean, var, scale, shift = got
+            y = kbn.bn_apply(x, scale, shift, act)
+            torch.cuda.synchronize()
+            after = registry.launches()
+            check(after[s_name] - before[s_name] == 1
+                  and after[a_name] - before[a_name] == 1
+                  and sum(after.values()) - sum(before.values()) == 2,
+                  f"bn16 {label}: launches {before} -> {after}")
+            check(mean.dtype == var.dtype == torch.float32
+                  and scale.dtype == shift.dtype == y.dtype == dt,
+                  f"bn16 {label}: dtypes {[t.dtype for t in got]}, "
+                  f"y {y.dtype}")
+            again = kbn.bn_stats(x, gamma, beta, BN_EPS)
+            y2 = kbn.bn_apply(x, again[2], again[3], act)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again))
+                  and torch.equal(_bits(y), _bits(y2)),
+                  f"bn16 {label}: two runs differ")
+            x64 = x.double()
+            ms = (x64 * x64).mean(0)
+            ref_mean = x64.mean(0)
+            ref_var = (x64 - ref_mean).square().mean(0)
+            em, ev = stat_errors(mean, var, ref_mean, ref_var, ms)
+            check(em <= STAT_TOL and ev <= STAT_TOL,
+                  f"bn16 {label}: mean err {em:.3e}, var err {ev:.3e} x "
+                  f"scale > {STAT_TOL}")
+            worst_rel = max(worst_rel, em, ev)
+            p_mean, p_var, p_scale, p_shift = kbn.bn_stats_plain(
+                x, gamma, beta, BN_EPS)
+            check(torch.equal(_bits(scale), _bits(p_scale))
+                  and torch.equal(_bits(shift), _bits(p_shift)),
+                  f"bn16 {label}: scale / shift differ from the plain "
+                  f"fold: {(scale != p_scale).sum().item()} / "
+                  f"{(shift != p_shift).sum().item()} of {c}")
+            ref_y = kbn.bn_apply_plain(x, scale, shift, act)
+            same = torch.equal(_bits(y), _bits(ref_y))
+            check(same, f"bn16 {label}: y differs from plain in "
+                  f"{(_bits(y) != _bits(ref_y)).sum().item()} elements")
+            if i == len(cases) - 1:
+                want_inf = dt == torch.float16
+                check(bool(torch.isinf(y[0, 1])) == want_inf
+                      and bool(torch.isfinite(y[:, 2:]).all()),
+                      f"bn16 {label}: y[0, 1] = {y[0, 1].item()}")
+            else:
+                check(bool(torch.isfinite(y).all()),
+                      f"bn16 {label}: non-finite y")
+            err_s = max((a - b).abs().max().item() for a, b in
+                        ((mean, p_mean), (var, p_var)))
+            worst[s_name] = max(worst[s_name], err_s)
+            if rows >= 4097 or i < len(RESNET50_BN):
+                print(f"  bn16 {label}: mean / var vs plain {err_s:.3e} "
+                      f"(vs float64 {em:.2e} / {ev:.2e} x scale); scale, "
+                      f"shift and y equal bits")
+            n_cases += 1
+            del x, x64, y, y2, ref_y
+        print(f"  {sfx}: mean and var within {STAT_TOL} x scale of "
+              f"float64 (worst {worst_rel:.3e})")
+    print(f"phase 27 16-bit bn_act kernels: {n_cases} cases (bf16, f16); "
+          "y bit for bit with the plain version, scale and shift equal, "
+          f"mean and var within {STAT_TOL} x scale of float64, the same "
+          "bits twice; f16 past its range gives inf")
+    return worst
+
+
+def bn16_bound(rows, c, kernel):
+    """Least time (ms) of a 16-bit kernel: stats reads x (2 bytes an
+    element), gamma and beta and writes mean and var (f32) and scale and
+    shift; apply reads x, scale and shift and writes y; 3 flops an
+    element at the f32 peak, or the bytes at the HBM rate, whichever is
+    larger."""
+    if kernel == "stats":
+        nbytes = rows * c * 2 + 4 * c * 2 + 2 * c * 4
+    else:
+        nbytes = 2 * rows * c * 2 + 2 * c * 2
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * rows * c / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes
+
+
+def time_bn16(rows, c, dt, sfx, dev, plain):
+    """Device times (``device_ms_per_call``) of the 16-bit stats and
+    apply kernels, ``torch.var_mean`` of the 16-bit x and
+    ``F.batch_norm(training=True)`` + ``relu_`` in the same type (f32
+    weights and running statistics, cuDNN's mixed form), inputs cycled
+    past L2; with ``plain`` also the plain versions by CUDA events."""
+    from mxnet_tpu_torch.kernels import bn_act as kbn
+
+    # two copies at least: at the stem one 205 MB copy would leave its
+    # last 50 MB in L2 for the next call
+    nbuf = max(2, math.ceil(200e6 / (rows * c * 2)))
+    bufs = [bn16_case(rows, c, dt, seed=400 + i, dev=dev)[0]
+            for i in range(nbuf)]
+    _, gamma, beta = bn16_case(1, c, dt, seed=99, dev=dev)
+    _, _, scale, shift = kbn.bn_stats(bufs[0], gamma, beta, BN_EPS)
+    g32, b32 = gamma.float(), beta.float()
+    rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+    out = dict(
+        stats=device_ms_per_call(
+            lambda i: kbn.bn_stats(bufs[i], gamma, beta, BN_EPS), nbuf),
+        apply=device_ms_per_call(
+            lambda i: kbn.bn_apply(bufs[i], scale, shift, "relu"), nbuf),
+        var_mean=device_ms_per_call(
+            lambda i: torch.var_mean(bufs[i], 0, unbiased=False), nbuf),
+        batch_norm=device_ms_per_call(lambda i: F.batch_norm(
+            bufs[i], rm, rv, g32, b32, training=True, momentum=0.1,
+            eps=BN_EPS).relu_(), nbuf))
+    if plain:
+        out["stats_plain"] = cuda_time_ms(
+            lambda i: kbn.bn_stats_plain(bufs[i], gamma, beta, BN_EPS), nbuf)
+        out["apply_plain"] = cuda_time_ms(
+            lambda i: kbn.bn_apply_plain(bufs[i], scale, shift, "relu"),
+            nbuf)
+    rows_out = {}
+    for kernel, lib in (("stats", "var_mean"), ("apply", "batch_norm")):
+        bnd, by, nbytes = bn16_bound(rows, c, kernel)
+        rows_out[kernel] = dict(
+            shape=dict(rows=rows, C=c), ms=out[kernel],
+            plain_ms=out.get(f"{kernel}_plain"), library_ms=out[lib],
+            bound_ms=bnd, bound_by=by)
+        print(f"  device time {sfx} {kernel}: rows={rows} C={c} kernel "
+              f"{out[kernel]:.4f} ms (bound {bnd:.4f}, {by}: {nbytes} B; "
+              f"bound / time {bnd / out[kernel]:.2f}), "
+              + (f"plain {out[kernel + '_plain']:.4f} ms (events), "
+                 if plain else "")
+              + f"library {out[lib]:.4f} ms; {nbuf} input copies")
+    return rows_out
+
+
+def phase_bn16_times(dev):
+    """Phase 27's times: every ResNet-50 BatchNormReLU shape at B=128,
+    bf16 and f16; the plain versions at the stem and at stage 4."""
+    rows = {}
+    for dt, sfx in HALF:
+        rows[sfx] = [time_bn16(r, c, dt, sfx, dev, plain=k in (0, 4))
+                     for k, (r, c) in enumerate(RESNET50_BN)]
+    print("phase 27 16-bit bn_act times: done")
+    return rows
+
+
+def resnet_ce(pred, y):
+    """``bench.py``'s ``_ce``: cross entropy of the scores cast to f32."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    return SoftmaxCrossEntropyLoss()(pred.float(), y)
+
+
+def train_resnet16(dev, card, dt, sfx, fused, f32):
+    """Phases 28-29: ``resnet50_v1(layout="NHWC")`` through
+    ``ShardedTrainer(sgd, lr 0.05, momentum 0.9, compute_dtype=dt)`` as
+    ``bench_resnet50`` runs it, on phase 15's batch: 2 warm and 20 timed
+    steps, then untimed to step 60 (phase 15's reading of the loss)."""
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    from mxnet_tpu_torch.kernels import registry
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    variant = "fused BN+relu" if fused else "BatchNorm + relu"
+    net = get_model("resnet50_v1", layout="NHWC", fused_bn_relu=fused,
+                    classes=RESNET["classes"], device=dev).initialize(seed=0)
+    tr = ShardedTrainer(net, resnet_ce, optimizer="sgd", learning_rate=0.05,
+                        momentum=0.9, compute_dtype=dt)
+    x, y = resnet_batch(RESNET["batch"], RESNET["image"], RESNET["classes"],
+                        seed=0, dev=dev)
+    stat = net.features[1].running_mean          # the stem's BN
+    stat0 = stat.clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = [tr.step(x, y) for _ in range(2)]
+    tr.drain()
+    steps = 20
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(steps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(steps)]
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        starts[i].record()
+        losses.append(tr.step(x, y))
+        ends[i].record()
+    tr.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = registry.launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses += [tr.step(x, y) for _ in range(RESNET["steps"] - len(losses))]
+    want = {"opt_arena": 1}
+    if fused:
+        want.update({f"bn_act_stats.{sfx}": 33, f"bn_act_apply.{sfx}": 33})
+    for name, per_step in want.items():
+        check(launches[name] == per_step * steps,
+              f"{sfx} {variant}: {name} {launches[name]} launches in "
+              f"{steps} steps, want {per_step} a step")
+    check(all(v == 0 for k, v in launches.items() if k not in want),
+          f"{sfx} {variant}: other kernels launched: {launches}")
+    vals = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in vals), f"non-finite loss: {vals}")
+    check(vals[-1] < vals[0], f"{sfx} {variant}: loss did not fall: "
+          f"{vals[0]} -> {vals[-1]}")
+    check(all(p.dtype == torch.float32 for p in net.parameters())
+          and all(b.dtype == torch.float32 for b in net.buffers()),
+          "a master parameter or buffer left f32")
+    check(not torch.equal(stat, stat0), "the running statistics never moved")
+    check(tr.uses_arena, "the trainer did not pick the arena adapter")
+    step_ms = [s.elapsed_time(e) for s, e in zip(starts, ends)]
+    p50 = statistics.median(step_ms)
+    ips = RESNET["batch"] * steps / wall
+    out = dict(img_per_s=ips, step_p50_ms=p50,
+               wall_ms_per_step=wall * 1e3 / steps, steps=steps,
+               peak_mem_bytes=peak,
+               launches={k: v for k, v in launches.items() if v},
+               loss_first=vals[0], loss_step22=vals[21], loss_last=vals[-1],
+               loss_scale=tr.loss_scale, skipped_steps=tr.skipped_steps)
+    print(f"  {sfx} {variant}: loss by step: "
+          f"{' '.join(f'{v:.4f}' for v in vals)}")
+    print(f"  {sfx} {variant}: {ips:.2f} img/s, step p50 {p50:.3f} ms "
+          f"(CUDA events), wall {wall * 1e3 / steps:.3f} ms a step, peak "
+          f"{peak / 2**30:.2f} GiB, loss scale {tr.loss_scale:g}, skipped "
+          f"{tr.skipped_steps}; launches over {steps} steps "
+          f"{out['launches']}; phase 15's f32 (fused BN+relu): "
+          f"{f32['img_per_s']:.2f} img/s, {f32['step_p50_ms']:.3f} ms, "
+          f"{f32['peak_mem_bytes'] / 2**30:.2f} GiB (x"
+          f"{ips / f32['img_per_s']:.3f} img/s) [{card}]")
+    del tr, net, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_resnet_bf16(dev, card, f32):
+    out = dict(plain=train_resnet16(dev, card, torch.bfloat16, "bf16",
+                                    False, f32),
+               fused=train_resnet16(dev, card, torch.bfloat16, "bf16", True,
+                                    f32))
+    print(f"phase 28 train ResNet-50 v1 bf16 (B={RESNET['batch']}, "
+          f"{RESNET['image']}x{RESNET['image']}, NHWC, sgd momentum): "
+          f"BatchNorm + relu {out['plain']['img_per_s']:.2f} img/s, step "
+          f"p50 {out['plain']['step_p50_ms']:.3f} ms; fused BN+relu "
+          f"{out['fused']['img_per_s']:.2f} img/s, "
+          f"{out['fused']['step_p50_ms']:.3f} ms; f32 (phase 15) "
+          f"{f32['img_per_s']:.2f} img/s, {f32['step_p50_ms']:.3f} ms "
+          f"[{card}]")
+    return out
+
+
+def phase_resnet_fp16(dev, card, f32):
+    out = train_resnet16(dev, card, torch.float16, "f16", True, f32)
+    print(f"phase 29 train ResNet-50 v1 f16 with dynamic loss scaling "
+          f"(fused BN+relu): {out['img_per_s']:.2f} img/s, step p50 "
+          f"{out['step_p50_ms']:.3f} ms, loss scale {out['loss_scale']:g}, "
+          f"{out['skipped_steps']} skipped [{card}]")
+    return out
+
+
+def phase_resnet_cpu_bf16(dev):
+    """Phase 30: phase 16's step in bf16 on the card (the 16-bit bn_act
+    kernels, cuDNN) and on the CPU (their plain versions), and in f32 on
+    the CPU: the distance bf16 itself puts between two computations of
+    this step.  At B=4, 64x64 and random weights the bf16 gradients of
+    some tensors lie up to half their max from the f32 ones (16-bit
+    batch norm subtracts the mean after rounding ``x * scale``; the CPU
+    tests see the same in both packages), so each gradient and running
+    statistic is held within the larger of 2^-4 x max|t| and
+    ``HALF_NOISE_BARS`` times the CPU's own bf16-to-f32 distance of that
+    tensor: each bf16 computation lies about that far from f32, so two
+    of them may lie up to twice as far apart, and cuDNN's backward sums
+    in no fixed order."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision.resnet import BottleneckV1, \
+        ResNetV1
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    out = {}
+    for where, dt in ((dev, torch.bfloat16), ("cpu", torch.bfloat16),
+                      ("cpu", None)):
+        net = ResNetV1(BottleneckV1, [1, 1, 1, 1], [64, 256, 512, 1024, 2048],
+                       classes=1000, layout="NHWC", fused_bn_relu=True,
+                       device=where).initialize(seed=0)
+        x, y = resnet_batch(4, 64, 1000, seed=1, dev=where)
+        tr = ShardedTrainer(net, resnet_ce, optimizer="sgd",
+                            learning_rate=0.05, momentum=0.9,
+                            compute_dtype=dt)
+        loss = tr.step(x, y, block=True)
+        grads = {n: p.grad.detach().cpu().clone()
+                 for n, p in zip(tr.train_names, tr.params)}
+        stats = {n: b.detach().cpu().clone() for n, b in net.named_buffers()}
+        out[(str(where), dt)] = (loss, grads, stats)
+        del tr, net
+    (gl, gg, gs), (cl, cg, cs), (_, fg, fs) = out.values()
+    rel = abs(gl - cl) / abs(cl)
+    check(rel <= HALF_LOSS_RTOL, f"bf16 ResNet step-1 loss card {gl} vs "
+          f"CPU {cl}: rel {rel:.3e} over {HALF_LOSS_RTOL}")
+    worst = {}
+    for kind, got, want, f32 in (("grad", gg, cg, fg), ("stat", gs, cs, fs)):
+        top_rel, top_noise = ("", 0.0), ("", 0.0)
+        for name, c in want.items():
+            check(got[name].dtype == torch.float32, f"{name} not f32")
+            top = c.abs().max().item()
+            err = (got[name] - c).abs().max().item()
+            noise = (c - f32[name]).abs().max().item()
+            bar = max(HALF_GRAD_TOL * top, HALF_NOISE_BARS * noise)
+            check(err <= bar, f"bf16 {kind} {name}: card vs CPU {err:.3e} "
+                  f"> max({HALF_GRAD_TOL} x {top:.3e}, {HALF_NOISE_BARS} x "
+                  f"the CPU's bf16 vs f32 {noise:.3e})")
+            if top > 0 and err / top > top_rel[1]:
+                top_rel = (name, err / top)
+            if noise > 0 and err / noise > top_noise[1]:
+                top_noise = (name, err / noise)
+        worst[kind] = dict(rel=top_rel, to_noise=top_noise)
+    print(f"phase 30 card vs CPU in bf16 (ResNetV1 bottleneck [1,1,1,1] at "
+          f"full width, fused, B=4, 64x64): loss {gl:.6f} vs {cl:.6f} (rel "
+          f"{rel:.3e}, bar {HALF_LOSS_RTOL}); worst gradient "
+          f"{worst['grad']['rel'][1]:.3e} x max|g| "
+          f"({worst['grad']['rel'][0]}), worst running statistic "
+          f"{worst['stat']['rel'][1]:.3e} x max|stat| "
+          f"({worst['stat']['rel'][0]}); against the CPU's bf16-to-f32 "
+          f"distance at most {worst['grad']['to_noise'][1]:.3f}x "
+          f"({worst['grad']['to_noise'][0]}) and "
+          f"{worst['stat']['to_noise'][1]:.3f}x "
+          f"({worst['stat']['to_noise'][0]}); bar max({HALF_GRAD_TOL} x "
+          f"max, {HALF_NOISE_BARS} x that distance)")
+    return dict(loss_rel_err=rel, grad_rel_err=worst["grad"]["rel"][1],
+                worst_grad=worst["grad"]["rel"][0],
+                grad_to_noise=worst["grad"]["to_noise"][1],
+                stat_rel_err=worst["stat"]["rel"][1],
+                worst_stat=worst["stat"]["rel"][0],
+                stat_to_noise=worst["stat"]["to_noise"][1])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2722,6 +3150,11 @@ def main() -> int:
     train_bf16 = phase_train_bf16(dev, card, train)
     train_fp16 = phase_train_fp16(dev, card, train)
     train_cpu_bf16 = phase_train_cpu_bf16(dev)
+    bn16_worst = phase_bn16_kernels(dev)
+    bn16_times = phase_bn16_times(dev)
+    resnet_bf16 = phase_resnet_bf16(dev, card, resnet)
+    resnet_fp16 = phase_resnet_fp16(dev, card, resnet)
+    resnet_cpu_bf16 = phase_resnet_cpu_bf16(dev)
     launches = {"flash_attention_decode": f32["launches"],
                 "flash_attention_decode_int8": i8["launches"]}
     kernels = []
@@ -2873,6 +3306,29 @@ def main() -> int:
                    if key == "fused" else {}),
                 **({"serve": half_times[sfx]["serve"]["fwd"]}
                    if key == "fwd" else {})))
+    for sfx, run in (("bf16", resnet_bf16["fused"]), ("f16", resnet_fp16)):
+        # the stem's row (the largest shape); every shape under by_shape
+        for kernel, key, lib in (
+                ("bn_act_stats", "stats", f"torch.var_mean ({sfx} x)"),
+                ("bn_act_apply", "apply",
+                 f"F.batch_norm(training=True) + relu_ ({sfx} x, f32 "
+                 "weights), both passes, two calls")):
+            full = f"{kernel}.{sfx}"
+            src, replaces = registry.KERNELS[full]
+            row = bn16_times[sfx][0][key]
+            kernels.append(dict(
+                name=full, variant=sfx, route="cuda",
+                source=f"mxnet_tpu_torch/csrc/{src}", replaces=replaces,
+                launches=run["launches"].get(full, 0),
+                max_abs_err=bn16_worst[full], ms=row["ms"],
+                time_by="device time (profiler)", plain_ms=row["plain_ms"],
+                plain="events", bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"],
+                bound_note="max(bytes / 3.35e12, 3 flops an element / "
+                           "67e12): x and y 2 bytes an element",
+                library_ms=row["library_ms"], library=lib,
+                shape=row["shape"],
+                by_shape=[r[key] for r in bn16_times[sfx]]))
     print(f"end to end: f32 {f32['tokens_per_s']:.1f} tokens/s, int8 "
           f"{i8['tokens_per_s']:.1f} tokens/s, BERT-base "
           f"{bert['requests_per_s']:.1f} requests/s, BERT-base training "
@@ -2881,7 +3337,10 @@ def main() -> int:
           f"{lenet['img_per_s']:.1f} img/s, extension block "
           f"{ext_drive['img_per_s']:.1f} img/s, BERT-base bf16 training "
           f"{train_bf16['samples_per_s']:.2f} samples/s, f16 "
-          f"{train_fp16['samples_per_s']:.2f} samples/s; whole run "
+          f"{train_fp16['samples_per_s']:.2f} samples/s, ResNet-50 bf16 "
+          f"training {resnet_bf16['plain']['img_per_s']:.2f} img/s "
+          f"(BatchNorm) and {resnet_bf16['fused']['img_per_s']:.2f} img/s "
+          f"(fused), f16 {resnet_fp16['img_per_s']:.2f} img/s; whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels,
                       "serve": {"f32": f32, "int8": i8, "bert": bert},
@@ -2892,8 +3351,13 @@ def main() -> int:
                                 "resnet50_eager": resnet_eager,
                                 "bert_base_bf16": train_bf16,
                                 "bert_base_fp16": train_fp16,
-                                "card_vs_cpu_bf16": train_cpu_bf16},
+                                "card_vs_cpu_bf16": train_cpu_bf16,
+                                "resnet50_bf16": resnet_bf16,
+                                "resnet50_fp16": resnet_fp16,
+                                "resnet_card_vs_cpu_bf16":
+                                    resnet_cpu_bf16},
                       "bn_act_device": bn_times["device"],
+                      "bn_act16_device": bn16_times,
                       "device_time_by": DEVICE_TIME_BY,
                       "card": card}))
     print(card)

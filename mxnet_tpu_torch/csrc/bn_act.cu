@@ -1,5 +1,5 @@
 // Batch-norm statistics and scale/shift + activation for Hopper (sm_90a),
-// f32, channel-last (rows, C) with C the fastest axis.
+// channel-last (rows, C) with C the fastest axis; x in f32, bf16 or f16.
 //
 // Replaces the TPU kernels of mxnet_tpu/kernels/bn_act.py:
 //   * `_bn_stats_kernel` (launched by `_stats_pallas`): the per-channel
@@ -11,6 +11,18 @@
 //     with the product and the sum rounded on their own (__fmul_rn,
 //     __fadd_rn: never contracted into an FMA), as the plain version
 //     computes them.
+//
+// 16-bit x (bf16, f16) follows the JAX package's rules: the statistics
+// and the fold in f32 (mean and var written as f32), scale and shift
+// rounded to x's type (gamma and beta come in x's type, the trainer's
+// compute type), y in x's type with the rounding XLA on the CPU gives
+// the TPU kernel's `x * scale + shift`: bf16 rounds the product to bf16
+// and then the sum (two roundings), f16 rounds the f32 sum once.  The
+// product of two 16-bit values is exact in f32, so __fmul_rn + a round
+// is the bf16 product; the kernels match their plain versions bit for
+// bit.  A 16-bit x streams 8 values (16 bytes) a load where C % 8 == 0
+// and the pointers are 16-byte aligned, else one value a load (views at
+// any 2-byte offset).
 //
 // Design.  The TPU kernel walks row blocks in order and carries the sums
 // in its output block; here blocks run in parallel in no order, so the
@@ -49,16 +61,19 @@
 // registers and streams rows.
 //
 // What bounds it on an H100.  Bytes: stats reads x once (4 bytes an
-// element for 2 f64 adds and 1 conversion, far below the FP64 and
-// conversion rates at 3.35 TB/s; the partials are small beside x, and
-// at the small row counts of ResNet-50's last stages the launch and the
-// combine's serial tail are the time, which one launch and no separate
-// fold keep short); apply reads x and writes y (8 bytes an
-// element for 2 flops).  At ResNet-50's stem (128 x 112 x 112 x 64 f32,
-// 411 MB) the bounds are 0.123 ms and 0.245 ms.  The design's only job
-// is to stream: 16-byte accesses, enough of them in flight, partials
-// small beside x.
+// element in f32, 2 in 16 bits, for 2 f64 adds and 1 conversion, far
+// below the FP64 and conversion rates at 3.35 TB/s; the partials are
+// small beside x, and at the small row counts of ResNet-50's last stages
+// the launch and the combine's serial tail are the time, which one
+// launch and no separate fold keep short); apply reads x and writes y
+// (8 bytes an element in f32, 4 in 16 bits, for 2 flops).  At
+// ResNet-50's stem (128 x 112 x 112 x 64: 411 MB in f32) the bounds are
+// 0.123 ms and 0.245 ms in f32, 0.061 ms and 0.123 ms in 16 bits.  The
+// design's only job is to stream: 16-byte accesses, enough of them in
+// flight, partials small beside x.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,39 +83,91 @@ namespace {
 
 constexpr int NT = 256;
 
-template <int VEC>
-__device__ __forceinline__ void load_vec(const float* p, float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
+
+// f32 -> T, round to nearest even (inf past the type's range)
+template <typename T>
+__device__ __forceinline__ T from_f(float v) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __float2bfloat16_rn(v);
+  else if constexpr (std::is_same<T, __half>::value)
+    return __float2half_rn(v);
+  else
+    return v;
+}
+
+// Two 16-bit values of a 32-bit word as floats (bf16 is the high half
+// of an f32, so its conversion is a shift), and back.
+template <typename T>
+__device__ __forceinline__ void unpack2(uint32_t w, float& lo, float& hi) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    lo = __uint_as_float(w << 16);
+    hi = __uint_as_float(w & 0xffff0000u);
+  } else {
+    lo = __half2float(__ushort_as_half((unsigned short)(w & 0xffffu)));
+    hi = __half2float(__ushort_as_half((unsigned short)(w >> 16)));
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(T lo, T hi) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return (uint32_t)__bfloat16_as_ushort(lo) |
+           ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+  else
+    return (uint32_t)__half_as_ushort(lo) |
+           ((uint32_t)__half_as_ushort(hi) << 16);
+}
+
+// p[0 .. VEC) as floats: one 16-byte load at VEC = 4 (f32) or 8 (16-bit
+// T), else one value at a time.
+template <int VEC, typename T>
+__device__ __forceinline__ void load_x(const T* p, float (&v)[VEC]) {
+  if constexpr (VEC == 4 && std::is_same<T, float>::value) {
     const float4 t = *reinterpret_cast<const float4*>(p);
     v[0] = t.x;
     v[1] = t.y;
     v[2] = t.z;
     v[3] = t.w;
-  } else {
-    v[0] = *p;
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void store_vec(float* p, const float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-    *p = v[0];
-  }
-}
-
-// x[r * c + col .. + VEC) as floats (T = float: one 16-byte load at
-// VEC = 4).  Only f32 is instantiated; a 16-bit T reads its values and
-// converts them.
-template <int VEC, typename T>
-__device__ __forceinline__ void load_x(const T* p, float (&v)[VEC]) {
-  if constexpr (std::is_same<T, float>::value) {
-    load_vec<VEC>(p, v);
+  } else if constexpr (VEC == 8) {
+    const uint4 t = *reinterpret_cast<const uint4*>(p);
+    unpack2<T>(t.x, v[0], v[1]);
+    unpack2<T>(t.y, v[2], v[3]);
+    unpack2<T>(t.z, v[4], v[5]);
+    unpack2<T>(t.w, v[6], v[7]);
   } else {
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) v[k] = static_cast<float>(p[k]);
+    for (int k = 0; k < VEC; ++k) v[k] = to_f(p[k]);
   }
+}
+
+template <int VEC, typename T>
+__device__ __forceinline__ void store_y(T* p, const T (&o)[VEC]) {
+  if constexpr (VEC == 4 && std::is_same<T, float>::value) {
+    *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+  } else if constexpr (VEC == 8) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pack2<T>(o[0], o[1]), pack2<T>(o[2], o[3]),
+                   pack2<T>(o[4], o[5]), pack2<T>(o[6], o[7]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) p[k] = o[k];
+  }
+}
+
+// x * scale + shift in T, rounded as the plain version (and XLA on the
+// CPU) rounds it: f32 and f16 the f32 product and sum rounded once to T;
+// bf16 the product rounded to bf16, then the sum.
+template <typename T>
+__device__ __forceinline__ T affine(float x, float s, float b) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return from_f<T>(__fadd_rn(to_f(from_f<T>(__fmul_rn(x, s))), b));
+  else
+    return from_f<T>(__fadd_rn(__fmul_rn(x, s), b));
 }
 
 // One launch: a (column blocks, row splits) grid.  Every block sums its
@@ -109,14 +176,16 @@ __device__ __forceinline__ void load_x(const T* p, float (&v)[VEC]) {
 // ticket from its column block's counter.  The block that draws the last
 // ticket adds that column block's partials in a fixed order (the same
 // whichever block arrives last), writes mean and var and the fold, and
-// sets the counter back to 0 for the next call.  out: mean, var, scale,
-// shift, rows of stride `ldo`.
+// sets the counter back to 0 for the next call.  stats: mean and var,
+// f32 rows of stride `ldo`; fold: scale and shift in T, rows of stride
+// `ldo`.
 template <int VEC, typename T>
 __global__ void __launch_bounds__(NT)
-bn_stats_fold(const T* __restrict__ x, const float* __restrict__ gamma,
-              const float* __restrict__ beta, float eps, long long rows,
+bn_stats_fold(const T* __restrict__ x, const T* __restrict__ gamma,
+              const T* __restrict__ beta, float eps, long long rows,
               int c, long long rows_per_split, double* __restrict__ part,
-              int* __restrict__ ticket, float* __restrict__ out, int ldo) {
+              int* __restrict__ ticket, float* __restrict__ stats,
+              T* __restrict__ fold, int ldo) {
   constexpr int NW = NT / 32;
   __shared__ double red[NW][2 * VEC][32];
   __shared__ double2 pairs[NT];
@@ -232,28 +301,30 @@ bn_stats_fold(const T* __restrict__ x, const float* __restrict__ gamma,
     double var = fin[1][tid] / n - m * m;
     var = var < 0.0 ? 0.0 : var;  // clamps last-bit negatives; NaN stays
     const float mf = (float)m, vf = (float)var;
-    // the plain version's fold, each operation rounded on its own
+    // the plain version's fold in f32, each operation rounded on its own,
+    // then scale and shift rounded to x's type
     const float inv = __frsqrt_rn(__fadd_rn(vf, eps));
-    const float g = gamma[col];
-    out[col] = mf;
-    out[ldo + col] = vf;
-    out[2 * ldo + col] = __fmul_rn(g, inv);
-    out[3 * ldo + col] = __fsub_rn(beta[col], __fmul_rn(__fmul_rn(mf, g), inv));
+    const float g = to_f(gamma[col]);
+    stats[col] = mf;
+    stats[ldo + col] = vf;
+    fold[col] = from_f<T>(__fmul_rn(g, inv));
+    fold[ldo + col] = from_f<T>(
+        __fsub_rn(to_f(beta[col]), __fmul_rn(__fmul_rn(mf, g), inv)));
   }
   if (tid == 0) ticket[blockIdx.x] = 0;  // ready for the next call
 }
 
-template <int VEC, bool RELU>
+template <int VEC, bool RELU, typename T>
 __global__ void __launch_bounds__(NT)
-bn_apply_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-                const float* __restrict__ shift, float* __restrict__ y,
+bn_apply_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                const T* __restrict__ shift, T* __restrict__ y,
                 long long rows, int c, long long rows_per_split) {
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int cv = blockIdx.x * blockDim.x + tx;
   if (cv >= c / VEC) return;
   float sc[VEC], sh[VEC];
-  load_vec<VEC>(scale + (long long)cv * VEC, sc);
-  load_vec<VEC>(shift + (long long)cv * VEC, sh);
+  load_x<VEC, T>(scale + (long long)cv * VEC, sc);
+  load_x<VEC, T>(shift + (long long)cv * VEC, sh);
   const long long r0 = (long long)blockIdx.y * rows_per_split;
   const long long r1 = r0 + rows_per_split < rows ? r0 + rows_per_split
                                                   : rows;
@@ -261,23 +332,25 @@ bn_apply_kernel(const float* __restrict__ x, const float* __restrict__ scale,
 #pragma unroll 4
   for (long long r = r0 + ty; r < r1; r += blockDim.y) {
     float v[VEC];
-    load_vec<VEC>(x + r * c + off, v);
+    load_x<VEC, T>(x + r * c + off, v);
+    T o[VEC];
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
-      float o = __fadd_rn(__fmul_rn(v[k], sc[k]), sh[k]);
+      T t = affine<T>(v[k], sc[k], sh[k]);
       // relu; NaN stays NaN, as in torch.relu
-      if constexpr (RELU) o = o < 0.f ? 0.f : o;
-      v[k] = o;
+      if constexpr (RELU) t = to_f(t) < 0.f ? from_f<T>(0.f) : t;
+      o[k] = t;
     }
-    store_vec<VEC>(y + r * c + off, v);
+    store_y<VEC, T>(y + r * c + off, o);
   }
 }
 
 // The grid the Python wrapper planned (kernels/bn_act.py `plan`): tx
-// column groups by 256 / tx rows a block, col_blocks x splits blocks.
-bool bad_plan(long long rows, int c, int vec, int tx, int col_blocks,
-              int splits, long long rows_per_split) {
-  if (rows < 1 || c < 1 || (vec != 1 && vec != 4) || c % vec != 0)
+// column groups by 256 / tx rows a block, col_blocks x splits blocks;
+// vec is 1 or the values of one 16-byte access, `wide`.
+bool bad_plan(long long rows, int c, int vec, int wide, int tx,
+              int col_blocks, int splits, long long rows_per_split) {
+  if (rows < 1 || c < 1 || (vec != 1 && vec != wide) || c % vec != 0)
     return true;
   if (tx < 1 || tx > NT || NT % tx != 0 || (tx & (tx - 1)) != 0) return true;
   if ((long long)col_blocks * tx < c / vec || splits < 1 || splits > 65535)
@@ -285,70 +358,104 @@ bool bad_plan(long long rows, int c, int vec, int tx, int col_blocks,
   return rows_per_split < 1 || (long long)splits * rows_per_split < rows;
 }
 
-}  // namespace
-
-extern "C" {
-
-// x: (rows, c) f32, row-major, 16-byte aligned; gamma, beta: c f32;
-// part: splits * 2 * c f64 scratch; ticket: col_blocks ints, 0 before the
-// call and after it; out: 4 rows (mean, var, scale, shift) of c f32 at
-// row stride ldo >= c.  One launch.  Returns cudaGetLastError() after it
-// (0 on success).
-int mx_bn_stats_f32(const void* x, const void* gamma, const void* beta,
-                    float eps, long long rows, int c, int vec, int tx,
-                    int col_blocks, int splits, long long rows_per_split,
-                    void* part, void* ticket, void* out, int ldo,
-                    void* stream) {
-  if (bad_plan(rows, c, vec, tx, col_blocks, splits, rows_per_split) ||
-      ldo < c)
+template <typename T>
+int stats_launch(const void* x, const void* gamma, const void* beta,
+                 float eps, long long rows, int c, int vec, int tx,
+                 int col_blocks, int splits, long long rows_per_split,
+                 void* part, void* ticket, void* out, int ldo,
+                 void* stream) {
+  constexpr int WIDE = 16 / sizeof(T);
+  if (bad_plan(rows, c, vec, WIDE, tx, col_blocks, splits, rows_per_split) ||
+      ldo < c || ldo % WIDE != 0)
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const dim3 block(tx, NT / tx), grid(col_blocks, splits);
-  const auto* xf = static_cast<const float*>(x);
-  const auto* g = static_cast<const float*>(gamma);
-  const auto* bt = static_cast<const float*>(beta);
+  const auto* xt = static_cast<const T*>(x);
+  const auto* g = static_cast<const T*>(gamma);
+  const auto* bt = static_cast<const T*>(beta);
   auto* pd = static_cast<double*>(part);
   auto* tk = static_cast<int*>(ticket);
-  auto* o = static_cast<float*>(out);
-  if (vec == 4)
-    bn_stats_fold<4, float><<<grid, block, 0, st>>>(
-        xf, g, bt, eps, rows, c, rows_per_split, pd, tk, o, ldo);
+  auto* stats = static_cast<float*>(out);
+  auto* fold = reinterpret_cast<T*>(stats + 2 * (long long)ldo);
+  if (vec == WIDE)
+    bn_stats_fold<WIDE, T><<<grid, block, 0, st>>>(
+        xt, g, bt, eps, rows, c, rows_per_split, pd, tk, stats, fold, ldo);
   else
-    bn_stats_fold<1, float><<<grid, block, 0, st>>>(
-        xf, g, bt, eps, rows, c, rows_per_split, pd, tk, o, ldo);
+    bn_stats_fold<1, T><<<grid, block, 0, st>>>(
+        xt, g, bt, eps, rows, c, rows_per_split, pd, tk, stats, fold, ldo);
   return (int)cudaGetLastError();
 }
 
-// x, y: (rows, c) f32, row-major, 16-byte aligned; scale, shift: c f32.
-// relu: 1 for relu, 0 for identity.
-int mx_bn_apply_f32(const void* x, const void* scale, const void* shift,
-                    void* y, long long rows, int c, int relu, int vec, int tx,
-                    int col_blocks, int splits, long long rows_per_split,
-                    void* stream) {
-  if (bad_plan(rows, c, vec, tx, col_blocks, splits, rows_per_split))
+template <int VEC, typename T>
+void apply_relu_or_not(const dim3& grid, const dim3& block, cudaStream_t st,
+                       int relu, const T* x, const T* sc, const T* sh, T* y,
+                       long long rows, int c, long long rows_per_split) {
+  if (relu)
+    bn_apply_kernel<VEC, true, T><<<grid, block, 0, st>>>(
+        x, sc, sh, y, rows, c, rows_per_split);
+  else
+    bn_apply_kernel<VEC, false, T><<<grid, block, 0, st>>>(
+        x, sc, sh, y, rows, c, rows_per_split);
+}
+
+template <typename T>
+int apply_launch(const void* x, const void* scale, const void* shift,
+                 void* y, long long rows, int c, int relu, int vec, int tx,
+                 int col_blocks, int splits, long long rows_per_split,
+                 void* stream) {
+  constexpr int WIDE = 16 / sizeof(T);
+  if (bad_plan(rows, c, vec, WIDE, tx, col_blocks, splits, rows_per_split))
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const dim3 block(tx, NT / tx), grid(col_blocks, splits);
-  const auto* xf = static_cast<const float*>(x);
-  const auto* sc = static_cast<const float*>(scale);
-  const auto* sh = static_cast<const float*>(shift);
-  auto* yf = static_cast<float*>(y);
-  if (vec == 4) {
-    if (relu)
-      bn_apply_kernel<4, true><<<grid, block, 0, st>>>(xf, sc, sh, yf, rows,
-                                                       c, rows_per_split);
-    else
-      bn_apply_kernel<4, false><<<grid, block, 0, st>>>(xf, sc, sh, yf, rows,
-                                                        c, rows_per_split);
-  } else {
-    if (relu)
-      bn_apply_kernel<1, true><<<grid, block, 0, st>>>(xf, sc, sh, yf, rows,
-                                                       c, rows_per_split);
-    else
-      bn_apply_kernel<1, false><<<grid, block, 0, st>>>(xf, sc, sh, yf, rows,
-                                                        c, rows_per_split);
-  }
+  const auto* xt = static_cast<const T*>(x);
+  const auto* sc = static_cast<const T*>(scale);
+  const auto* sh = static_cast<const T*>(shift);
+  auto* yt = static_cast<T*>(y);
+  if (vec == WIDE)
+    apply_relu_or_not<WIDE, T>(grid, block, st, relu, xt, sc, sh, yt, rows,
+                               c, rows_per_split);
+  else
+    apply_relu_or_not<1, T>(grid, block, st, relu, xt, sc, sh, yt, rows, c,
+                            rows_per_split);
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+// The entries, one a type.  Each launches once and returns
+// cudaGetLastError() after it (0 on success).
+//
+// stats: x (rows, c) row-major; gamma, beta: c values of x's type; vec 1
+// or 16 bytes of values (x 16-byte aligned then); part: splits * 2 * c
+// f64 scratch; ticket: col_blocks ints, 0 before the call and after it;
+// out: f32 rows mean and var of stride ldo (ldo >= c, a multiple of 16
+// bytes of x's type), then the rows scale and shift in x's type at the
+// same stride.
+//
+// apply: x, y (rows, c) row-major; scale, shift: c values of x's type
+// (all four 16-byte aligned when vec > 1); relu: 1 for relu, 0 for
+// identity.
+#define MX_BN_ENTRIES(SFX, T)                                                \
+  int mx_bn_stats_##SFX(const void* x, const void* gamma, const void* beta, \
+                        float eps, long long rows, int c, int vec, int tx,   \
+                        int col_blocks, int splits,                          \
+                        long long rows_per_split, void* part, void* ticket,  \
+                        void* out, int ldo, void* stream) {                  \
+    return stats_launch<T>(x, gamma, beta, eps, rows, c, vec, tx,            \
+                           col_blocks, splits, rows_per_split, part, ticket, \
+                           out, ldo, stream);                                \
+  }                                                                          \
+  int mx_bn_apply_##SFX(const void* x, const void* scale, const void* shift, \
+                        void* y, long long rows, int c, int relu, int vec,   \
+                        int tx, int col_blocks, int splits,                  \
+                        long long rows_per_split, void* stream) {            \
+    return apply_launch<T>(x, scale, shift, y, rows, c, relu, vec, tx,       \
+                           col_blocks, splits, rows_per_split, stream);      \
+  }
+
+extern "C" {
+MX_BN_ENTRIES(f32, float)
+MX_BN_ENTRIES(bf16, __nv_bfloat16)
+MX_BN_ENTRIES(f16, __half)
 }  // extern "C"

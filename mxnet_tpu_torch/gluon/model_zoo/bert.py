@@ -100,8 +100,10 @@ class TransformerEncoderCell(HybridBlock):
         self.attention = MultiHeadAttentionCell(units, num_heads,
                                                 dropout=dropout, **kw)
         self.ffn = PositionwiseFFN(units, hidden_size, dropout=dropout, **kw)
-        self.layer_norm_att = LayerNorm(units, layer_norm_eps, **kw)
-        self.layer_norm_ffn = LayerNorm(units, layer_norm_eps, **kw)
+        self.layer_norm_att = LayerNorm(epsilon=layer_norm_eps,
+                                        in_channels=units, **kw)
+        self.layer_norm_ffn = LayerNorm(epsilon=layer_norm_eps,
+                                        in_channels=units, **kw)
 
     def forward(self, x, mask=None, valid_length=None):
         x = self.layer_norm_att(x + self.attention(x, mask, valid_length))
@@ -169,7 +171,8 @@ class BERTModel(HybridBlock):
         self.token_type_embed = Embedding(token_type_vocab_size, units, **emb)
         self.position_weight = nn.Parameter(
             torch.empty(max_length, units, **emb))
-        self.embed_layer_norm = LayerNorm(units, layer_norm_eps, **kw)
+        self.embed_layer_norm = LayerNorm(epsilon=layer_norm_eps,
+                                          in_channels=units, **kw)
         self.embed_dropout = Dropout(dropout) if dropout else None
         self.encoder = BERTEncoder(num_layers=num_layers, units=units,
                                    hidden_size=hidden_size,
@@ -226,7 +229,8 @@ class BERTForPretrain(HybridBlock):
         # exact erf GELU, as in the JAX package (BERT semantics)
         self.mlm_transform = Dense(units, activation="erf_gelu",
                                    flatten=False, in_units=units, **kw)
-        self.mlm_layer_norm = LayerNorm(units, 1e-12, **kw)
+        self.mlm_layer_norm = LayerNorm(epsilon=1e-12, in_channels=units,
+                                        **kw)
         self.mlm_bias = nn.Parameter(torch.zeros(self._vocab_size, **kw))
         self.nsp = Dense(2, flatten=False, in_units=units, **kw)
 

@@ -104,10 +104,10 @@ class TransformerDecoderCell(HybridBlock):
                                                  device=device, dtype=dtype)
         self.ffn = PositionwiseFFN(units, hidden_size, device=device,
                                    dtype=dtype)
-        self.ln_att = LayerNorm(units, layer_norm_eps, device=device,
-                                dtype=dtype)
-        self.ln_ffn = LayerNorm(units, layer_norm_eps, device=device,
-                                dtype=dtype)
+        self.ln_att = LayerNorm(epsilon=layer_norm_eps, in_channels=units,
+                                device=device, dtype=dtype)
+        self.ln_ffn = LayerNorm(epsilon=layer_norm_eps, in_channels=units,
+                                device=device, dtype=dtype)
 
     def forward(self, x, layer_cache, lens, lens_dev):
         x = x + self.attention(self.ln_att(x), layer_cache, lens, lens_dev)
@@ -151,7 +151,8 @@ class TransformerLM(HybridBlock):
             TransformerDecoderCell(units, hidden_size or 4 * units, num_heads,
                                    layer_norm_eps, device=dev, dtype=dtype)
             for _ in range(num_layers))
-        self.ln_f = LayerNorm(units, layer_norm_eps, device=dev, dtype=dtype)
+        self.ln_f = LayerNorm(epsilon=layer_norm_eps, in_channels=units,
+                              device=dev, dtype=dtype)
         self.out_bias = nn.Parameter(
             torch.zeros(vocab_size, device=dev, dtype=dtype))
 

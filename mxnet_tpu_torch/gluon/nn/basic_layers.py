@@ -90,28 +90,70 @@ class Dropout(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """Row gather from ``weight`` (input_dim, output_dim)."""
+    """Row gather from ``weight`` (input_dim, output_dim), in the JAX
+    package's signature: ``Embedding(input_dim, output_dim, dtype,
+    weight_initializer=None, sparse_grad=False)``.  Ids of any type are
+    cast to an integer type first, as the JAX op takes
+    ``indices.astype(int32)`` (float ids truncate toward zero).
+    ``sparse_grad=True`` (row-sparse gradients) is not ported."""
 
-    def __init__(self, input_dim: int, output_dim: int, device=None,
-                 dtype=torch.float32):
+    def __init__(self, input_dim: int, output_dim: int, dtype=torch.float32,
+                 weight_initializer=None, sparse_grad: bool = False,
+                 device=None):
         super().__init__()
+        if weight_initializer is not None:
+            raise MXNetError("Embedding(weight_initializer=...) is not "
+                             "ported (initialize(seed) draws every weight); "
+                             "ROADMAP A10")
+        if sparse_grad:
+            raise MXNetError("Embedding(sparse_grad=True) is not ported; "
+                             "ROADMAP A6, long tail")
         self.weight = _empty((input_dim, output_dim), device, dtype)
 
     def forward(self, x):
+        if x.dtype not in (torch.int32, torch.int64):
+            x = x.to(torch.int32)
         return self.weight[x]
 
 
-class LayerNorm(HybridBlock):
-    """Layer normalization over the last axis with ``gamma`` / ``beta``."""
+_FILLS = {"zeros": 0.0, "ones": 1.0}
 
-    def __init__(self, in_channels: int, epsilon: float = 1e-5, device=None,
-                 dtype=torch.float32):
+
+def _fill(init, what: str) -> float:
+    if init not in _FILLS:
+        raise MXNetError(f"{what}={init!r} is not ported ({sorted(_FILLS)} "
+                         "are); ROADMAP A10")
+    return _FILLS[init]
+
+
+class LayerNorm(HybridBlock):
+    """Layer normalization over the last axis with ``gamma`` / ``beta``,
+    in the JAX package's signature: ``LayerNorm(axis=-1, epsilon=1e-5,
+    center=True, scale=True, beta_initializer="zeros",
+    gamma_initializer="ones", in_channels=0)``.  ``center=False`` /
+    ``scale=False`` keep beta / gamma at their initial value with no
+    gradient, as the reference's non-differentiable parameters.  Another
+    ``axis`` raises (ROADMAP A6), and so does ``in_channels=0``: the port
+    builds parameters at construction."""
+
+    def __init__(self, axis: int = -1, epsilon: float = 1e-5,
+                 center: bool = True, scale: bool = True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels: int = 0, device=None, dtype=torch.float32):
         super().__init__()
+        if axis != -1:
+            raise MXNetError(f"LayerNorm(axis={axis}) is not ported (the "
+                             "last axis, -1, is); ROADMAP A6, long tail")
+        c = _known(in_channels, "LayerNorm in_channels")
         self._epsilon = epsilon
-        self.gamma = nn.Parameter(torch.ones(in_channels, device=device,
-                                             dtype=dtype))
-        self.beta = nn.Parameter(torch.zeros(in_channels, device=device,
-                                             dtype=dtype))
+        #: the values ``initialize`` gives gamma and beta
+        self.fills = {"gamma": _fill(gamma_initializer, "gamma_initializer"),
+                      "beta": _fill(beta_initializer, "beta_initializer")}
+        kw = dict(device=device, dtype=dtype)
+        self.gamma = nn.Parameter(torch.full((c,), self.fills["gamma"], **kw),
+                                  requires_grad=scale)
+        self.beta = nn.Parameter(torch.full((c,), self.fills["beta"], **kw),
+                                 requires_grad=center)
 
     def forward(self, x):
         return _ops.layer_norm(x, self.gamma, self.beta, self._epsilon)

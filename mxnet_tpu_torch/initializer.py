@@ -34,7 +34,8 @@ def _fans(module: nn.Module, p: torch.Tensor):
 @torch.no_grad()
 def seeded_init(module: nn.Module, seed: int):
     """Seeded random weights: Xavier-uniform (magnitude 3, fan average)
-    for every 2-D and 4-D weight, zero biases and betas, unit gammas;
+    for every 2-D and 4-D weight, zero biases and betas, unit gammas
+    (a ``LayerNorm``'s ``fills`` where its initializers differ);
     BatchNorm's running mean 0 and variance 1.  Drawn on the CPU from a
     ``torch.Generator`` in parameter order, then copied to the model's
     device."""
@@ -46,10 +47,9 @@ def seeded_init(module: nn.Module, seed: int):
                 bound = math.sqrt(3.0 / ((fan_in + fan_out) / 2.0))
                 w = torch.rand(p.shape, generator=gen, dtype=torch.float32)
                 p.copy_((w * 2.0 - 1.0) * bound)
-            elif name == "gamma":
-                p.fill_(1.0)
-            else:
-                p.zero_()
+            else:     # gamma 1, beta and biases 0, or the layer's fills
+                p.fill_(getattr(mod, "fills", {}).get(
+                    name, 1.0 if name == "gamma" else 0.0))
         for name, b in mod.named_buffers(recurse=False):
             b.fill_(1.0 if name == "running_var" else 0.0)
     return module

@@ -12,19 +12,28 @@ with one read of ``x`` each:
   gamma * rsqrt(var + eps)`` (the JAX package's fold, in f32);
 * :func:`bn_apply`: ``y = x * scale + shift``, then relu when asked.
 
-CUDA tensors launch the two hand-written kernels of ``csrc/bn_act.cu``
-(f32, any ``rows >= 1`` and ``C >= 1``, contiguous; the statistics and
-the fold in one launch) or raise; CPU tensors run
-:func:`bn_stats_plain` / :func:`bn_apply_plain`, the same formulas in
-plain PyTorch.  Unlike the TPU kernels, which need a row
-count that some preferred block divides (``pick_row_block``), the port's
-kernels take any row count, so ``batch_norm_act_train`` has no
-"not tile-able" fallback.
+``x`` is f32, bf16 or f16, and ``gamma`` / ``beta`` / ``scale`` /
+``shift`` are in its type.  A 16-bit ``x`` follows the JAX package's
+rules: mean and var in f32, scale and shift rounded to x's type, ``y``
+in x's type with the rounding XLA on the CPU gives the TPU kernel (bf16:
+the product rounded to bf16, then the sum; f16: the f32 sum rounded
+once), the backward in f32.
+
+CUDA tensors launch the hand-written kernels of ``csrc/bn_act.cu``
+(any ``rows >= 1`` and ``C >= 1``, contiguous, any alignment; the
+statistics and the fold in one launch; counted as ``bn_act_stats`` /
+``bn_act_apply`` in f32 and ``bn_act_stats.bf16``, ``...f16`` in 16
+bits) or raise; CPU tensors run :func:`bn_stats_plain` /
+:func:`bn_apply_plain`, the same formulas in plain PyTorch.  Unlike the
+TPU kernels, which need a row count that some preferred block divides
+(``pick_row_block``), the port's kernels take any row count, so
+``batch_norm_act_train`` has no "not tile-able" fallback.
 
 :func:`bn_act_train` is the training-mode op as an autograd function:
 ``(y, mean, var)``.  Its backward is the analytic BN(+relu) gradient of
 ``_bn_act_bwd`` in plain PyTorch (the JAX package has no Pallas
-backward), with the terms of the statistics' own gradients, so
+backward), in f32 with ``dx`` in x's type and ``dgamma`` / ``dbeta`` in
+gamma's, with the terms of the statistics' own gradients, so
 differentiating through the returned ``mean`` / ``var`` matches
 ``jax.grad``.
 """
@@ -48,6 +57,8 @@ _NT = 256                  # threads a block (csrc/bn_act.cu NT)
 _BLOCKS_PER_SM = 4         # one wave: 4 resident 256-thread blocks an SM
 _MIN_ROWS_PER_THREAD = 8   # below this a split costs more than it hides
 STATS_COLS = 16            # columns a stats block reads (its combine's width)
+# x's type -> the C entries' and launch counts' suffix
+_SFX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
 def supported_act(act_type: str) -> bool:
@@ -55,8 +66,19 @@ def supported_act(act_type: str) -> bool:
     return act_type in _ACTS
 
 
+def _kernel_name(kernel: str, dtype) -> str:
+    """The registry name of ``kernel`` (``"bn_act_stats"`` or
+    ``"bn_act_apply"``) for x of ``dtype``: the f32 kernels keep their
+    names, the 16-bit ones add ``.bf16`` / ``.f16``."""
+    sfx = _SFX.get(dtype)
+    if sfx is None:
+        raise MXNetError(f"{kernel}: no kernel for {dtype}; the kernels "
+                         f"take {list(_SFX)}")
+    return kernel if sfx == "f32" else f"{kernel}.{sfx}"
+
+
 class Plan(NamedTuple):
-    """The kernels' grid: ``tx`` column groups of ``vec`` floats by
+    """The kernels' grid: ``tx`` column groups of ``vec`` values by
     ``256 // tx`` rows a block; ``col_blocks`` x ``splits`` blocks, each
     split ``rows_per_split`` rows."""
 
@@ -67,18 +89,20 @@ class Plan(NamedTuple):
     rows_per_split: int
 
 
-def plan(rows: int, c: int, sms: int, cols: int = 128) -> Plan:
-    """The grid for ``(rows, C)`` on a card of ``sms`` SMs: float4
-    columns when ``C % 4 == 0``, up to 32 column groups a block and at
-    most ``cols`` columns (a warp reads whole row segments), and enough
-    row splits for about ``4 * sms`` blocks (one wave, no tail) while
-    every thread keeps at least 8 rows.  The stats kernel plans
-    ``cols=STATS_COLS``: its last block of a column block combines that
-    block's partials, and narrow blocks keep that tail short and spread
-    it over more blocks."""
+def plan(rows: int, c: int, sms: int, cols: int = 128,
+         width: int = 4) -> Plan:
+    """The grid for ``(rows, C)`` on a card of ``sms`` SMs: column groups
+    of ``width`` values (one 16-byte access: 4 f32, 8 16-bit; 1 where the
+    pointers are not 16-byte aligned) when ``C % width == 0``, else of 1;
+    up to 32 column groups a block and at most ``cols`` columns (a warp
+    reads whole row segments), and enough row splits for about ``4 *
+    sms`` blocks (one wave, no tail) while every thread keeps at least 8
+    rows.  The stats kernel plans ``cols=STATS_COLS``: its last block of
+    a column block combines that block's partials, and narrow blocks
+    keep that tail short and spread it over more blocks."""
     if rows < 1 or c < 1:
         raise MXNetError(f"bn_act: empty input ({rows} rows, C={c})")
-    vec = 4 if c % 4 == 0 else 1
+    vec = width if c % width == 0 else 1
     ncv = c // vec
     tx = 1
     while tx < min(ncv, 32, max(1, cols // vec)):
@@ -109,26 +133,37 @@ def rows_view(x: torch.Tensor) -> torch.Tensor:
 # -------------------------------------------------------- plain versions
 def bn_stats_plain(x2d: torch.Tensor, gamma: torch.Tensor,
                    beta: torch.Tensor, eps: float):
-    """``(mean, var, scale, shift)`` of the columns of ``x2d``, f32: the
-    mean and the one-pass variance of the TPU kernel (module docstring),
+    """``(mean, var, scale, shift)`` of the columns of ``x2d``: the mean
+    and the one-pass variance of the TPU kernel (module docstring),
     summed and combined in float64 as the kernel does (where a channel's
     variance is tiny beside its mean squared, f32 sums would cancel to
-    noise), then the fold in f32, each operation rounded on its own:
-    ``inv = rsqrt(var + eps)``, ``scale = gamma * inv``, ``shift = beta
-    - (mean * gamma) * inv``."""
+    noise), as f32; then the fold in f32, each operation rounded on its
+    own as the kernel computes it: ``inv = rsqrt(var + eps)`` (correctly
+    rounded: the square root taken in float64), ``scale = gamma * inv``,
+    ``shift = beta - (mean * gamma) * inv``, scale and shift rounded to
+    x's type."""
     n = x2d.shape[0]
     xd = x2d.double()
     mean = xd.sum(0) / n
     var = torch.clamp_min((xd * xd).sum(0) / n - mean * mean, 0.0)
     mean, var = mean.float(), var.float()
-    inv = torch.rsqrt(var + eps)
-    return mean, var, gamma * inv, beta - mean * gamma * inv
+    inv = torch.rsqrt((var + eps).double()).float()
+    g = gamma.float()
+    dt = x2d.dtype
+    return (mean, var, (g * inv).to(dt),
+            (beta.float() - mean * g * inv).to(dt))
 
 
 def bn_apply_plain(x2d: torch.Tensor, scale: torch.Tensor,
                    shift: torch.Tensor, act: str) -> torch.Tensor:
-    """``x2d * scale + shift``, then relu when ``act == "relu"``."""
-    y = x2d * scale + shift
+    """``x2d * scale + shift`` in x's type, then relu when ``act ==
+    "relu"``.  f32 and bf16 round the product and then the sum (torch's
+    own ``x * scale + shift``); f16 rounds the f32 sum once, as XLA on
+    the CPU computes the JAX op."""
+    if x2d.dtype == torch.float16:
+        y = (x2d.float() * scale.float() + shift.float()).half()
+    else:
+        y = x2d * scale + shift
     return torch.relu(y) if act == "relu" else y
 
 
@@ -144,10 +179,18 @@ def _entry(symbol: str, argtypes):
 
 
 @functools.lru_cache(maxsize=256)
-def _device_plan(rows: int, c: int, device_index: int,
-                 cols: int = 128) -> Plan:
+def _device_plan(rows: int, c: int, device_index: int, cols: int = 128,
+                 width: int = 4) -> Plan:
     props = torch.cuda.get_device_properties(device_index)
-    return plan(rows, c, props.multi_processor_count, cols)
+    return plan(rows, c, props.multi_processor_count, cols, width)
+
+
+def _width(dtype, *tensors) -> int:
+    """Values of one 16-byte access (4 f32, 8 16-bit) when every pointer
+    is 16-byte aligned, else 1."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        return 1
+    return 128 // torch.finfo(dtype).bits
 
 
 def _check_act(act: str):
@@ -185,27 +228,30 @@ def _workspace(device, stream: int, col_blocks: int, nparts: int):
 def bn_stats(x2d: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
              eps: float):
     """Per-channel ``(mean, var, scale, shift)`` of ``(rows, C)`` with
-    ``gamma`` and ``beta`` (C,), f32 (module docstring).  CUDA: one
-    launch of ``csrc/bn_act.cu``'s stats kernel, the fold included, or
-    raise; CPU: :func:`bn_stats_plain`."""
+    ``gamma`` and ``beta`` (C,) in x's type: mean and var f32, scale and
+    shift in x's type (module docstring).  CUDA: one launch of
+    ``csrc/bn_act.cu``'s stats kernel, the fold included, or raise; CPU:
+    :func:`bn_stats_plain`."""
     if x2d.device.type == "cpu":
         return bn_stats_plain(x2d, gamma, beta, eps)
     _check_dev("bn_stats", x2d)
-    rows, c = x2d.shape
+    name = _kernel_name("bn_act_stats", x2d.dtype)
+    dt, (rows, c) = x2d.dtype, x2d.shape
     _kreg.check_tensors("bn_stats", x2d.device,
-                        [("x", x2d, torch.float32, (rows, c)),
-                         ("gamma", gamma, torch.float32, (c,)),
-                         ("beta", beta, torch.float32, (c,))],
-                        aligned=False)
-    if x2d.data_ptr() % 16:
-        raise MXNetError("bn_stats: x must be 16-byte aligned")
-    p = _device_plan(rows, c, x2d.device.index, STATS_COLS)
+                        [("x", x2d, dt, (rows, c)),
+                         ("gamma", gamma, dt, (c,)),
+                         ("beta", beta, dt, (c,))], aligned=False)
+    p = _device_plan(rows, c, x2d.device.index, STATS_COLS,
+                     _width(dt, x2d))
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
     ticket, part = _workspace(x2d.device, stream, p.col_blocks,
                               p.splits * 2 * c)
-    ldo = -(-c // 4) * 4             # rows of out 16-byte aligned
-    out = torch.empty((4, ldo), dtype=torch.float32, device=x2d.device)
-    fn = _entry("mx_bn_stats_f32",
+    ldo = -(-c // 8) * 8             # rows of out 16-byte aligned
+    elt = x2d.element_size()
+    # f32 mean and var, then scale and shift in x's type
+    out = torch.empty(2 * ldo + ldo * elt // 2, dtype=torch.float32,
+                      device=x2d.device)
+    fn = _entry(f"mx_bn_stats_{_SFX[dt]}",
                 [ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_longlong]
                 + [ctypes.c_int] * 5 + [ctypes.c_longlong]
                 + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
@@ -215,30 +261,32 @@ def bn_stats(x2d: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                  p.rows_per_split, part.data_ptr(), ticket.data_ptr(),
                  out.data_ptr(), ldo, stream)
     if err != 0:
-        raise MXNetError(f"bn_act_stats kernel launch failed: CUDA error "
-                         f"{err}")
-    _kreg.count_launch("bn_act_stats")
-    return tuple(out[:, :c])
+        raise MXNetError(f"{name} kernel launch failed: CUDA error {err}")
+    _kreg.count_launch(name)
+    fold = out[2 * ldo:].view(dt)
+    return out[:c], out[ldo:ldo + c], fold[:c], fold[ldo:ldo + c]
 
 
 def bn_apply(x2d: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
              act: str) -> torch.Tensor:
     """``act(x2d * scale + shift)`` over ``(rows, C)`` with per-channel
-    ``scale`` and ``shift`` (C,).  CUDA: ``csrc/bn_act.cu``'s apply
-    kernel into a new tensor, or raise; CPU: :func:`bn_apply_plain`."""
+    ``scale`` and ``shift`` (C,) in x's type.  CUDA: ``csrc/bn_act.cu``'s
+    apply kernel into a new tensor, or raise; CPU:
+    :func:`bn_apply_plain`."""
     _check_act(act)
     if x2d.device.type == "cpu":
         return bn_apply_plain(x2d, scale, shift, act)
     _check_dev("bn_apply", x2d)
-    rows, c = x2d.shape
-    y = torch.empty_like(x2d)
+    name = _kernel_name("bn_act_apply", x2d.dtype)
+    dt, (rows, c) = x2d.dtype, x2d.shape
+    y = torch.empty((rows, c), dtype=dt, device=x2d.device)
     _kreg.check_tensors("bn_apply", x2d.device,
-                        [("x", x2d, torch.float32, (rows, c)),
-                         ("scale", scale, torch.float32, (c,)),
-                         ("shift", shift, torch.float32, (c,)),
-                         ("y", y, torch.float32, (rows, c))])
-    p = _device_plan(rows, c, x2d.device.index)
-    fn = _entry("mx_bn_apply_f32",
+                        [("x", x2d, dt, (rows, c)),
+                         ("scale", scale, dt, (c,)),
+                         ("shift", shift, dt, (c,))], aligned=False)
+    p = _device_plan(rows, c, x2d.device.index, 128,
+                     _width(dt, x2d, scale, shift))
+    fn = _entry(f"mx_bn_apply_{_SFX[dt]}",
                 [ctypes.c_void_p] * 4 + [ctypes.c_longlong] +
                 [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_void_p])
     with torch.cuda.device(x2d.device):
@@ -247,18 +295,16 @@ def bn_apply(x2d: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                  p.col_blocks, p.splits, p.rows_per_split,
                  torch.cuda.current_stream(x2d.device).cuda_stream)
     if err != 0:
-        raise MXNetError(f"bn_act_apply kernel launch failed: CUDA error "
-                         f"{err}")
-    _kreg.count_launch("bn_act_apply")
+        raise MXNetError(f"{name} kernel launch failed: CUDA error {err}")
+    _kreg.count_launch(name)
     return y
 
 
 # ------------------------------------------------------- the autograd op
 class _BNAct(torch.autograd.Function):
     """Forward: one stats call (the fold included), one apply call.
-    Backward: the
-    analytic gradient (module docstring), saving ``x`` and ``y`` (the
-    relu mask is ``y > 0``)."""
+    Backward: the analytic gradient in f32 (module docstring), saving
+    ``x`` and ``y`` (the relu mask is ``y > 0``)."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps, act):
@@ -277,28 +323,31 @@ class _BNAct(torch.autograd.Function):
         x2d = x.reshape(-1, c)
         n = x2d.shape[0]
         inv = torch.rsqrt(var + ctx.eps)
-        gy = torch.zeros_like(x2d) if gy is None else gy.reshape(-1, c)
+        gy = x2d.new_zeros(x2d.shape, dtype=torch.float32) if gy is None \
+            else gy.reshape(-1, c).float()
         if ctx.act == "relu":
             gy = gy * (y.reshape(-1, c) > 0)
-        xc = x2d - mean
+        xc = x2d.float() - mean
         xhat = xc * inv
         dgamma = (gy * xhat).sum(0)
         dbeta = gy.sum(0)
-        dx = (gamma * inv) * (gy - dbeta / n - xhat * dgamma / n)
+        dx = (gamma.float() * inv) * (gy - dbeta / n - xhat * dgamma / n)
         if gmean is not None:
             dx = dx + gmean / n
         if gvar is not None:
             dx = dx + gvar * 2.0 * xc / n
         need = ctx.needs_input_grad
-        return (dx.view(x.shape) if need[0] else None,
-                dgamma if need[1] else None, dbeta if need[2] else None,
-                None, None)
+        return (dx.to(x.dtype).view(x.shape) if need[0] else None,
+                dgamma.to(gamma.dtype) if need[1] else None,
+                dbeta.to(gamma.dtype) if need[2] else None, None, None)
 
 
 def bn_act_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                  eps: float, act: str):
-    """Training-mode BN + activation on channel-LAST ``x`` (f32):
-    ``(y, mean, var)`` with the batch statistics (C,); the caller blends
-    the running statistics, as ``ops.nn.batch_norm_train`` does."""
+    """Training-mode BN + activation on channel-LAST ``x`` (f32, bf16 or
+    f16, with ``gamma`` / ``beta`` in its type on the card): ``(y, mean,
+    var)``, ``y`` in x's type and the batch statistics (C,) in f32; the
+    caller blends the running statistics, as ``ops.nn.batch_norm_train``
+    does."""
     _check_act(act)
     return _BNAct.apply(x, gamma, beta, float(eps), act)

@@ -55,6 +55,11 @@ KERNELS: Dict[str, Tuple[str, str]] = {
     "bn_act_apply": (
         "bn_act.cu",
         "mxnet_tpu/kernels/bn_act.py:70 _bn_apply_kernel"),
+    **{f"{name}.{dt}": ("bn_act.cu", f"{tpu} ({dt})")
+       for name, tpu in (
+           ("bn_act_stats", "mxnet_tpu/kernels/bn_act.py:55 _bn_stats_kernel"),
+           ("bn_act_apply", "mxnet_tpu/kernels/bn_act.py:70 _bn_apply_kernel"))
+       for dt in ("bf16", "f16")},
     "ext_sqrelu_fwd": (
         "ext_ops.cu",
         "example/extensions/pallas_ops.py:37 _sqrelu_fwd_kernel"),

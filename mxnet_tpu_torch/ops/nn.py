@@ -157,12 +157,26 @@ def _channel_shape(x, axis: int):
     return shape
 
 
+_HALF = (torch.bfloat16, torch.float16)
+
+
 def _blend(moving, batch, momentum: float):
     """MXNet's running-statistics blend ``m * momentum + batch * (1 -
     momentum)`` (the opposite of PyTorch's momentum convention), off the
-    graph, in the buffer's dtype."""
+    graph, in the buffer's dtype.  A 16-bit buffer (the trainer's cast
+    copy) gets the JAX op's values under XLA on the CPU: ``momentum``
+    rounded to the buffer's type (a weakly typed scalar; 0.8984375 for
+    0.9 in bf16), the product in f32 (rounded to f16 for an f16 buffer,
+    kept in f32 for bf16), the batch term and the sum in f32, one cast."""
     with torch.no_grad():
-        return (moving * momentum + batch.detach() * (1 - momentum)
+        if moving.dtype not in _HALF:
+            return (moving * momentum + batch.detach() * (1 - momentum)
+                    ).to(moving.dtype)
+        m = torch.tensor(momentum, dtype=moving.dtype).item()
+        kept = moving.float() * m
+        if moving.dtype == torch.float16:
+            kept = kept.half().float()
+        return (kept + batch.detach().float() * (1 - momentum)
                 ).to(moving.dtype)
 
 
@@ -171,27 +185,35 @@ def batch_norm_train(x, gamma, beta, moving_mean, moving_var,
                      fix_gamma: bool = False, use_global_stats: bool = False):
     """Training-mode batch norm: ``(out, new_moving_mean,
     new_moving_var)``.  Batch statistics over every axis but ``axis``
-    (two-pass biased variance), folded into per-channel scale and shift;
-    the new moving statistics are returned, not written (the ``npx``
-    layer writes them)."""
+    (two-pass biased variance) in f32 whatever x's type, folded in f32
+    into per-channel scale and shift rounded to x's type, and ``out`` in
+    x's type (the JAX package's 16-bit rules); the new moving statistics
+    are returned in the buffers' type, not written (the ``npx`` layer
+    writes them)."""
+    from ..kernels import bn_act as _kbn
+
     axis = axis % x.ndim
     if fix_gamma:
         gamma = torch.ones_like(gamma)
     axes = tuple(i for i in range(x.ndim) if i != axis)
+    shape = _channel_shape(x, axis)
     if use_global_stats:
         mean, var = moving_mean, moving_var
         new_mean, new_var = moving_mean, moving_var
     else:
-        mean = x.mean(dim=axes)
-        var = (x - mean.reshape(_channel_shape(x, axis))).square().mean(
-            dim=axes)
+        xf = x.float() if x.dtype in _HALF else x
+        mean = xf.mean(dim=axes)
+        var = (xf - mean.reshape(shape)).square().mean(dim=axes)
         new_mean = _blend(moving_mean, mean, momentum)
         new_var = _blend(moving_var, var, momentum)
-    shape = _channel_shape(x, axis)
     inv = torch.rsqrt(var + eps)
-    scale = (gamma * inv).reshape(shape)
-    shift = (beta - mean * gamma * inv).reshape(shape)
-    return x * scale + shift, new_mean, new_var
+    g = gamma.float() if gamma.dtype in _HALF else gamma
+    b = beta.float() if beta.dtype in _HALF else beta
+    scale = (g * inv).to(x.dtype).reshape(shape)
+    shift = (b - mean * g * inv).to(x.dtype).reshape(shape)
+    # the apply's roundings (bf16 twice, f16 once) are the kernel's
+    return _kbn.bn_apply_plain(x, scale, shift, "identity"), new_mean, \
+        new_var
 
 
 def batch_norm_infer(x, gamma, beta, moving_mean, moving_var,

@@ -43,9 +43,14 @@ does; on overflow every parameter and optimizer state is left as it was
 (a per-leaf select against a copy taken before the update), the scale
 halves (floored at 1) and the skipped count rises;
 after 2000 clean steps the scale doubles.  The check, the select and the
-scale stay on the device, so a step never waits on the host.  A net with
-BatchNorm under ``compute_dtype`` raises (ROADMAP A1.4.1b: f32 running
-statistics out of a 16-bit forward).
+scale stay on the device, so a step never waits on the host.  The
+buffers (BatchNorm's running statistics) are cast with the parameters;
+the layers blend the batch statistics into the 16-bit copies in the
+copies' type, and after the backward each copy that was written is
+carried into its f32 buffer, as the JAX trainer casts its mutated aux
+state back to f32.  A step that the loss scale skips keeps the
+statistics it blended, as in the JAX trainer, which returns the mutated
+aux state whatever the finite check says.
 
 Steps are dispatched asynchronously: ``step`` returns the loss as a lazy
 0-d tensor, and at most ``MXNET_MAX_INFLIGHT_STEPS`` (default 2) steps
@@ -377,18 +382,8 @@ class ShardedTrainer:
                 raise MXNetError(
                     "loss_scaling=True without a compute_dtype: f32 steps "
                     "cannot overflow, scaling would only mask a config bug")
-        if compute_dtype is not None:
-            from ..gluon.nn import BatchNorm
-
-            bn = [n for n, m in self.net.named_modules()
-                  if isinstance(m, BatchNorm)]
-            if bn:
-                raise _not_ported(
-                    f"compute_dtype={compute_dtype} with BatchNorm layers "
-                    f"({bn[0]}, ...): f32 running statistics out of a 16-bit"
-                    " forward and the 16-bit bn_act kernels",
-                    "ROADMAP A1.4.1b, ResNet-50 in bf16")
         self._dynamic_scaling = dynamic
+        self._buffer_copies = []
         kw = dict(device=self.device)
         lay = self.layout    # the arena's segments: each leaf, the padding
         tail = [lay.padded - lay.total] if lay.padded > lay.total else []
@@ -416,13 +411,27 @@ class ShardedTrainer:
     def _forward(self, xs):
         """The net on ``xs``, under the policy: the f32 net as it is, or
         the net on copies of its floating parameters and buffers (and of
-        the floating inputs) cast to ``compute_dtype``."""
+        the floating inputs) cast to ``compute_dtype``.  The buffers'
+        copies are kept, with their version counters, for
+        :meth:`_carry_buffers`."""
         if self.compute_dtype is None:
             return self.net(*xs)
         dt = self.compute_dtype
         swap = {n: _cast(t, dt) for n, t in self.net.named_parameters()}
-        swap.update((n, _cast(t, dt)) for n, t in self.net.named_buffers())
+        self._buffer_copies = []
+        for n, b in self.net.named_buffers():
+            swap[n] = _cast(b, dt)
+            if swap[n] is not b:
+                self._buffer_copies.append((b, swap[n], swap[n]._version))
         return torch.func.functional_call(self.net, swap, _cast(xs, dt))
+
+    def _carry_buffers(self):
+        """Write every buffer copy that the 16-bit forward wrote in place
+        (BatchNorm's blended running statistics) into its f32 buffer."""
+        for buf, copy16, version in self._buffer_copies:
+            if copy16._version != version:
+                buf.copy_(copy16)
+        self._buffer_copies = []
 
     def _update_scaled(self, lr):
         """The update under dynamic loss scaling: unscale, check, update,
@@ -509,6 +518,8 @@ class ShardedTrainer:
             loss = self.loss_fn(self._forward(xs), y).mean().float()
             (loss * self._scale if self._dynamic_scaling else loss).backward()
         with torch.no_grad():
+            if self.compute_dtype is not None:
+                self._carry_buffers()
             if self._dynamic_scaling:
                 self._update_scaled(self.learning_rate)
             else:

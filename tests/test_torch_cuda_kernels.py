@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain versions:
 decode attention, the flash-attention forward and backward (dq, dk/dv)
 in f32 and in their bf16 / f16 variants, the flat-arena optimizer
-update, the batch-norm stats and apply kernels and the extension
+update, the batch-norm stats and apply kernels (f32, and their bf16 /
+f16 variants: y bit for bit, scale and shift equal to the plain
+version's) and the extension
 example's squared ReLU (forward, backward) and ``a * x + b``.
 
 These tests need a CUDA device and ``nvcc``; they carry the ``cuda``
@@ -843,6 +845,148 @@ def test_bn_act_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(MXNetError):                          # f64 input
         kbn.bn_stats(x.view(-1, 16).double(), torch.ones(16, device=dev),
                      torch.zeros(16, device=dev), 1e-5)
+
+
+# ------------------------------------- the 16-bit batch-norm kernels
+BN16 = [(torch.bfloat16, "bf16"), (torch.float16, "f16")]
+
+
+def _bn16_inputs(rows, c, dtype, seed, dev, offset=False):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand(rows, c, generator=gen) * 2 - 1
+    if c > 1:
+        x[:, 0] = 0.1                                   # constant channel
+        x[:, -1] += 3.0                                 # offset mean
+    gamma = torch.rand(c, generator=gen) + 0.5
+    beta = torch.rand(c, generator=gen) - 0.5
+    x, gamma, beta = (t.to(dtype).to(dev) for t in (x, gamma, beta))
+    if offset:                           # a view at a 2-byte offset
+        flat = torch.empty(rows * c + 1, dtype=dtype, device=dev)
+        flat[1:] = x.reshape(-1)
+        x = flat[1:].view(rows, c)
+    return x, gamma, beta
+
+
+def _bn16_check(x, gamma, beta, act, sfx):
+    """One stats and one apply launch of the dtype's kernels; y bit for
+    bit with the plain apply, scale and shift equal to the plain fold's,
+    mean and var within 1e-5 of the channel's scale of float64."""
+    from mxnet_tpu_torch.kernels import bn_act as kbn
+
+    before = registry.launches()
+    mean, var, scale, shift = kbn.bn_stats(x, gamma, beta, 1e-5)
+    y = kbn.bn_apply(x, scale, shift, act)
+    torch.cuda.synchronize()
+    after = registry.launches()
+    assert after[f"bn_act_stats.{sfx}"] == before[f"bn_act_stats.{sfx}"] + 1
+    assert after[f"bn_act_apply.{sfx}"] == before[f"bn_act_apply.{sfx}"] + 1
+    assert sum(after.values()) == sum(before.values()) + 2
+    assert mean.dtype == var.dtype == torch.float32
+    assert scale.dtype == shift.dtype == y.dtype == x.dtype
+    x64 = x.double()
+    ms = (x64 * x64).mean(0).clamp_min(1e-30)
+    ref_mean = x64.mean(0)
+    ref_var = (x64 - ref_mean).square().mean(0)
+    assert ((mean.double() - ref_mean).abs() <= 1e-5 * ms.sqrt()).all()
+    assert ((var.double() - ref_var).abs() <= 1e-5 * ms).all()
+    _, _, p_scale, p_shift = kbn.bn_stats_plain(x, gamma, beta, 1e-5)
+    bits = torch.int16
+    assert torch.equal(scale.view(bits), p_scale.view(bits))
+    assert torch.equal(shift.view(bits), p_shift.view(bits))
+    ref = kbn.bn_apply_plain(x, scale, shift, act)
+    assert torch.equal(y.view(bits), ref.view(bits))
+    again = kbn.bn_stats(x, gamma, beta, 1e-5)
+    assert all(torch.equal(a, b) for a, b in
+               zip(again, (mean, var, scale, shift)))
+    return y
+
+
+@pytest.mark.parametrize("dtype,sfx", BN16, ids=["bf16", "f16"])
+@pytest.mark.parametrize("act", ["relu", "identity"])
+@pytest.mark.parametrize("rows,c", [(128 * 112 * 112, 64),
+                                    (128 * 56 * 56, 64),
+                                    (128 * 28 * 28, 128),
+                                    (128 * 14 * 14, 256), (128 * 7 * 7, 512),
+                                    (4097, 3), (4097, 12), (1, 64), (1, 8),
+                                    (9, 2048), (4097, 77), (1000, 1)])
+def test_bn16_kernels_match_plain(dev, dtype, sfx, act, rows, c):
+    x, gamma, beta = _bn16_inputs(rows, c, dtype, rows + c, dev)
+    y = _bn16_check(x, gamma, beta, act, sfx)
+    assert torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("dtype,sfx", BN16, ids=["bf16", "f16"])
+@pytest.mark.parametrize("rows,c", [(4097, 64), (4097, 12), (100352, 128)])
+def test_bn16_kernels_take_views_at_a_2_byte_offset(dev, dtype, sfx, rows,
+                                                    c):
+    x, gamma, beta = _bn16_inputs(rows, c, dtype, c, dev, offset=True)
+    assert x.data_ptr() % 16 == 2
+    _bn16_check(x, gamma, beta, "relu", sfx)
+
+
+@pytest.mark.parametrize("dtype,sfx", BN16, ids=["bf16", "f16"])
+def test_bn16_apply_past_f16_range_gives_inf(dev, dtype, sfx):
+    """An outlier whose normalized value (about 64) times gamma 2048 is
+    past 65,504: inf in f16, as the JAX op gives, finite in bf16."""
+    x = torch.zeros(4097, 8)
+    x[0, 1] = 1000.0
+    gamma = torch.ones(8)
+    gamma[1] = 2048.0
+    x, gamma, beta = (t.to(dtype).to(dev) for t in (x, gamma,
+                                                    torch.zeros(8)))
+    y = _bn16_check(x, gamma, beta, "identity", sfx)
+    assert bool(torch.isinf(y[0, 1])) == (dtype == torch.float16)
+    from mxnet_tpu_torch.kernels import bn_act as kbn
+    big = torch.full((3, 8), 60000.0, device=dev).to(dtype)
+    two = torch.full((8,), 2.0, device=dev).to(dtype)
+    out = kbn.bn_apply(big, two, torch.zeros(8, device=dev, dtype=dtype),
+                       "relu")
+    ref = kbn.bn_apply_plain(big, two, torch.zeros_like(two), "relu")
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+    assert bool(torch.isinf(out).all()) == (dtype == torch.float16)
+
+
+def test_bn16_kernels_refuse_mixed_dtypes(dev):
+    from mxnet_tpu_torch.kernels import bn_act as kbn
+
+    x = torch.zeros(64, 16, device=dev, dtype=torch.bfloat16)
+    f32 = torch.ones(16, device=dev)
+    with pytest.raises(MXNetError, match="gamma"):           # f32 gamma
+        kbn.bn_stats(x, f32, f32, 1e-5)
+    with pytest.raises(MXNetError, match="scale"):           # f32 scale
+        kbn.bn_apply(x, f32, f32, "relu")
+    with pytest.raises(MXNetError, match="scale"):           # f16 scale
+        kbn.bn_apply(x, f32.half(), f32.half(), "relu")
+    h = torch.ones(16, device=dev, dtype=torch.float16)
+    with pytest.raises(MXNetError, match="beta"):
+        kbn.bn_stats(x.half(), h, h.bfloat16(), 1e-5)
+
+
+@pytest.mark.parametrize("dtype,sfx", BN16, ids=["bf16", "f16"])
+def test_bn16_autograd_launches_the_16bit_kernels(dev, dtype, sfx):
+    from mxnet_tpu_torch.kernels import bn_act as kbn
+
+    gen = torch.Generator().manual_seed(5)
+    x = (torch.rand(4, 6, 6, 32, generator=gen) - 0.3).to(dtype)
+    gamma = (torch.rand(32, generator=gen) + 0.5).to(dtype)
+    beta = (torch.rand(32, generator=gen) - 0.5).to(dtype)
+    leaves = [t.to(dev).requires_grad_() for t in (x, gamma, beta)]
+    before = registry.launches()
+    y, mean, var = kbn.bn_act_train(*leaves, 1e-5, "relu")
+    (y.float() * y.float()).sum().backward()
+    after = registry.launches()
+    assert after[f"bn_act_stats.{sfx}"] == before[f"bn_act_stats.{sfx}"] + 1
+    assert after[f"bn_act_apply.{sfx}"] == before[f"bn_act_apply.{sfx}"] + 1
+    cpu = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+    ry, _, _ = kbn.bn_act_train(*cpu, 1e-5, "relu")
+    (ry.float() * ry.float()).sum().backward()
+    assert torch.equal(y.cpu().view(torch.int16), ry.view(torch.int16))
+    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 2.0 ** -9
+    for a, b in zip(leaves, cpu):
+        assert a.grad.dtype == dtype
+        top = b.grad.float().abs().max()
+        assert (a.grad.cpu().float() - b.grad.float()).abs().max() <= \
+            tol * top
 
 
 # ------------------------------------------------- the extension kernels

@@ -353,6 +353,88 @@ def test_dense_takes_the_reference_signature():
         tnn.Dense(10, "relu", device="cpu")
 
 
+def test_embedding_casts_float_ids_as_jax_does():
+    """Float ids gather the rows the JAX package's ``Embedding`` gathers
+    (it takes ``indices.astype(int32)``); ``dtype`` is the third
+    positional, as in the reference."""
+    ids = np.array([[1, 2, 3], [0, 4, 1]], "f4")
+    jemb = mx.gluon.nn.Embedding(5, 3)
+    jemb.initialize(mx.init.Xavier())
+    want = jemb(mx.np.array(ids)).asnumpy()
+    temb = tnn.Embedding(5, 3, torch.float32, device="cpu")
+    convert.load_into(temb, {n: p.data().asnumpy()
+                             for n, p in jemb.collect_params().items()})
+    for dt in (torch.float32, torch.float64, torch.int64):
+        got = temb(torch.from_numpy(ids).to(dt))
+        np.testing.assert_array_equal(got.detach().numpy(), want)
+    assert tnn.Embedding(5, 3, torch.bfloat16,
+                         device="cpu").weight.dtype == torch.bfloat16
+    with pytest.raises(MXNetError, match="A6"):
+        tnn.Embedding(5, 3, sparse_grad=True, device="cpu")
+
+
+@pytest.mark.parametrize("center,scale", [(True, True), (False, True),
+                                          (True, False), (False, False)])
+def test_layer_norm_takes_the_reference_signature(center, scale):
+    """``LayerNorm(axis=-1, epsilon=1e-5, center=True, scale=True,
+    beta_initializer, gamma_initializer, in_channels=0)`` as the reference
+    orders it: outputs within 1e-5 of the JAX layer's, beta / gamma fixed
+    (no gradient) when ``center`` / ``scale`` is False; ``axis=0`` and
+    ``in_channels=0`` raise."""
+    rs = np.random.RandomState(4)
+    x = rs.rand(3, 4, 6).astype("f4") - 0.5
+    jln = mx.gluon.nn.LayerNorm(-1, 1e-3, center, scale, in_channels=6)
+    jln.initialize(mx.init.Xavier())
+    for name, p in jln.collect_params().items():
+        p.set_data(rs.rand(6).astype("f4") + 0.5)
+    want = jln(mx.np.array(x)).asnumpy()
+    tln = tnn.LayerNorm(-1, 1e-3, center, scale, in_channels=6,
+                        device="cpu")
+    convert.load_into(tln, {n: p.data().asnumpy()
+                            for n, p in jln.collect_params().items()})
+    leaf = torch.from_numpy(x).requires_grad_()
+    got = tln(leaf)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5,
+                               atol=1e-5)
+    got.sum().backward()
+    assert (tln.beta.grad is not None) == center
+    assert (tln.gamma.grad is not None) == scale
+    assert [p.requires_grad for p in (tln.gamma, tln.beta)] == [scale,
+                                                                 center]
+    fresh = tnn.LayerNorm(beta_initializer="ones",
+                          gamma_initializer="zeros", in_channels=6,
+                          device="cpu").initialize(0)
+    assert torch.equal(fresh.beta.detach(), torch.ones(6))
+    assert not fresh.gamma.detach().any()
+    with pytest.raises(MXNetError, match="A6"):
+        tnn.LayerNorm(axis=0, in_channels=6, device="cpu")
+    with pytest.raises(MXNetError, match="in_channels"):
+        tnn.LayerNorm(device="cpu")
+
+
+def test_softmax_ce_picks_the_label_along_a_non_last_axis():
+    """``SoftmaxCrossEntropyLoss(axis=1)`` with sparse labels picks each
+    label's log-probability along ``axis``, against a numpy log-softmax
+    pick.  A deliberate difference: the JAX package raises here (its
+    ``take_along_axis`` pick squeezes the wrong axis)."""
+    rs = np.random.RandomState(9)
+    pred = rs.randn(2, 5, 3).astype("f4")
+    label = rs.randint(0, 5, (2, 3)).astype("i4")
+    got = SoftmaxCrossEntropyLoss(axis=1)(torch.from_numpy(pred),
+                                          torch.from_numpy(label))
+    p64 = pred.astype("f8")
+    logp = p64 - np.log(np.exp(p64 - p64.max(1, keepdims=True)).sum(
+        1, keepdims=True)) - p64.max(1, keepdims=True)
+    pick = -np.take_along_axis(logp, label[:, None, :], axis=1)[:, 0, :]
+    assert got.shape == (2,)
+    np.testing.assert_allclose(got.numpy(), pick.mean(1), rtol=1e-6,
+                               atol=1e-6)
+    from mxnet_tpu.gluon import loss as jloss
+    with pytest.raises(Exception):
+        jloss.SoftmaxCrossEntropyLoss(axis=1)(mx.np.array(pred),
+                                              mx.np.array(label))
+
+
 # ----------------------------------------------------- Trainer surface
 def test_trainer_orders_parameters_sorted_and_skips_null():
     net = get_model("lenet", device="cpu").initialize(0)

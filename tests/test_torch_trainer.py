@@ -317,14 +317,21 @@ def test_loss_scaling_without_compute_dtype_raises_in_both_packages():
 
 
 def test_batchnorm_under_compute_dtype_raises_naming_the_later_slice():
+    """The later slice (ROADMAP A1.4.1b) is in: a net with BatchNorm
+    trains under ``compute_dtype``, and its running statistics stay f32
+    buffers that the 16-bit step moves."""
     from mxnet_tpu_torch.gluon.nn import BatchNorm, HybridSequential
 
-    net = HybridSequential().add(
-        Dense(8, in_units=4, device="cpu"),
-        BatchNorm(in_channels=8, device="cpu")).initialize(0)
     for dt in (torch.bfloat16, torch.float16):
-        with pytest.raises(MXNetError, match="A1.4.1b"):
-            ShardedTrainer(net, tloss.SoftmaxCELoss(), compute_dtype=dt)
+        net = HybridSequential().add(
+            Dense(8, in_units=4, device="cpu"),
+            BatchNorm(in_channels=8, device="cpu")).initialize(0)
+        tr = ShardedTrainer(net, tloss.SoftmaxCELoss(), compute_dtype=dt)
+        loss = tr.step(np.random.RandomState(0).rand(6, 4).astype("f4"),
+                       np.arange(6, dtype="i4") % 8, block=True)
+        assert np.isfinite(loss)
+        assert net[1].running_mean.dtype == torch.float32
+        assert net[1].running_mean.abs().sum() > 0
     ShardedTrainer(net, tloss.SoftmaxCELoss())           # f32 trains
 
 

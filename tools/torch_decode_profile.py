@@ -3,7 +3,8 @@ port's serving and training paths, on one CUDA card.
 
     python3 tools/torch_decode_profile.py [--steps 20] [--cache-len 500]
         [--only decode,bert_batch,train_step,train_step_adamw,
-                train_step_bf16,train_step_fp16,resnet_step,eager]
+                train_step_bf16,train_step_fp16,resnet_step,
+                resnet_step_bf16,eager]
 
 Decode: builds ``transformer_lm`` at GPT-2-small widths (seeded random
 weights, f32) on ``cuda:0`` and runs the decode tier's two forwards
@@ -29,7 +30,11 @@ momentum 0.9, as ``bench.py``'s ``bench_resnet50``) on a B=128 batch of
 convolutions (cuDNN forward and both backward, with the classifier's
 GEMMs), the layout transposes cuDNN runs around them, the two
 ``bn_act`` kernels, the rest (the plain-PyTorch BN forward and
-backward, residual adds, relus, pooling, copies) and the arena.  Eager
+backward, residual adds, relus, pooling, copies) and the arena; then
+the same step in bf16 as ``bench_resnet50`` runs it
+(``compute_dtype=torch.bfloat16``, the bench's f32 cross entropy), with
+plain BatchNorm (the bench's default) and with ``fused_bn_relu=True``
+(the 16-bit ``bn_act`` kernels).  Eager
 Gluon: one ``autograd.record()`` -> loss -> ``autograd.backward`` ->
 ``gluon.Trainer.step`` of LeNet-5 (sgd, lr 0.05, momentum 0.9) and of
 ``chip_smoke.py``'s extension-op block (lr 0.01) at B=64 on images held
@@ -140,7 +145,7 @@ HALF_GROUPS = {
 }
 
 _CONV_WORDS = ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit",
-               "winograd", "xmma", "gemm", "fft")
+               "winograd", "xmma", "gemm", "fft", "cutlass", "nvjet")
 
 # the ResNet step's split, first match wins (anything else: "other")
 RESNET_GROUPS = {
@@ -154,24 +159,30 @@ RESNET_GROUPS = {
 }
 
 
-def resnet_step_profile(steps):
-    """Profile ResNet-50 v1 training steps (module docstring)."""
+def resnet_step_profile(steps, compute_dtype=None, fused=True):
+    """Profile ResNet-50 v1 training steps (module docstring): f32 with
+    ``compute_dtype=None``, else under that policy with the bench's f32
+    cross entropy."""
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.gluon.model_zoo import get_model
     from mxnet_tpu_torch.parallel import ShardedTrainer
 
-    net = get_model("resnet50_v1", layout="NHWC", fused_bn_relu=True,
+    ce = SoftmaxCrossEntropyLoss()
+    net = get_model("resnet50_v1", layout="NHWC", fused_bn_relu=fused,
                     device="cuda").initialize(seed=0)
-    tr = ShardedTrainer(net, SoftmaxCrossEntropyLoss(), optimizer="sgd",
-                        learning_rate=0.05, momentum=0.9)
+    tr = ShardedTrainer(net, lambda p, y: ce(p.float(), y), optimizer="sgd",
+                        learning_rate=0.05, momentum=0.9,
+                        compute_dtype=compute_dtype)
     rs = np.random.RandomState(0)
     x = torch.as_tensor(rs.rand(128, 224, 224, 3).astype(np.float32),
                         device="cuda")
     y = torch.as_tensor(rs.randint(0, 1000, size=(128,)).astype(np.int32),
                         device="cuda")
-    return profile("ResNet-50 v1 training step (B=128, 224x224, NHWC, "
-                   "fused BN+relu, sgd momentum)", lambda: tr.step(x, y),
-                   steps, groups=RESNET_GROUPS)
+    dt = "f32" if compute_dtype is None else str(compute_dtype).split(".")[-1]
+    bn = "fused BN+relu" if fused else "BatchNorm + relu"
+    return profile(f"ResNet-50 v1 training step (B=128, 224x224, NHWC, {bn},"
+                   f" sgd momentum, {dt})", lambda: tr.step(x, y), steps,
+                   groups=RESNET_GROUPS)
 
 
 def eager_step_profiles(steps):
@@ -299,7 +310,7 @@ def main() -> int:
     ap.add_argument("--cache-len", type=int, default=500)
     ap.add_argument("--only", default="decode,bert_batch,train_step,"
                     "train_step_adamw,train_step_bf16,train_step_fp16,"
-                    "resnet_step,eager",
+                    "resnet_step,resnet_step_bf16,eager",
                     help="comma-separated profiles to run")
     args = ap.parse_args()
     only = set(args.only.split(","))
@@ -326,6 +337,12 @@ def main() -> int:
     if "resnet_step" in only:
         out["resnet_step"] = resnet_step_profile(max(2, args.steps // 2))
         torch.cuda.empty_cache()
+    if "resnet_step_bf16" in only:
+        out["resnet_step_bf16"] = {}
+        for variant, fused in (("plain", False), ("fused", True)):
+            out["resnet_step_bf16"][variant] = resnet_step_profile(
+                max(2, args.steps // 2), torch.bfloat16, fused)
+            torch.cuda.empty_cache()
     if "eager" in only:
         out.update(eager_step_profiles(args.steps))
     print(card)
