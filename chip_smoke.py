@@ -237,6 +237,37 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     bf16 and f32 steps in that tensor (bf16 alone moves some gradients
     of this step by half their max: ``phase_resnet_cpu_bf16``).
 
+31. The trainer's multi-tensor update (``ShardedTrainer(multi_tensor=
+    True)``) against the per-parameter one on BERT-base in bf16 at
+    bench_bert_base's settings (B=32, T=128, 20 masked, lr 1e-4, wd
+    0.01, dropout 0): 5 adamw steps and 3 lamb steps from the same
+    weights, parameters and optimizer states bit for bit (lamb's
+    parameters within 1e-6 x each tensor's max: its per-tensor norms
+    reduce in another order on a stack).  For adamw,
+    each adapter's kernel launches a step and device busy share
+    (``torch.profiler``, 5 steps), step p50 (CUDA events) and wall a step
+    (10 steps), and the number of groups; 12 bf16 forward and 12 fused
+    dk/dv launches a step.
+32. BERT-base f32 adam (the arena) under ``PolyScheduler(max_update=20,
+    base_lr=1e-4, pwr=1, warmup_steps=4)`` with ``grad_accum=2``: one
+    window of two B=16 halves against one B=32 step from the same state
+    (within 1e-5 x the parameters' max: the summation order's), then 6
+    windows: ``opt_arena`` launched once a window at ``scheduler(t)``;
+    ``set_learning_rate`` raises.
+33. Resume: BERT-base bf16 adamw ``multi_tensor=True``, dropout 0.1: 4
+    steps, ``save_states``, a fresh net and trainer, ``load_states``, 4
+    steps, against 8 uninterrupted steps (bit for bit, or within the
+    distance of two uninterrupted runs where that is not 0); the same in
+    f16 from loss scale 2^20 (the scale, the good count and the skipped
+    steps carried); ``save_parameters`` -> ``load_parameters`` gives the
+    same outputs; ``save_states`` mid-window raises.
+34. The 19 registry optimizers through ``gluon.Trainer`` on LeNet-5
+    (B=64, 3 steps) on the card against the CPU with the card's
+    gradients, within 1e-5 x each tensor's max; SGLD on its drift (its
+    noise replayed) and its noise's moments; then adam under a
+    ``FactorScheduler`` resumed through ``save_states`` /
+    ``load_states`` bit for bit.
+
 It prints a ``{"kernels": [...]}`` line, the card line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository beside it, it exits non-zero and prints no result.
@@ -245,6 +276,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3107,6 +3139,526 @@ def phase_resnet_cpu_bf16(dev):
                 stat_to_noise=worst["stat"]["to_noise"][1])
 
 
+# ------------------------------- the trainer's options and checkpoints
+TRAIN16 = dict(learning_rate=1e-4, weight_decay=0.01,
+               compute_dtype=torch.bfloat16)
+# phase 32's schedule: PolyScheduler(max_update=20, base_lr=1e-4, pwr=1,
+# warmup_steps=4), two B=16 micro-batches a window, 6 windows
+SCHED = dict(max_update=20, base_lr=1e-4, pwr=1, warmup_steps=4)
+WINDOW_TOL = 1e-5             # phase 32: x the parameters' max
+# phase 31: multi-tensor LAMB's parameters against per-parameter, x each
+# tensor's max (its states bit for bit): the per-tensor norms under vmap
+# reduce in another order, a last-bit difference in the trust ratio
+# (BERT-base bf16, 3 steps on an H100 80GB HBM3 at 700 W: 32 of 158
+# tensors, max |d| 5.96e-8)
+MT_NORM_TOL = 1e-6
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "smoke_ckpt"
+
+
+def profile_steps(fn, n):
+    """``fn`` (one training step) run ``n`` times under ``torch.profiler``
+    after a drain, as ``tools/torch_decode_profile.py`` profiles: kernel
+    launches a step, device busy ms a step (the kernels' self device
+    time) and the busy share of the profiled window."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, count = 0.0, 0
+    for evt in prof.key_averages():
+        us = next((float(getattr(evt, k)) for k in (
+            "self_device_time_total", "self_cuda_time_total")
+            if hasattr(evt, k)), 0.0)
+        if us > 0 and "CUDA" in str(getattr(evt, "device_type", "")):
+            busy_us += us
+            count += evt.count
+    return dict(launches=count / n, device_busy_ms=busy_us / 1e3 / n,
+                busy_share=busy_us / 1e3 / window_ms)
+
+
+def bits_distance(a_list, b_list):
+    """``(number of tensors that differ, max |a - b|)`` over two lists."""
+    differ, worst = 0, 0.0
+    for a, b in zip(a_list, b_list):
+        if not torch.equal(a, b):
+            differ += 1
+            worst = max(worst, (a.double() - b.double()).abs().max().item())
+    return differ, worst
+
+
+def mt_trainer(dev, opt, multi, dropout=0.0, compute_dtype=torch.bfloat16,
+               **kw):
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon.model_zoo.bert import pretrain_loss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    mxrandom.seed(0)
+    net = pretrain_model(dev, dropout=dropout)
+    args = dict(TRAIN16, compute_dtype=compute_dtype)
+    args.update(kw)
+    tr = ShardedTrainer(net, pretrain_loss, optimizer=opt,
+                        multi_tensor=multi, **args)
+    return net, tr
+
+
+def phase_multi_tensor(dev, card):
+    """Phase 31: BERT-base bf16 as bench_bert_base trains it (B=32,
+    T=128, 20 masked, lr 1e-4, wd 0.01, dropout 0 for the comparison):
+    5 steps with ``multi_tensor=True`` against 5 per-parameter steps from
+    the same weights, adamw then lamb (3 steps); parameters and optimizer
+    states bit for bit (lamb: states bit for bit, parameters within
+    ``MT_NORM_TOL`` of each tensor's max).  Then, per adapter, launches a step and the busy
+    share (profiler, 5 steps), step p50 (CUDA events) and wall a step
+    (10 timed steps), and the number of groups."""
+    x, y = pretrain_batch(PRETRAIN["batch"], PRETRAIN["seq"],
+                          PRETRAIN["masked"], seed=21)
+    out = {}
+    for opt, steps in (("adamw", 5), ("lamb", 3)):
+        runs = {}
+        for multi in (False, True):
+            net, tr = mt_trainer(dev, opt, multi)
+            check(not tr.uses_arena, f"{opt}: the arena took the update")
+            losses = [float(tr.step(x, y)) for _ in range(steps)]
+            tr.drain()
+            runs[multi] = (net, tr, losses)
+        (n0, t0, l0), (n1, t1, l1) = runs[False], runs[True]
+        pd = bits_distance([p.detach() for p in t0.params],
+                           [p.detach() for p in t1.params])
+        sd = bits_distance(t0._adapter.leaves(), t1._adapter.leaves())
+        groups = t1._adapter.groups
+        print(f"  {opt}: {steps} steps, losses per-parameter "
+              f"{' '.join(f'{v:.6f}' for v in l0)}, multi-tensor "
+              f"{' '.join(f'{v:.6f}' for v in l1)}; parameters differing "
+              f"{pd[0]} of {len(t0.params)} (max |d| {pd[1]:.3e}), states "
+              f"{sd[0]} of {len(t0._adapter.leaves())} (max |d| "
+              f"{sd[1]:.3e}); {len(groups)} groups over "
+              f"{len(t1.params)} parameters (largest "
+              f"{max(len(g) for g in groups)})")
+        if opt == "lamb":
+            # the trust ratio's norms: a stacked group's norm reduces each
+            # row in another order than a lone tensor's (MT_NORM_TOL)
+            rel = max(((a.detach() - b.detach()).abs().max()
+                       / b.detach().abs().max()).item()
+                      for a, b in zip(t1.params, t0.params))
+            print(f"  lamb parameters: worst |d| {rel:.3e} x the tensor's "
+                  f"max (bar {MT_NORM_TOL})")
+            check(sd[0] == 0 and rel <= MT_NORM_TOL,
+                  f"lamb: states {sd}, parameters {rel:.3e} x max")
+        else:
+            check(pd[0] == 0 and sd[0] == 0 and l0 == l1,
+                  f"{opt}: multi-tensor and per-parameter differ: "
+                  f"parameters {pd}, states {sd}, losses {l0} vs {l1}")
+        row = dict(steps=steps, groups=len(groups), params=len(t1.params),
+                   losses=l1)
+        if opt == "adamw":
+            for multi, (net, tr, _) in runs.items():
+                prof = profile_steps(lambda: tr.step(x, y), 5)
+                _, p50, wall, launches, _ = timed_steps(tr, x, y, dev, 10)
+                half_launches(launches, "bf16", 10, dict(
+                    flash_attention=12, flash_attention_bwd_dq=0,
+                    flash_attention_bwd_dkv=12))
+                key = "multi_tensor" if multi else "per_parameter"
+                row[key] = dict(prof, step_p50_ms=p50,
+                                wall_ms_per_step=wall * 1e3 / 10)
+                print(f"  adamw {key.replace('_', '-')}: "
+                      f"{prof['launches']:.0f} launches a step, busy "
+                      f"share {prof['busy_share']:.3f} (device "
+                      f"{prof['device_busy_ms']:.3f} ms a step), step p50 "
+                      f"{p50:.3f} ms (CUDA events), wall "
+                      f"{wall * 1e2:.3f} ms a step [{card}]")
+        out[opt] = row
+        del runs, n0, t0, n1, t1, net, tr
+        torch.cuda.empty_cache()
+    a = out["adamw"]
+    print(f"phase 31 multi-tensor vs per-parameter (BERT-base bf16, B=32, "
+          f"T=128): adamw bit for bit, lamb's states bit for bit; adamw "
+          f"launches a step "
+          f"{a['per_parameter']['launches']:.0f} -> "
+          f"{a['multi_tensor']['launches']:.0f}, busy share "
+          f"{a['per_parameter']['busy_share']:.3f} -> "
+          f"{a['multi_tensor']['busy_share']:.3f}, step p50 "
+          f"{a['per_parameter']['step_p50_ms']:.3f} -> "
+          f"{a['multi_tensor']['step_p50_ms']:.3f} ms, wall "
+          f"{a['per_parameter']['wall_ms_per_step']:.3f} -> "
+          f"{a['multi_tensor']['wall_ms_per_step']:.3f} ms a step, "
+          f"{a['groups']} groups [{card}]")
+    return out
+
+
+def phase_schedule_accum(dev, card):
+    """Phase 32: BERT-base f32 adam (the arena) under
+    ``PolyScheduler(**SCHED)`` with ``grad_accum=2``: 6 windows of two
+    B=16 halves of phase 11's batch (dropout 0); ``opt_arena`` launched
+    once a window at ``scheduler(t)``; one window against one B=32 step
+    from the same state; ``set_learning_rate`` raises."""
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.kernels import registry
+    from mxnet_tpu_torch.lr_scheduler import PolyScheduler
+
+    x, y = pretrain_batch(PRETRAIN["batch"], PRETRAIN["seq"],
+                          PRETRAIN["masked"], seed=21)
+    half = PRETRAIN["batch"] // 2
+    halves = [(tuple(a[s] for a in x), tuple(a[s] for a in y))
+              for s in (slice(0, half), slice(half, None))]
+    nets = {}
+    for accum in (1, 2):
+        sched = PolyScheduler(**SCHED)
+        nets[accum] = mt_trainer(dev, "adam", False, compute_dtype=None,
+                                 lr_scheduler=sched, grad_accum=accum)
+        check(nets[accum][1].uses_arena, "the arena did not take adam")
+    (n1, t1), (n2, t2) = nets[1], nets[2]
+    t1.step(x, y, block=True)
+    for xb, yb in halves:
+        t2.step(xb, yb, block=True)
+    top = max(p.detach().abs().max().item() for p in t1.params)
+    window = max((a.detach() - b.detach()).abs().max().item()
+                 for a, b in zip(t1.params, t2.params))
+    print(f"  one window of two B={half} halves vs one B={2 * half} step: "
+          f"max |d| "
+          f"{window:.3e} = {window / top:.3e} x the parameters' max "
+          f"{top:.4f} (bar {WINDOW_TOL})")
+    check(window <= WINDOW_TOL * top, f"window vs one step: {window:.3e} > "
+          f"{WINDOW_TOL} x {top:.4f}")
+    del n1, t1, nets
+    torch.cuda.empty_cache()
+    seen = []
+    update = t2._adapter.update
+
+    def recorded(params, grads, garena, lr, t):
+        seen.append((t, lr))
+        return update(params, grads, garena, lr, t)
+
+    t2._adapter.update = recorded
+    registry.reset_launches()
+    losses = []
+    for _ in range(6):
+        for xb, yb in halves:
+            losses.append(t2.step(xb, yb))
+    t2.drain()
+    launches = registry.launches()
+    t2._adapter.update = update
+    want = [(t, t2.lr_scheduler(t)) for t in range(2, 8)]
+    check(launches["opt_arena"] == 6, f"opt_arena launched "
+          f"{launches['opt_arena']} times in 6 windows, want 6")
+    check(seen == want, f"window lrs {seen}, want {want}")
+    check(all(math.isfinite(float(v)) for v in losses), "non-finite loss")
+    try:
+        t2.set_learning_rate(1e-3)
+    except MXNetError:
+        pass
+    else:
+        check(False, "set_learning_rate did not raise under a schedule")
+    print(f"phase 32 schedule + grad_accum=2 through the arena (BERT-base "
+          f"f32 adam, 6 windows of 2 x B={half}): opt_arena "
+          f"{launches['opt_arena']} launches, one a window, at lr "
+          f"{' '.join(f'{lr:.4e}' for _, lr in seen)} = "
+          f"PolyScheduler(t) for t 2..7; window vs one step "
+          f"{window / top:.3e} x max [{card}]")
+    out = dict(launches_opt_arena=launches["opt_arena"], windows=6,
+               lrs=[lr for _, lr in seen], window_rel_err=window / top,
+               losses=[float(v) for v in losses])
+    del n2, t2
+    torch.cuda.empty_cache()
+    return out
+
+
+def resume_run(dev, dt, steps, split, init_scale=None):
+    """BERT-base adamw ``multi_tensor=True`` with dropout 0.1 in ``dt``:
+    ``steps`` uninterrupted, or ``split`` steps, save_states, a fresh net
+    and trainer, load_states, the rest.  Returns the final parameters,
+    optimizer state leaves, losses and loss-scale state."""
+    from mxnet_tpu_torch import random as mxrandom
+
+    kw = {} if init_scale is None else dict(init_loss_scale=init_scale)
+    x, y = pretrain_batch(PRETRAIN["batch"], PRETRAIN["seq"],
+                          PRETRAIN["masked"], seed=21)
+    net, tr = mt_trainer(dev, "adamw", True, dropout=0.1, compute_dtype=dt,
+                         **kw)
+    losses = [float(tr.step(x, y)) for _ in range(split or steps)]
+    if split:
+        CKPT_DIR.mkdir(parents=True, exist_ok=True)
+        path = str(CKPT_DIR / "bert.npz")
+        tr.save_states(path)
+        meta = (tr.loss_scale, int(tr._good), tr.skipped_steps, tr._t)
+        del net, tr
+        torch.cuda.empty_cache()
+        mxrandom.seed(123)                # the file carries the draws
+        from mxnet_tpu_torch.gluon.model_zoo.bert import pretrain_loss
+        from mxnet_tpu_torch.parallel import ShardedTrainer
+
+        net = fresh_bert(dev)
+        tr = ShardedTrainer(net, pretrain_loss, optimizer="adamw",
+                            multi_tensor=True,
+                            **dict(TRAIN16, compute_dtype=dt))
+        tr.load_states(path)
+        os.remove(path)
+        check((tr.loss_scale, int(tr._good), tr.skipped_steps, tr._t)
+              == meta, f"loss-scale state not carried: {meta} -> "
+              f"{(tr.loss_scale, int(tr._good), tr.skipped_steps, tr._t)}")
+        losses += [float(tr.step(x, y)) for _ in range(steps - split)]
+    tr.drain()
+    state = dict(params=[p.detach().clone() for p in tr.params],
+                 leaves=[t.clone() for t in tr._adapter.leaves()],
+                 losses=losses, scale=tr.loss_scale,
+                 skipped=tr.skipped_steps)
+    del net, tr
+    torch.cuda.empty_cache()
+    return state
+
+
+def fresh_bert(dev):
+    """BERT-base of phase 11's build from another seed: every value the
+    resume shows must come from the file."""
+    from mxnet_tpu_torch.gluon.model_zoo import BERTForPretrain, \
+        bert_12_768_12
+
+    return BERTForPretrain(bert_12_768_12(device=dev, dropout=0.1,
+                                          **BERT_BASE)).initialize(seed=1)
+
+
+def phase_resume(dev, card):
+    """Phase 33: BERT-base bf16 adamw ``multi_tensor=True``, dropout 0.1:
+    4 steps, ``save_states``, a fresh net and trainer, ``load_states``, 4
+    steps, against 8 uninterrupted steps, run twice (the distance two
+    uninterrupted runs lie apart, the bar when it is not 0); the same in
+    f16 from loss scale 2^20 (skipped steps, then the scale and the
+    counts carried); ``save_parameters`` -> ``load_parameters`` on a
+    fresh net gives the same outputs bit for bit; ``save_states`` in the
+    middle of a gradient-accumulation window raises."""
+    from mxnet_tpu_torch.base import MXNetError
+
+    out = {}
+    for dt, sfx, scale in ((torch.bfloat16, "bf16", None),
+                           (torch.float16, "f16", 2.0 ** 20)):
+        whole = resume_run(dev, dt, 8, 0, scale)
+        again = resume_run(dev, dt, 8, 0, scale)
+        resumed = resume_run(dev, dt, 8, 4, scale)
+        rep = bits_distance(whole["params"] + whole["leaves"],
+                            again["params"] + again["leaves"])
+        res = bits_distance(whole["params"] + whole["leaves"],
+                            resumed["params"] + resumed["leaves"])
+        print(f"  {sfx}: 8 steps {' '.join(f'{v:.6f}' for v in whole['losses'])}"
+              f"; resumed at 4 {' '.join(f'{v:.6f}' for v in resumed['losses'])}"
+              f"; two uninterrupted runs differ in {rep[0]} tensors (max "
+              f"|d| {rep[1]:.3e}), resumed vs uninterrupted in {res[0]} "
+              f"(max |d| {res[1]:.3e}); loss scale {resumed['scale']:g}, "
+              f"skipped {resumed['skipped']}")
+        check(res[1] <= rep[1] and (rep[0] or res[0] == 0),
+              f"{sfx} resume: {res} apart, two uninterrupted runs {rep}")
+        check(resumed["losses"] == whole["losses"] or rep[0] > 0,
+              f"{sfx} resume: losses differ")
+        if scale:
+            check(resumed["skipped"] == whole["skipped"] > 0,
+                  f"f16: skipped {resumed['skipped']} vs {whole['skipped']}")
+        out[sfx] = dict(repeat_tensors=rep[0], repeat_max=rep[1],
+                        resume_tensors=res[0], resume_max=res[1],
+                        losses=resumed["losses"], loss_scale=resumed["scale"],
+                        skipped=resumed["skipped"])
+        del whole, again, resumed
+        torch.cuda.empty_cache()
+    # parameters file: the same outputs from a fresh net
+    x, _ = pretrain_batch(4, PRETRAIN["seq"], PRETRAIN["masked"], seed=5)
+    xs = tuple(torch.as_tensor(a, device=dev) for a in x)
+    net = pretrain_model(dev, dropout=0.1)
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(CKPT_DIR / "bert.params")
+    net.save_parameters(path)
+    fresh = fresh_bert(dev)
+    fresh.load_parameters(path)
+    os.remove(path)
+    with torch.no_grad():
+        same = all(torch.equal(a, b) for a, b in zip(net(*xs), fresh(*xs)))
+    check(same, "save_parameters -> load_parameters changed the outputs")
+    del net, fresh
+    # mid-window refusal
+    net, tr = mt_trainer(dev, "adamw", True, grad_accum=2)
+    xb, yb = pretrain_batch(4, PRETRAIN["seq"], PRETRAIN["masked"], seed=6)
+    tr.step(xb, yb, block=True)
+    try:
+        tr.save_states(str(CKPT_DIR / "never.npz"))
+    except MXNetError:
+        pass
+    else:
+        check(False, "save_states in mid-window did not raise")
+    del net, tr
+    torch.cuda.empty_cache()
+    b, f = out["bf16"], out["f16"]
+    print(f"phase 33 resume (BERT-base adamw multi-tensor, dropout 0.1): "
+          f"bf16 resumed vs uninterrupted {b['resume_tensors']} tensors "
+          f"apart (max {b['resume_max']:.3e}; two uninterrupted runs "
+          f"{b['repeat_tensors']}, {b['repeat_max']:.3e}); f16 "
+          f"{f['resume_tensors']} ({f['resume_max']:.3e}; "
+          f"{f['repeat_tensors']}, {f['repeat_max']:.3e}), loss scale "
+          f"{f['loss_scale']:g}, {f['skipped']} skipped; parameters file "
+          f"bit for bit; save_states mid-window raises [{card}]")
+    return out
+
+
+# phase 34: each registry optimizer's settings on LeNet-5 (the defaults
+# but for the learning rate, kept small enough for 3 steps to train)
+REGISTRY_LR = {"sgd": 0.05, "nag": 0.05, "signum": 1e-3, "lars": 0.1,
+               "lbsgd": 0.05, "dcasgd": 0.05, "sgld": 1e-4, "test": 0.05,
+               "adadelta": 1.0, "ftrl": 0.1, "adagrad": 0.01}
+REGISTRY_TOL = 1e-5           # x each tensor's max
+
+
+def lenet_grads(net, x, y):
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    with autograd.record():
+        loss = SoftmaxCrossEntropyLoss()(net(x), y)
+    autograd.backward(loss)
+    return float(loss.detach().mean())
+
+
+def phase_registry(dev, card):
+    """Phase 34: LeNet-5 through ``gluon.Trainer`` at B=64, 3 steps of
+    each of the 19 registry optimizers on the card and on the CPU (the
+    plain path) from the same weights and with the card's gradients:
+    every parameter within 1e-5 of its tensor's max; SGLD held on its
+    drift (its noise replayed from the card generator's state) and on the
+    noise's moments.  Then Adam under a ``FactorScheduler`` through
+    ``save_states`` / ``load_states`` and ``save_parameters`` /
+    ``load_parameters`` resumes bit for bit (cuDNN deterministic)."""
+    from mxnet_tpu_torch import gluon, optimizer as opt_mod
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    from mxnet_tpu_torch.lr_scheduler import FactorScheduler
+
+    images, labels = mnist_synthetic(64 * 4, seed=3)
+    batches = [(torch.from_numpy(images[i * 64:(i + 1) * 64]),
+                torch.from_numpy(labels[i * 64:(i + 1) * 64]))
+               for i in range(4)]
+    worst = {}
+    for name in sorted(opt_mod._REG):
+        kw = {"learning_rate": REGISTRY_LR.get(name, 1e-3)}
+        card_net = get_model("lenet", device=dev).initialize(0)
+        cpu_net = get_model("lenet", device="cpu").initialize(0)
+        ctr = gluon.Trainer(card_net.collect_params(), name, dict(kw))
+        htr = gluon.Trainer(cpu_net.collect_params(), name, dict(kw))
+        gen = mxrandom.generator(dev)
+        err = 0.0
+        for x, y in batches[:3]:
+            lenet_grads(card_net, x.to(dev), y.to(dev))
+            before = {n: p.detach().cpu().clone()
+                      for n, p in card_net.named_parameters()}
+            for (n, pc), ph in zip(card_net.named_parameters(),
+                                   cpu_net.parameters()):
+                ph.grad = pc.grad.detach().cpu().clone()
+            gstate = gen.get_state()
+            ctr.step(64)
+            htr.step(64)
+            ctr.drain()
+            if name == "sgld":
+                err = max(err, sgld_check(card_net, before, gen, gstate,
+                                          kw["learning_rate"]))
+                for pc, ph in zip(card_net.parameters(),
+                                  cpu_net.parameters()):
+                    ph.data.copy_(pc.detach().cpu())
+                continue
+            for (n, pc), ph in zip(card_net.named_parameters(),
+                                   cpu_net.parameters()):
+                a, b = pc.detach().cpu(), ph.detach()
+                top = max(b.abs().max().item(), 1e-30)
+                e = (a - b).abs().max().item() / top
+                err = max(err, e)
+                check(e <= REGISTRY_TOL, f"{name}: {n} card vs CPU "
+                      f"{e:.3e} x max > {REGISTRY_TOL}")
+        moved = any(not torch.equal(p.detach().cpu(), q.detach()) for p, q in
+                    zip(card_net.parameters(),
+                        get_model("lenet", device="cpu").initialize(0)
+                        .parameters()))
+        check(moved, f"{name}: the parameters never moved")
+        worst[name] = err
+        del card_net, cpu_net, ctr, htr
+    print("  card vs CPU, worst x max over 3 steps: " + ", ".join(
+        f"{n} {e:.1e}" for n, e in worst.items()))
+    # Adam under a FactorScheduler, resumed through the files
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def trainer(net, begin=0):
+        return gluon.Trainer(net.collect_params(), "adam", {
+            "learning_rate": 1e-3, "begin_num_update": begin,
+            "lr_scheduler": FactorScheduler(step=1, factor=0.7,
+                                            base_lr=1e-3)})
+
+    def run(net, tr, part):
+        out = []
+        for x, y in part:
+            out.append(lenet_grads(net, x.to(dev), y.to(dev)))
+            tr.step(64)
+        return out
+
+    net = get_model("lenet", device=dev).initialize(0)
+    whole = run(net, trainer(net), batches)
+    net1 = get_model("lenet", device=dev).initialize(0)
+    tr1 = trainer(net1)
+    run(net1, tr1, batches[:2])
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    net1.save_parameters(str(CKPT_DIR / "lenet.params"))
+    tr1.save_states(str(CKPT_DIR / "lenet.states"))
+    net2 = get_model("lenet", device=dev).initialize(7)
+    net2.load_parameters(str(CKPT_DIR / "lenet.params"))
+    tr2 = trainer(net2, begin=2)
+    tr2.load_states(str(CKPT_DIR / "lenet.states"))
+    rest = run(net2, tr2, batches[2:])
+    torch.backends.cudnn.deterministic = prev
+    for f in ("lenet.params", "lenet.states"):
+        os.remove(CKPT_DIR / f)
+    same = rest == whole[2:] and all(
+        torch.equal(a, b) for a, b in zip(net.parameters(),
+                                          net2.parameters()))
+    check(same, f"gluon resume under FactorScheduler: losses {rest} vs "
+          f"{whole[2:]}")
+    print(f"phase 34 the 19 registry optimizers on the card (LeNet-5, "
+          f"gluon.Trainer, B=64, 3 steps): every parameter within "
+          f"{REGISTRY_TOL} x its tensor's max of the CPU's (worst "
+          f"{max(v for k, v in worst.items() if k != 'sgld'):.3e}); SGLD "
+          f"drift within {worst['sgld']:.3e}; gluon.Trainer adam + "
+          f"FactorScheduler resumed bit for bit [{card}]")
+    return dict(worst=worst, resume_bit_for_bit=same)
+
+
+def sgld_check(net, before, gen, gstate, lr):
+    """One SGLD step on the card: the noise replayed from the generator's
+    state before the step, parameter by parameter in the trainer's order;
+    ``w - lr / 2 * g + sqrt(lr) * noise`` computed on the CPU against the
+    card's weights (within REGISTRY_TOL x max), and the noise's mean and
+    standard deviation over every parameter (within 4 standard errors of
+    0 and 1).  Returns the drift's error relative to the max."""
+    after = gen.get_state()
+    gen.set_state(gstate)
+    params = [p for _, p in sorted(net.collect_params().items())]
+    noise = [torch.randn(p.shape, dtype=p.dtype, device=p.device,
+                         generator=gen).cpu() for p in params]
+    gen.set_state(after)
+    names = sorted(net.collect_params())
+    err = 0.0
+    for n, p, z in zip(names, params, noise):
+        g = p.grad.detach().cpu() * (1.0 / 64)
+        want = before[n] - lr / 2 * g + z * math.sqrt(lr)
+        got = p.detach().cpu()
+        e = (got - want).abs().max().item() / want.abs().max().item()
+        check(e <= REGISTRY_TOL, f"sgld {n}: {e:.3e} x max")
+        err = max(err, e)
+    flat = torch.cat([z.flatten() for z in noise]).double()
+    k = flat.numel()
+    check(abs(flat.mean().item()) < 4 / math.sqrt(k)
+          and abs(flat.std().item() - 1) < 4 * math.sqrt(0.5 / k),
+          f"sgld noise mean {flat.mean().item():.3e} std "
+          f"{flat.std().item():.5f} over {k}")
+    return err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3155,6 +3707,10 @@ def main() -> int:
     resnet_bf16 = phase_resnet_bf16(dev, card, resnet)
     resnet_fp16 = phase_resnet_fp16(dev, card, resnet)
     resnet_cpu_bf16 = phase_resnet_cpu_bf16(dev)
+    multi_tensor = phase_multi_tensor(dev, card)
+    sched_accum = phase_schedule_accum(dev, card)
+    resume = phase_resume(dev, card)
+    registry_opts = phase_registry(dev, card)
     launches = {"flash_attention_decode": f32["launches"],
                 "flash_attention_decode_int8": i8["launches"]}
     kernels = []
@@ -3232,6 +3788,7 @@ def main() -> int:
         name="opt_arena", variant="adam", route="cuda",
         source=f"mxnet_tpu_torch/csrc/{src}", replaces=replaces,
         launches=train_launches["opt_arena"],
+        launches_schedule_accum=sched_accum["launches_opt_arena"],
         max_abs_err=arena["max_abs_err"], ms=arena["ms"],
         plain_ms=arena["plain_ms"], bound_ms=arena["bound_ms"],
         bound_by=arena["bound_by"], library_ms=arena["library_ms"],
@@ -3355,7 +3912,11 @@ def main() -> int:
                                 "resnet50_bf16": resnet_bf16,
                                 "resnet50_fp16": resnet_fp16,
                                 "resnet_card_vs_cpu_bf16":
-                                    resnet_cpu_bf16},
+                                    resnet_cpu_bf16,
+                                "multi_tensor": multi_tensor,
+                                "schedule_grad_accum": sched_accum,
+                                "resume": resume,
+                                "registry_optimizers": registry_opts},
                       "bn_act_device": bn_times["device"],
                       "bn_act16_device": bn16_times,
                       "device_time_by": DEVICE_TIME_BY,

@@ -26,16 +26,22 @@ never imports), ported in slices:
 * 16-bit training: ``ShardedTrainer(compute_dtype=torch.bfloat16)`` or
   ``torch.float16`` with dynamic loss scaling, f32 master parameters,
   and ``amp``; the attention's bf16 / f16 forward, dq and dk/dv in
-  16-bit variants of the flash kernels.
+  16-bit variants of the flash kernels;
+* the rest of the trainer: ``ShardedTrainer(multi_tensor=True,
+  lr_scheduler=..., grad_accum=k)``, ``save_states`` / ``load_states``
+  in the JAX trainer's file, ``gluon.Trainer`` states,
+  ``Block.save_parameters`` / ``load_parameters`` (``ndarray``),
+  ``lr_scheduler`` and all 19 registry optimizers.
 
 Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``.
 """
-from . import (amp, autograd, context, gluon, library, numpy_extension,
-               ops, optimizer, parallel, random, rtc, serve)
+from . import (amp, autograd, context, gluon, library, lr_scheduler,
+               ndarray, numpy_extension, ops, optimizer, parallel, random,
+               rtc, serve)
 from .base import MXNetError
 
 npx = numpy_extension
 
-__all__ = ["amp", "autograd", "context", "gluon", "library", "numpy_extension",
-           "npx", "ops", "optimizer", "parallel", "random", "rtc", "serve",
-           "MXNetError"]
+__all__ = ["amp", "autograd", "context", "gluon", "library", "lr_scheduler",
+           "ndarray", "numpy_extension", "npx", "ops", "optimizer",
+           "parallel", "random", "rtc", "serve", "MXNetError"]

@@ -16,14 +16,23 @@ there); ``initialize`` takes a seed, not an initializer object
 (``initializer.seeded_init``, the Xavier rule of the JAX default);
 ``hybridize()`` is accepted and the block still runs eagerly (no
 trace, no CUDA graph).
+
+``save_parameters`` / ``load_parameters`` (``mxnet_tpu/gluon/block.py:
+203-240``) write and read the JAX package's array file
+(``ndarray.utils``) keyed by structured name: the parameters and the
+buffers (BatchNorm's running statistics, parameters of the JAX blocks),
+so a file written by either package loads into the other's block of the
+same structure.
 """
 from __future__ import annotations
 
 import re
 from typing import Dict, Optional
 
+import torch
 from torch import nn
 
+from ..base import MXNetError
 from ..initializer import seeded_init
 from .parameter import GradReqHooks, set_grad_req
 
@@ -58,6 +67,63 @@ class Block(nn.Module):
         """Zero every parameter's gradient in place (MXNet's rule;
         ``set_to_none=True`` drops them, torch's)."""
         super().zero_grad(set_to_none=set_to_none)
+
+    def _saved(self) -> Dict[str, torch.Tensor]:
+        """``{structured name: tensor}``: the parameters and persistent
+        buffers, each once."""
+        keep = set(self.state_dict(keep_vars=True))
+        out = dict(self.named_parameters())
+        out.update((n, b) for n, b in self.named_buffers() if n in keep)
+        return out
+
+    def save_parameters(self, filename: str, deduplicate: bool = False):
+        """Write the parameters and buffers to ``filename`` (module
+        docstring)."""
+        from ..ndarray import save
+
+        save(filename, self._saved())
+
+    @torch.no_grad()
+    def load_parameters(self, filename: str, ctx=None,
+                        allow_missing: bool = False,
+                        ignore_extra: bool = False, cast_dtype: bool = False,
+                        dtype_source: str = "current", device=None):
+        """Read a :meth:`save_parameters` file (of either package) into
+        this block's parameters and buffers, in place on their device.
+        A name of the block missing from the file raises unless
+        ``allow_missing``, a name of the file not in the block unless
+        ``ignore_extra``; with ``cast_dtype`` a tensor takes the saved
+        dtype (the JAX package's rule), else the value is cast to the
+        tensor's."""
+        from ..ndarray import load
+
+        loaded = load(filename)
+        own = self._saved()
+        if not allow_missing:
+            for name in own:
+                if name not in loaded:
+                    raise MXNetError(
+                        f"Parameter '{name}' is missing in file "
+                        f"'{filename}'. Set allow_missing=True to ignore "
+                        "missing parameters.")
+        for name, value in loaded.items():
+            if name not in own:
+                if not ignore_extra:
+                    raise MXNetError(
+                        f"Parameter '{name}' loaded from file '{filename}' "
+                        "is not present in the Block. Set "
+                        "ignore_extra=True to ignore.")
+                continue
+            t = own[name]
+            if tuple(value.shape) != tuple(t.shape):
+                raise MXNetError(f"{name}: shape {tuple(value.shape)} in "
+                                 f"'{filename}', {tuple(t.shape)} in the "
+                                 "block")
+            if cast_dtype and value.dtype != t.dtype:
+                t.data = value.to(t.device)
+            else:
+                t.copy_(value)
+        return self
 
     def setattr(self, name: str, value):
         """Set an attribute on every parameter (``grad_req``, ``lr_mult``,

@@ -21,8 +21,14 @@ backward overwrites the gradient the step reads.
 
 One device: ``allreduce_grads`` has nothing to reduce, the update runs
 here whatever ``update_on_kvstore`` says, and a kvstore that reduces
-across devices raises (ROADMAP A6), as do ``save_states`` /
-``load_states`` (A1.4).  Steps are dispatched asynchronously; at most
+across devices raises (ROADMAP A6).  ``optimizer_params`` may carry an
+``lr_scheduler`` (``lr_scheduler.py``), read with the update count.
+``save_states`` / ``load_states`` carry the optimizer states in the
+JAX package's file (``Updater.get_states``: a pickle of ``{index: numpy
+array | tuple | None}``, written atomically), so a states file of either
+package loads into the other.  As in the JAX package the file holds no
+update counts: a resumed run continues its schedule and bias
+corrections with ``optimizer_params={"begin_num_update": t}``.  Steps are dispatched asynchronously; at most
 ``MXNET_MAX_INFLIGHT_STEPS`` (default 2) are in flight
 (``engine.BoundedInflight`` waits on a CUDA event recorded after each
 step).  Telemetry: ``trainer.step_seconds``, the host time of a step.
@@ -136,9 +142,17 @@ class Trainer:
                 p.grad.zero_()
 
     def save_states(self, fname):
-        raise MXNetError("Trainer.save_states (checkpoints) is not ported "
-                         "yet (ROADMAP A1.4)")
+        """The optimizer states into ``fname`` (module docstring), after
+        the in-flight steps."""
+        from ..resilience.checkpoint import write_payload
+
+        self.drain()
+        write_payload(fname, self._updater.get_states(dump_optimizer=False))
 
     def load_states(self, fname):
-        raise MXNetError("Trainer.load_states (checkpoints) is not ported "
-                         "yet (ROADMAP A1.4)")
+        """The optimizer states of a :meth:`save_states` file (of either
+        package); each moves to its parameter's device at the next
+        update.  The file is a pickle: load only files you trust."""
+        with open(fname, "rb") as f:
+            self._updater.set_states(f.read())
+        self._optimizer = self._updater.optimizer

@@ -1074,3 +1074,85 @@ def test_ext_ops_through_rtc_launch_each_kernel_once(dev):
             ("ext_axpb", "ext_sqrelu_fwd", "ext_sqrelu_bwd")] == [1, 1, 1]
     ref = torch.clamp_min(2 * x.detach() + 0.5, 0) * 4
     torch.testing.assert_close(x.grad, ref, atol=1e-5, rtol=1e-5)
+
+
+# ------------------------------------- the trainer's options on the card
+def _tiny_bert(dev, seed=0):
+    from mxnet_tpu_torch.gluon.model_zoo import bert as tbert
+
+    return tbert.BERTForPretrain(tbert.get_bert(
+        num_layers=2, units=64, hidden_size=128, num_heads=4, vocab_size=97,
+        max_length=64, dropout=0.0, device=dev)).initialize(seed)
+
+
+def _bert_batch(dev, seed):
+    rs = np.random.RandomState(seed)
+    b, t, n = 4, 64, 6
+    lens = rs.randint(16, t + 1, size=b).astype(np.int32)
+    pos = np.stack([rs.choice(m, n, replace=False) for m in lens])
+    x = (rs.randint(0, 97, (b, t)), np.zeros((b, t)), lens, pos)
+    y = (rs.randint(0, 97, (b, n)), np.arange(b) % 2)
+    return (tuple(torch.as_tensor(a, dtype=torch.int32, device=dev)
+                  for a in x),
+            tuple(torch.as_tensor(a, dtype=torch.int32, device=dev)
+                  for a in y))
+
+
+def test_arena_kernel_under_a_schedule_and_grad_accum(dev):
+    """The trainer's arena update with ``PolyScheduler`` warmup and
+    ``grad_accum=2`` on the card against the same on the CPU (the
+    kernel's plain version): losses within TOL over 4 windows, and
+    ``opt_arena`` launched once a window."""
+    from mxnet_tpu_torch.gluon.model_zoo.bert import pretrain_loss
+    from mxnet_tpu_torch.lr_scheduler import PolyScheduler
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        tr = ShardedTrainer(_tiny_bert(where), pretrain_loss,
+                            optimizer="adam", learning_rate=1e-3,
+                            weight_decay=0.01, grad_accum=2,
+                            lr_scheduler=PolyScheduler(
+                                max_update=10, base_lr=1e-3, pwr=1,
+                                warmup_steps=2))
+        assert tr.uses_arena
+        registry.reset_launches()
+        losses = [tr.step(*_bert_batch(where, s), block=True)
+                  for s in range(8)]
+        runs[where.type] = (losses, registry.launches()["opt_arena"],
+                            tr.learning_rate)
+    assert runs["cuda"][1] == 4 and runs["cpu"][1] == 0
+    assert runs["cuda"][2] == runs["cpu"][2]
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=TOL,
+                               atol=0)
+
+
+@pytest.mark.parametrize("opt", ["adamw", "lamb"])
+def test_multi_tensor_equals_per_parameter_on_the_card(dev, opt):
+    """``multi_tensor=True`` against the per-parameter trainer on the
+    card from the same weights: adamw's parameters and states bit for bit
+    after 3 steps; lamb's states bit for bit after one step and its
+    parameters within 1e-6 of each tensor's max, since its per-tensor
+    norms reduce a stacked group's rows in another order than a lone
+    tensor's (``chip_smoke.py`` phase 31, ROADMAP C).  One step: in f32
+    that last-bit difference reaches the next step's gradients, which
+    LAMB's normalized update then magnifies where a gradient is near 0."""
+    from mxnet_tpu_torch.gluon.model_zoo.bert import pretrain_loss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    trs = []
+    for multi in (False, True):
+        tr = ShardedTrainer(_tiny_bert(dev), pretrain_loss, optimizer=opt,
+                            learning_rate=1e-3, weight_decay=0.01,
+                            multi_tensor=multi)
+        for s in range(1 if opt == "lamb" else 3):
+            tr.step(*_bert_batch(dev, s), block=True)
+        trs.append(tr)
+    for a, b in zip(trs[0]._adapter.leaves(), trs[1]._adapter.leaves()):
+        assert torch.equal(a, b)
+    for a, b in zip(trs[0].params, trs[1].params):
+        if opt == "lamb":
+            top = b.detach().abs().max()
+            assert (a.detach() - b.detach()).abs().max() <= 1e-6 * top
+        else:
+            assert torch.equal(a, b)

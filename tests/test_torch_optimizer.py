@@ -68,7 +68,7 @@ def test_registry_and_bookkeeping():
     opt = topt.SGD(learning_rate=0.5)
     assert topt.create(opt) is opt
     with pytest.raises(MXNetError):
-        topt.create("lamb")
+        topt.create("no_such_optimizer")
     with pytest.raises(TypeError):
         topt.Adam(learning_rat=0.1)
     opt.set_lr_mult({0: 0.1})
