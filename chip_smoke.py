@@ -268,6 +268,51 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     ``FactorScheduler`` resumed through ``save_states`` /
     ``load_states`` bit for bit.
 
+35. The decode kernel in every (query type, cache type) pair: f32, bf16
+    and f16 queries over f32, int8, bf16 and f16 caches, each its own
+    kernel (``flash_attention_decode.<q>_<cache>``; f32 over f32 and
+    int8 keep phase 2's names), against its plain version: Tq in {1, 3,
+    8, 9, 64, 256} (split-K, query groups of 8 for a mixed pair's
+    chunks, the 16-bit forward core for a same-type chunk), C in {100,
+    1024}, d in {36, 64, 128}, B=4, H=6, an inert row (cache_len 0) and
+    one at the capacity's edge, NaN past every window.  Bars 2^-7 (bf16)
+    / 2^-10 (f16) x max|ref| where q or the cache is 16-bit (the 16-bit
+    forward's; an f32 output over a 16-bit cache rounds P in the cache's
+    type at the kernel's running max, so it takes the cache type's bar),
+    atol = rtol = 1e-4 otherwise; the lse within 1e-4.  Then each of the
+    ten new pairs at the decode shape (B=8, H=12, d=64, Tq=1, C=1024,
+    cache lengths 979-1000), and bf16 over bf16 at a 256-token prefill
+    chunk: device time (``torch.profiler``), the plain version (events),
+    ``scaled_dot_product_attention`` in the same type with the boolean
+    decode mask where q and the cache share a float type (a yardstick
+    the port never calls), and the bound.
+36. GPT-2 small all in bf16 (``transformer_lm(dtype=torch.bfloat16)
+    .cast(torch.bfloat16)``: a bf16 cache) served as phase 4 serves f32:
+    tokens/s, TTFT p50, step p50 and the cache's bytes beside phase 4's
+    f32; 12 launches of ``flash_attention_decode.bf16_bf16`` a step and
+    a prefill, none of the f32 kernel; teacher-forced logits on the card
+    within 2^-4 x max|logit| of the port's bf16 plain path on the CPU;
+    greedy agreement with the unbatched loop >= 0.9.  Then a short run
+    (4 requests, 8 new tokens) of every other way the public API builds
+    a 16-bit model, each through its own pair: ``dtype=`` only (f32
+    queries over a 16-bit cache), ``cast`` only (16-bit queries over an
+    f32 cache), both, the int8 cache under a cast model, in bf16 and
+    f16, and the two crossed types.
+37. Phase 7's BERT-base batch serving on ``cast(torch.bfloat16)``:
+    requests/s, e2e p50 / p99 and occupancy beside phase 7's f32; 12
+    ``flash_attention.bf16`` launches a batch and no other kernel; every
+    answer within 2^-4 x max|ref| of a one-request forward on the card,
+    and a padded batch within 2^-4 x max|ref| of the port's bf16 plain
+    path on the CPU.
+38. ResNet-50 v1 scoring as ``bench.py --infer`` runs ``resnet50_b32``
+    and ``resnet50_b128``: NHWC, plain BatchNorm, seeded weights, f32
+    and then ``cast(torch.bfloat16)`` with a bf16 input from
+    ``RandomState(0)``, an f32 sum of the scores read once after 20
+    batches: img/s, ms a batch and peak memory at B=32 and B=128; no
+    kernel of the port launched (inference batch norm is plain, as in
+    the JAX package); then B=2 at 64x64 on the card against the CPU in
+    bf16 at phase 30's rule.
+
 It prints a ``{"kernels": [...]}`` line, the card line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository beside it, it exits non-zero and prints no result.
@@ -3659,6 +3704,466 @@ def sgld_check(net, before, gen, gstate, lr):
     return err
 
 
+# ------------------------------------------------------ 16-bit serving
+DEC16_SHAPES = [(tq, c) for c in (100, 1024) for tq in (1, 3, 8, 9, 64, 256)
+                if tq <= c]
+DEC16_D = (36, 64, 128)
+_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16",
+          torch.int8: "int8"}
+
+
+def phase_decode16_kernels(dev):
+    """Phase 35a: every (query type, cache type) pair of the decode
+    kernel against its plain version."""
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.test_utils import DECODE_PAIRS, decode_bar, \
+        decode_case
+
+    worst, n = {}, 0
+    for q_dt, kv_dt in DECODE_PAIRS:
+        name = att.decode_kernel_name(q_dt, kv_dt)
+        worst[name], rel = 0.0, 0.0
+        for tq, c in DEC16_SHAPES:
+            for d in DEC16_D:
+                lens = [0, 1, (c - tq) // 2, c - tq]   # inert row, edge
+                kern, plain = decode_case(q_dt, kv_dt, 4, 6, tq, c, d, lens,
+                                          seed=tq * 1000 + c + d, device=dev)
+                out, lse = att.flash_attention_decode(**kern, return_lse=True)
+                ref, ref_lse = att.flash_attention_decode_reference(
+                    **plain, return_lse=True)
+                label = f"{name} Tq={tq} C={c} d={d}"
+                check(out.dtype == q_dt and bool(torch.isfinite(out).all()),
+                      f"{label}: {out.dtype}, or non-finite output")
+                err = (out.float() - ref.float()).abs()
+                bar = decode_bar(q_dt, kv_dt, ref)
+                if bar is None:
+                    check(bool((err <= TOL + TOL * ref.abs()).all()),
+                          f"{label}: max err {err.max().item():.3e} over "
+                          f"atol=rtol={TOL}")
+                else:
+                    check(err.max().item() <= bar, f"{label}: max err "
+                          f"{err.max().item():.3e} > bar {bar:.3e}")
+                lerr = (lse - ref_lse).abs()
+                check(bool((lerr <= TOL + TOL * ref_lse.abs()).all()),
+                      f"{label}: lse err {lerr.max().item():.3e}")
+                top = ref.float().abs().max().item()
+                worst[name] = max(worst[name], err.max().item())
+                rel = max(rel, err.max().item() / top)
+                n += 1
+        print(f"  {name}: {len(DEC16_SHAPES) * len(DEC16_D)} cases (Tq "
+              "1/3/8/9/64/256, C 100/1024, d 36/64/128, an inert row and "
+              f"one at the capacity's edge), max abs err {worst[name]:.3e} "
+              f"({rel:.3e} x max|ref|)")
+    print(f"phase 35 decode kernels, every (query, cache) pair vs plain: {n} "
+          "cases within their bars (2^-7 bf16, 2^-10 f16 x max|ref|; "
+          f"atol=rtol={TOL} f32), NaN past every window never read")
+    return worst
+
+
+def dec16_bound(q_dt, kv_dt, b, tq, c, d, lens):
+    """Least time (ms) of a decode call: each input read once (the
+    attended cache positions only), the output written once, at 3.35e12
+    B/s; or its multiply-adds (4 d flops an attended pair) at the peak of
+    the units that run them: f32 CUDA cores (67e12) on the split-K path
+    (Tq <= 8), 16-bit MMAs (989e12) on the chunk path."""
+    qe = torch.tensor([], dtype=q_dt).element_size()
+    ke = torch.tensor([], dtype=kv_dt).element_size()
+    kv_pos = sum(min(x + tq, c) for x in lens) * H
+    nbytes = (2 * b * H * tq * d * qe + 2 * kv_pos * d * ke + b * 4
+              + (2 * kv_pos * 4 if kv_dt == torch.int8 else 0))
+    attended = sum(min(x + i + 1, c) for x in lens for i in range(tq)) * H
+    rate = F32_FLOP_PER_S if tq <= 8 else HALF_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * d * attended / rate * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes)
+
+
+def time_decode16(q_dt, kv_dt, b, tq, c, lens, dev, d=D):
+    """The pair's device time (profiler) beside its plain version (CUDA
+    events), SDPA in the same types with the boolean decode mask where q
+    and the cache share a float type (no one call takes a mixed or int8
+    pair), and the bound."""
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.test_utils import decode_bar, decode_case
+
+    ke = torch.tensor([], dtype=kv_dt).element_size()
+    one = 2 * b * H * c * d * ke
+    nbuf = max(1, math.ceil(200e6 / one)) if one > 4e6 else 1
+    cases = [decode_case(q_dt, kv_dt, b, H, tq, c, d, lens, seed=50 + i,
+                         device=dev) for i in range(nbuf)]
+    bufs, plains = [c_[0] for c_ in cases], [c_[1] for c_ in cases]
+    mask = att.decode_mask(bufs[0]["cache_len"], tq, c)
+    out = att.flash_attention_decode(**bufs[0])
+    ref = att.flash_attention_decode_reference(**plains[0])
+    err = (out.float() - ref.float()).abs().max().item()
+    bar = decode_bar(q_dt, kv_dt, ref)
+    check(err <= (bar if bar is not None else TOL * (1 + ref.abs().max()
+                                                      .item())),
+          f"timed {q_dt} over {kv_dt}: off by {err:.3e}")
+
+    def kern_fn(i):
+        return att.flash_attention_decode(**bufs[i])
+
+    same = q_dt == kv_dt
+    dev_ms = device_ms_per_call(kern_fn, nbuf)
+    lib_ms = device_ms_per_call(lambda i: F.scaled_dot_product_attention(
+        plains[i]["q"], plains[i]["k"], plains[i]["v"], attn_mask=mask),
+        nbuf) if same else None
+    plain_ms = cuda_time_ms(lambda i: att.flash_attention_decode_reference(
+        **plains[i]), nbuf, iters=5, reps=3)
+    bnd, by, nbytes = dec16_bound(q_dt, kv_dt, b, tq, c, d, lens)
+    name = att.decode_kernel_name(q_dt, kv_dt)
+    length, splits = att.split_plan(
+        b * H, tq, c, d, torch.cuda.get_device_properties(dev)
+        .multi_processor_count, grouped=not att._has_chunk_path(q_dt, kv_dt))
+    path = f"split-K S={splits} L={length}" if splits else "chunk"
+    print(f"  time {name}: B={b} H={H} Tq={tq} C={c} d={d} cache_len "
+          f"{min(lens)}..{max(lens)} ({path}) device {dev_ms:.4f} ms, bound "
+          f"{bnd:.4f} ms ({by}; {nbytes} B), plain {plain_ms:.4f} ms "
+          f"(events), SDPA "
+          f"{'n/a (no one call)' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+          f" (device); {nbuf} input copies")
+    return dict(shape=dict(B=b, H=H, Tq=tq, C=c, d=d,
+                           cache_len=[min(lens), max(lens)],
+                           q=_SHORT[q_dt], cache=_SHORT[kv_dt]),
+                ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bnd, bound_by=by, nbytes=nbytes, splits=splits,
+                split_len=length, max_abs_err=err)
+
+
+def phase_decode16_times(dev):
+    """Phase 35b: each new pair at the decode shape; the main path's pair
+    (bf16 over bf16) also at a 256-token prefill chunk."""
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.test_utils import DECODE_PAIRS
+
+    decode_lens = [1000 - 3 * i for i in range(B)]
+    rows = {}
+    for q_dt, kv_dt in DECODE_PAIRS:
+        name = att.decode_kernel_name(q_dt, kv_dt)
+        if name in ("flash_attention_decode", "flash_attention_decode_int8"):
+            continue                      # phase 3 times them
+        rows[name] = dict(decode=time_decode16(q_dt, kv_dt, B, 1, 1024,
+                                               decode_lens, dev))
+    rows["flash_attention_decode.bf16_bf16"]["prefill"] = time_decode16(
+        torch.bfloat16, torch.bfloat16, 1, 256, 256, [0], dev)
+    print("phase 35b decode kernel times: done")
+    return rows
+
+
+SHORT_SERVE = dict(slots=4, prompt_buckets=(32, 64),
+                   capacity_buckets=(256, 512), max_new_tokens=8)
+
+
+def short_serve(lm, name, want, precision=None):
+    """A short decode run of a model built another way (4 requests of
+    16-64 tokens, 8 new tokens each): ``want``'s kernel launched 12 times
+    a step and a prefill, no other decode kernel."""
+    from mxnet_tpu_torch import serve, telemetry
+    from mxnet_tpu_torch.kernels import registry
+
+    serve.register_decode(name, lm, precision=precision, **SHORT_SERVE)
+    rs = np.random.RandomState(5)
+    prompts = [rs.randint(0, GPT2_SMALL["vocab_size"], size=n).tolist()
+               for n in rs.randint(16, 65, size=4)]
+    telemetry.reset()
+    registry.reset_launches()
+    results = [f.result(600.0) for f in
+               [serve.decode_submit(name, p) for p in prompts]]
+    launches = registry.launches()
+    snap = telemetry.snapshot()
+    serve.shutdown_decode(120.0)
+    steps = snap["serve.decode_step_seconds"]["count"]
+    prefills = snap["serve.prefill_seconds"]["count"]
+    others = {k: v for k, v in launches.items()
+              if k.startswith("flash_attention_decode") and k != want and v}
+    check(all(len(r) == SHORT_SERVE["max_new_tokens"] for r in results),
+          f"{name}: a future resolved short")
+    check(launches[want] >= 12 * (steps + prefills) and not others,
+          f"{name}: {want} launched {launches[want]} times for {steps} steps "
+          f"+ {prefills} prefills; others {others}")
+    return launches[want]
+
+
+def phase_serve_bf16(dev, card, f32):
+    """Phase 36: GPT-2-small all in bf16 (bf16 cache) served as phase 4
+    serves f32; then short runs of every other way the public API builds
+    a 16-bit model, each through its pair of the decode kernel."""
+    from mxnet_tpu_torch.gluon.model_zoo import transformer_lm
+    from mxnet_tpu_torch.ops import attention as att
+
+    bf16, f16 = torch.bfloat16, torch.float16
+    t0 = time.perf_counter()
+    base = transformer_lm(device=dev, **GPT2_SMALL).initialize(seed=0)
+    state = base.state_dict()
+    del base
+
+    def build(dtype=torch.float32, cast=None, **kw):
+        lm = transformer_lm(device=dev, dtype=dtype, **GPT2_SMALL, **kw)
+        lm.load_state_dict(state)
+        return lm.cast(cast) if cast is not None else lm
+
+    lm = build(bf16, bf16)
+    torch.cuda.synchronize()
+    print(f"  bf16 model on {dev}: built in {time.perf_counter() - t0:.2f} "
+          f"s; parameters {sorted({str(p.dtype) for p in lm.parameters()})}")
+    main = "flash_attention_decode.bf16_bf16"
+    run = serve_run(lm, "gpt2s_bf16", 16, seed=1)
+    snap, launches = run["snap"], run["launches"]
+    steps = snap["serve.decode_step_seconds"]["count"]
+    prefills = snap["serve.prefill_seconds"]["count"]
+    n_main = launches[main]
+    check(all(len(r) == SERVE_CFG["max_new_tokens"] for r in run["results"]),
+          "a bf16 future resolved short of max_new_tokens")
+    check(n_main >= GPT2_SMALL["num_layers"] * (steps + prefills) and
+          launches["flash_attention_decode"] == 0,
+          f"{main} launches {n_main} < 12 x ({steps} steps + {prefills} "
+          f"prefills), or f32 launches {launches['flash_attention_decode']}")
+    tokens = sum(len(r) for r in run["results"])
+
+    # teacher-forced logits on the card vs the port's plain path on the CPU
+    seq = run["prompts"][1] + run["results"][1]
+    cap = 512 if len(seq) > 256 else 256
+    cpu_lm = transformer_lm(device="cpu", dtype=bf16, **GPT2_SMALL).cast(bf16)
+    cpu_lm.load_state_dict({k: v.cpu() for k, v in lm.state_dict().items()})
+    gpu_logits, _ = lm(np.asarray([seq]), lm.begin_cache(1, cap), [0],
+                       [len(seq)])
+    cpu_logits, _ = cpu_lm(np.asarray([seq]), cpu_lm.begin_cache(1, cap),
+                           [0], [len(seq)])
+    del cpu_lm
+    check(gpu_logits.dtype == cpu_logits.dtype == bf16, "logits not bf16")
+    delta = (gpu_logits.float().cpu() - cpu_logits.float()).abs().max().item()
+    scale = cpu_logits.float().abs().max().item()
+    check(delta <= 2.0 ** -4 * scale, f"bf16 teacher-forced logits differ by "
+          f"{delta:.3e} > 2^-4 x {scale:.3e}")
+    same = total = 0
+    for prompt, got in zip(run["prompts"], run["results"]):
+        want = greedy_unbatched(lm, prompt, len(got))
+        same += sum(a == b_ for a, b_ in zip(got, want))
+        total += len(got)
+    agree = same / total
+    check(agree >= 0.9, f"bf16 served greedy agrees with unbatched greedy in "
+          f"{agree:.3f} of positions < 0.9")
+    # K and V of every layer at the largest capacity bucket
+    cache_bytes = {dt: 2 * GPT2_SMALL["num_layers"] * SERVE_CFG["slots"]
+                   * GPT2_SMALL["units"] * 1024
+                   * torch.tensor([], dtype=dt).element_size()
+                   for dt in (torch.float32, bf16)}
+    ttft = snap["serve.ttft_seconds"]["p50"]
+    step = snap["serve.decode_step_seconds"]["p50"]
+    del lm
+    # the other ways to a 16-bit model, each its own pair of the kernel
+    routes = {}
+    for label, kw, want, prec in (
+            ("dtype=bf16 (f32 cells, bf16 cache)", dict(dtype=bf16),
+             "flash_attention_decode.f32_bf16", None),
+            ("cast bf16 (f32 cache)", dict(cast=bf16),
+             "flash_attention_decode.bf16_f32", None),
+            ("cast bf16, int8 cache", dict(dtype=bf16, cast=bf16),
+             "flash_attention_decode.bf16_int8", "int8"),
+            ("dtype=f16 + cast", dict(dtype=f16, cast=f16),
+             "flash_attention_decode.f16_f16", None),
+            ("dtype=f16", dict(dtype=f16), "flash_attention_decode.f32_f16",
+             None),
+            ("cast f16", dict(cast=f16), "flash_attention_decode.f16_f32",
+             None),
+            ("cast f16, int8 cache", dict(dtype=f16, cast=f16),
+             "flash_attention_decode.f16_int8", "int8"),
+            ("dtype=bf16, cast f16", dict(dtype=bf16, cast=f16),
+             "flash_attention_decode.f16_bf16", None),
+            ("dtype=f16, cast bf16", dict(dtype=f16, cast=bf16),
+             "flash_attention_decode.bf16_f16", None)):
+        lm2 = build(**kw)
+        routes[want] = short_serve(lm2, f"gpt2s_{want[-9:]}", want, prec)
+        print(f"  {label}: {routes[want]} launches of {want}")
+        del lm2
+    routes[main] = n_main
+    print(f"  launches {launches} for {steps} steps + {prefills} prefills; "
+          f"KV cache at 8 slots x C=1024: bf16 {cache_bytes[bf16]} B, f32 "
+          f"{cache_bytes[torch.float32]} B")
+    print(f"  teacher-forced bf16 logits over {len(seq)} tokens: max |gpu - "
+          f"cpu| {delta:.3e} = {delta / scale:.3e} x max|logit| (bar 2^-4); "
+          f"greedy agreement with the unbatched loop {agree:.4f} over "
+          f"{total} positions")
+    print(f"phase 36 serve bf16: {tokens} tokens in {run['wall']:.3f} s = "
+          f"{tokens / run['wall']:.1f} tokens/s (f32 {f32['tokens_per_s']:.1f}"
+          f"), TTFT p50 {ttft * 1e3:.2f} ms (f32 {f32['ttft_p50_ms']:.2f}), "
+          f"decode step p50 {step * 1e3:.3f} ms (f32 "
+          f"{f32['step_p50_ms']:.3f}), warmup {run['warm']:.2f} s [{card}]")
+    return dict(tokens_per_s=tokens / run["wall"], ttft_p50_ms=ttft * 1e3,
+                step_p50_ms=step * 1e3, launches=routes, steps=steps,
+                prefills=prefills, agreement=agree, logit_delta=delta,
+                logit_rel=delta / scale,
+                cache_bytes={"bf16": cache_bytes[bf16],
+                             "f32": cache_bytes[torch.float32]})
+
+
+def phase_bert_bf16(dev, card, f32):
+    """Phase 37: phase 7's batch serving on a ``cast(torch.bfloat16)``
+    BERT-base."""
+    from mxnet_tpu_torch import serve, telemetry
+    from mxnet_tpu_torch.gluon.model_zoo import bert_12_768_12
+    from mxnet_tpu_torch.kernels import registry
+
+    bf16 = torch.bfloat16
+    bert = bert_12_768_12(dropout=0.0, device=dev, **BERT_BASE)
+    bert.initialize(seed=0).cast(bf16)
+    t0 = time.perf_counter()
+    entry = serve.register(
+        "bert16", bert, bucketer=BERT_BUCKETS,
+        sample=(np.zeros(32, np.int32), np.zeros(32, np.int32),
+                np.asarray(32, np.int32)))
+    warm = time.perf_counter() - t0
+    reqs = bert_requests(BERT_REQUESTS, seed=3)
+    srv = serve.Server(max_wait_ms=5, max_batch=16)
+    telemetry.reset()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    futs = [srv.submit("bert16", *r) for r in reqs]
+    outs = [f.result(600.0) for f in futs]
+    wall = time.perf_counter() - t0
+    launches = registry.launches()
+    snap = telemetry.snapshot()
+    srv.close(120.0)
+    serve.unregister("bert16")
+    batches = snap["serve.batches"]["value"]
+    n_flash = launches["flash_attention.bf16"]
+    check(n_flash == 12 * batches, f"flash_attention.bf16 launches {n_flash} "
+          f"!= 12 x {batches} batches")
+    check(all(v == 0 for k, v in launches.items()
+              if k != "flash_attention.bf16"),
+          f"other kernels launched while serving bf16 BERT: {launches}")
+    # every answer against a one-request forward on the card (bf16 GEMMs
+    # of another shape: another summation order)
+    worst, units = 0.0, bert.pooler.weight.shape[0]
+    for (tok, seg, vl), (seq, pooled) in zip(reqs, outs):
+        t = int(vl)
+        check(seq.shape == (t, units) and pooled.shape == (units,),
+              f"answer shapes {seq.shape}, {pooled.shape} for T={t}")
+        with torch.inference_mode():
+            ref_seq, ref_pooled = bert(tok[None], seg[None], np.asarray([t]))
+        for got, want in ((seq, ref_seq[0]), (pooled, ref_pooled[0])):
+            want = want.float().cpu().numpy()
+            err = float(np.abs(got - want).max())
+            top = float(np.abs(want).max())
+            check(np.isfinite(got).all() and err <= 2.0 ** -4 * top,
+                  f"bf16 answer off by {err:.3e} > 2^-4 x {top:.3e} (T={t})")
+            worst = max(worst, err / top)
+    # a padded batch on the card vs the port's bf16 plain path on the CPU
+    batch, _, _ = entry.pad_requests(reqs[1:3])
+    cpu_bert = bert_12_768_12(dropout=0.0, device="cpu", **BERT_BASE).cast(bf16)
+    cpu_bert.load_state_dict({k: v.cpu() for k, v in bert.state_dict().items()})
+    with torch.inference_mode():
+        gpu_out = [x.float().cpu().numpy() for x in bert(*batch)]
+        cpu_out = [x.float().numpy() for x in cpu_bert(*batch)]
+    del cpu_bert
+    cpu_err = 0.0
+    for g_, c_ in zip(gpu_out, cpu_out):
+        delta = float(np.abs(g_ - c_).max())
+        top = float(np.abs(c_).max())
+        check(delta <= 2.0 ** -4 * top, f"bf16 padded batch "
+              f"{batch[0].shape}: card vs CPU {delta:.3e} > 2^-4 x {top:.3e}")
+        cpu_err = max(cpu_err, delta / top)
+    e2e = snap["serve.e2e_seconds"]
+    occupancy = snap["serve.rows"]["value"] / snap["serve.padded_rows"]["value"]
+    print(f"  launches {launches} for {batches} batches (12 layers each); "
+          f"warmup {entry.warmed} shapes in {warm:.2f} s")
+    print(f"  answers vs one-request forwards: max err {worst:.3e} x max|ref|"
+          f" (bar 2^-4); padded batch {batch[0].shape} card vs CPU bf16 "
+          f"{cpu_err:.3e} x max|cpu| (bar 2^-4)")
+    print(f"phase 37 serve BERT-base bf16: {BERT_REQUESTS} requests in "
+          f"{wall:.3f} s = {BERT_REQUESTS / wall:.1f} requests/s (f32 "
+          f"{f32['requests_per_s']:.1f}), e2e p50 {e2e['p50'] * 1e3:.2f} ms "
+          f"(f32 {f32['e2e_p50_ms']:.2f}), p99 {e2e['p99'] * 1e3:.2f} ms (f32 "
+          f"{f32['e2e_p99_ms']:.2f}), {batches} batches, mean batch occupancy "
+          f"{occupancy:.4f} (f32 {f32['occupancy']:.4f}) [{card}]")
+    return dict(requests_per_s=BERT_REQUESTS / wall,
+                e2e_p50_ms=e2e["p50"] * 1e3, e2e_p99_ms=e2e["p99"] * 1e3,
+                batches=batches, occupancy=occupancy, launches=n_flash,
+                answer_rel_err=worst, cpu_rel_err=cpu_err, warm_s=warm)
+
+
+INFER_BATCHES = (32, 128)     # bench.py's resnet50_b32 and resnet50_b128
+INFER_STEPS = 20
+
+
+def score_run(net, x):
+    """``bench.py``'s scoring loop: one f32 sum of the logits a batch,
+    read once at the end; img/s over ``INFER_STEPS`` batches after 3
+    warm ones, and the peak device memory."""
+    with torch.inference_mode():
+        for _ in range(3):
+            float(net(x).float().sum())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        acc = None
+        for _ in range(INFER_STEPS):
+            acc = net(x).float().sum()
+        float(acc)
+        wall = time.perf_counter() - t0
+    return dict(img_per_s=x.shape[0] * INFER_STEPS / wall,
+                ms_per_batch=wall / INFER_STEPS * 1e3,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def phase_resnet_infer(dev, card):
+    """Phase 38: ResNet-50 v1 scoring as ``bench.py --infer`` runs
+    ``resnet50_b32`` and ``resnet50_b128``: NHWC, f32, then cast to bf16
+    with a bf16 input from ``RandomState(0)``; then a small batch on the
+    card against the CPU at phase 30's rule."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    from mxnet_tpu_torch.kernels import registry
+
+    bf16 = torch.bfloat16
+    net = get_model("resnet50_v1", layout="NHWC", device=dev).initialize(0)
+    rows = {}
+    registry.reset_launches()
+    for label in ("f32", "bf16"):
+        if label == "bf16":
+            net.cast(bf16)
+        for b in INFER_BATCHES:
+            x = torch.from_numpy(np.random.RandomState(0).rand(
+                b, 224, 224, 3).astype(np.float32)).to(dev)
+            if label == "bf16":
+                x = x.to(bf16)
+            rows[f"{label}_b{b}"] = r = score_run(net, x)
+            print(f"  {label} B={b}: {r['img_per_s']:.1f} img/s, "
+                  f"{r['ms_per_batch']:.3f} ms a batch, peak "
+                  f"{r['peak_gib']:.2f} GiB")
+            del x
+    launched = {k: v for k, v in registry.launches().items() if v}
+    check(not launched, f"scoring launched the port's kernels: {launched}")
+    check(all(p.dtype == bf16 for p in net.parameters()) and
+          all(b_.dtype == bf16 for b_ in net.buffers()),
+          "the cast left a parameter or running statistic in f32")
+    # a small batch on the card against the CPU (phase 30's rule)
+    xs = np.random.RandomState(1).rand(2, 64, 64, 3).astype(np.float32)
+    cpu32 = get_model("resnet50_v1", layout="NHWC", device="cpu")
+    cpu32.load_state_dict({k: v.float().cpu()
+                           for k, v in net.state_dict().items()})
+    with torch.inference_mode():
+        got = net(torch.from_numpy(xs).to(dev).to(bf16)).float().cpu()
+        ref32 = cpu32(torch.from_numpy(xs))
+        ref16 = cpu32.cast(bf16)(torch.from_numpy(xs).to(bf16)).float()
+    own = (ref16 - ref32).abs().max().item()
+    delta = (got - ref16).abs().max().item()
+    bar = max(2.0 ** -4 * ref16.abs().max().item(), 3 * own)
+    check(bool(torch.isfinite(got).all()) and delta <= bar,
+          f"bf16 scores card vs CPU {delta:.3e} > {bar:.3e}")
+    print(f"  B=2 64x64 card vs CPU bf16 scores: {delta:.3e} (bar {bar:.3e}: "
+          f"the larger of 2^-4 x max|cpu| and 3 x the CPU's own bf16-f32 "
+          f"distance {own:.3e})")
+    print(f"phase 38 ResNet-50 scoring: bf16 "
+          f"{rows['bf16_b32']['img_per_s']:.1f} img/s at B=32, "
+          f"{rows['bf16_b128']['img_per_s']:.1f} at B=128; f32 "
+          f"{rows['f32_b32']['img_per_s']:.1f} and "
+          f"{rows['f32_b128']['img_per_s']:.1f} [{card}]")
+    rows["card_vs_cpu"] = dict(delta=delta, bar=bar, cpu_bf16_vs_f32=own)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3711,6 +4216,11 @@ def main() -> int:
     sched_accum = phase_schedule_accum(dev, card)
     resume = phase_resume(dev, card)
     registry_opts = phase_registry(dev, card)
+    dec16_worst = phase_decode16_kernels(dev)
+    dec16_times = phase_decode16_times(dev)
+    serve_bf16 = phase_serve_bf16(dev, card, f32)
+    bert_bf16 = phase_bert_bf16(dev, card, bert)
+    resnet_infer = phase_resnet_infer(dev, card)
     launches = {"flash_attention_decode": f32["launches"],
                 "flash_attention_decode_int8": i8["launches"]}
     kernels = []
@@ -3886,6 +4396,26 @@ def main() -> int:
                 library_ms=row["library_ms"], library=lib,
                 shape=row["shape"],
                 by_shape=[r[key] for r in bn16_times[sfx]]))
+    for name, row in dec16_times.items():
+        src, replaces = registry.KERNELS[name]
+        dec = row["decode"]
+        kernels.append(dict(
+            name=name, variant=name.split(".")[1], route="cuda",
+            source=f"mxnet_tpu_torch/csrc/{src}", replaces=replaces,
+            launches=serve_bf16["launches"][name],
+            max_abs_err=max(dec16_worst[name], dec["max_abs_err"]),
+            ms=dec["ms"], time_by="device time (profiler)",
+            plain_ms=dec["plain_ms"], plain="events",
+            bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
+            bound_note="max(bytes / 3.35e12, 4 d flops an attended pair / "
+                       "67e12 on the split-K path, / 989e12 on the 16-bit "
+                       "chunk path); each value its type's bytes",
+            library_ms=dec["library_ms"],
+            library=("scaled_dot_product_attention in the same type with "
+                     "the boolean decode mask, device time"
+                     if dec["library_ms"] is not None else None),
+            shape=dec["shape"], splits=dec["splits"],
+            split_len=dec["split_len"], prefill=row.get("prefill")))
     print(f"end to end: f32 {f32['tokens_per_s']:.1f} tokens/s, int8 "
           f"{i8['tokens_per_s']:.1f} tokens/s, BERT-base "
           f"{bert['requests_per_s']:.1f} requests/s, BERT-base training "
@@ -3897,10 +4427,18 @@ def main() -> int:
           f"{train_fp16['samples_per_s']:.2f} samples/s, ResNet-50 bf16 "
           f"training {resnet_bf16['plain']['img_per_s']:.2f} img/s "
           f"(BatchNorm) and {resnet_bf16['fused']['img_per_s']:.2f} img/s "
-          f"(fused), f16 {resnet_fp16['img_per_s']:.2f} img/s; whole run "
+          f"(fused), f16 {resnet_fp16['img_per_s']:.2f} img/s, GPT-2-small "
+          f"bf16 {serve_bf16['tokens_per_s']:.1f} tokens/s, BERT-base bf16 "
+          f"{bert_bf16['requests_per_s']:.1f} requests/s, ResNet-50 bf16 "
+          f"scoring {resnet_infer['bf16_b32']['img_per_s']:.1f} img/s at "
+          f"B=32 and {resnet_infer['bf16_b128']['img_per_s']:.1f} at B=128 "
+          f"(f32 {resnet_infer['f32_b32']['img_per_s']:.1f} and "
+          f"{resnet_infer['f32_b128']['img_per_s']:.1f}); whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels,
-                      "serve": {"f32": f32, "int8": i8, "bert": bert},
+                      "serve": {"f32": f32, "int8": i8, "bert": bert,
+                                "bf16": serve_bf16, "bert_bf16": bert_bf16,
+                                "resnet50_scoring": resnet_infer},
                       "train": {"bert_base": train, "card_vs_cpu": train_cpu,
                                 "resnet50": resnet,
                                 "resnet_card_vs_cpu": resnet_cpu,

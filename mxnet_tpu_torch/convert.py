@@ -63,12 +63,23 @@ from .base import MXNetError
 __all__ = ["params_from_jax", "load_into"]
 
 
+def _tensor(value) -> torch.Tensor:
+    """A CPU tensor holding ``value``'s bits.  A bf16 array (the
+    ``bfloat16`` dtype numpy gets from JAX, which torch cannot take) is
+    carried bit for bit through an int16 view, recognised by its dtype's
+    name so the port needs no package that defines it."""
+    arr = np.array(value, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def params_from_jax(named_numpy: Mapping[str, np.ndarray]
                     ) -> Dict[str, torch.Tensor]:
     """``{collect_params name: numpy array}`` -> a ``state_dict`` of CPU
-    tensors for the port's module of the same structure."""
-    return {name: torch.from_numpy(np.array(value, copy=True))
-            for name, value in named_numpy.items()}
+    tensors for the port's module of the same structure; f32, f16 and
+    bf16 arrays keep their type and bits."""
+    return {name: _tensor(value) for name, value in named_numpy.items()}
 
 
 @torch.no_grad()

@@ -65,6 +65,7 @@ int flash16(const void* q, const void* k, const void* v, const void* kv_len,
   a.k = static_cast<const uint16_t*>(k);
   a.v = static_cast<const uint16_t*>(v);
   a.kv_len = static_cast<const int*>(kv_len);
+  a.q_off = nullptr;
   a.out = static_cast<uint16_t*>(out);
   a.lse = static_cast<float*>(lse);
   a.H = H;

@@ -1,8 +1,9 @@
 // The flash-attention forward core on Hopper tensor cores (sm_90a), f32
 // queries against f32 keys and values or an int8 cache with one f32 scale
-// a row.  Included by flash_attention.cu (the flash forward) and by
-// decode_attention.cu (its prefill-chunk path, the causal diagonal offset
-// by each row's cache length).
+// a row, and its 16-bit form (bf16 or f16 queries, keys and values).
+// Included by flash_attention.cu (the flash forward) and, through
+// decode_attention.cuh, by the decode sources (their prefill-chunk path,
+// the causal diagonal offset by each row's cache length: `q_off`).
 //
 // For each (b, h) and query row qpos < Tq it attends the key positions
 // kpos < kv_end, kv_end = Tk or, with a per-row length, min(Tk, kv_len[b]);
@@ -496,6 +497,7 @@ struct Fwd16Args {
   const uint16_t* k;      // (B, H, Tk, d)
   const uint16_t* v;
   const int* kv_len;      // (B,) key lengths, or null
+  const int* q_off;       // (B,) key position of query 0, or null
   uint16_t* out;          // (B, H, Tq, d), q's type
   float* lse;             // (B, H, Tq), or null
   int H, Tq, Tk, d, causal;
@@ -637,7 +639,8 @@ __global__ void __launch_bounds__(F16_NT) flash_fwd16_kernel(
   load_sw64<64, F16_NT>(sk, kb, 0, a.Tk, d, d, mode, tid);
   int kv_end = a.Tk;
   if (a.kv_len != nullptr) kv_end = min(kv_end, max(0, a.kv_len[bhx / a.H]));
-  if (a.causal) kv_end = min(kv_end, min(Tq, q0 + F16_BM));  // diagonal
+  const int off = a.q_off != nullptr ? max(0, a.q_off[bhx / a.H]) : 0;
+  if (a.causal) kv_end = min(kv_end, off + min(Tq, q0 + F16_BM));  // diagonal
   const int ntiles = (kv_end + 63) / 64;
   // V's rows past the length are zeros: 0 x NaN would reach the output
   if (ntiles > 0) load_sw64<64, F16_NT>(sv, vb, 0, kv_end, d, d, mode, tid);
@@ -645,7 +648,7 @@ __global__ void __launch_bounds__(F16_NT) flash_fwd16_kernel(
 
   const int w0 = q0 + 64 * wg;  // the warpgroup's first query row
   const bool wg_live = w0 < Tq;
-  const int w_end = a.causal ? min(kv_end, w0 + 64) : kv_end;
+  const int w_end = a.causal ? min(kv_end, off + w0 + 64) : kv_end;
   const int qa = w0 + 16 * warp + g;  // this thread's rows: qa and qa + 8
   const float sl = a.scale * kLog2e;
   const bool neg = sl < 0.f;
@@ -672,9 +675,9 @@ __global__ void __launch_bounds__(F16_NT) flash_fwd16_kernel(
     if (!wg_live || k0 >= w_end) continue;  // warpgroup-uniform
     float s[32];
     qk16<T>(s, sqw, sk + st * SW64);
-    const bool mask = k0 + 64 > kv_end || (a.causal && k0 + 63 > w0);
-    softmax16(s, o, m0, m1, l0, l1, qa, k0, kv_end, a.causal, mask, neg,
-              sl2, t);
+    const bool mask = k0 + 64 > kv_end || (a.causal && k0 + 63 > off + w0);
+    softmax16(s, o, m0, m1, l0, l1, qa + off, k0, kv_end, a.causal, mask,
+              neg, sl2, t);
     pv16w<T>(o, s, sv + st * SW64);
   }
   cp_wait<0>();
@@ -753,7 +756,8 @@ __global__ void __launch_bounds__(W16_NT) flash_fwd16_wide_kernel(
 
   int kv_end = a.Tk;
   if (a.kv_len != nullptr) kv_end = min(kv_end, max(0, a.kv_len[bhx / a.H]));
-  if (a.causal) kv_end = min(kv_end, q0 + nrows);  // last diagonal + 1
+  const int off = a.q_off != nullptr ? max(0, a.q_off[bhx / a.H]) : 0;
+  if (a.causal) kv_end = min(kv_end, off + q0 + nrows);  // last diagonal + 1
   const int ntiles = (kv_end + BN - 1) / BN;
 
   const size_t qoff = (size_t)bhx * Tq, koff = (size_t)bhx * a.Tk;
@@ -763,7 +767,7 @@ __global__ void __launch_bounds__(W16_NT) flash_fwd16_wide_kernel(
 
   const int qa = q0 + r0 + g;  // this thread's rows: qa and qa + 8
   const bool warp_live = q0 + r0 < Tq;
-  const int w_end = a.causal ? min(kv_end, q0 + r0 + 16) : kv_end;
+  const int w_end = a.causal ? min(kv_end, off + q0 + r0 + 16) : kv_end;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
   float acc[NJ][4];
 #pragma unroll
@@ -791,7 +795,7 @@ __global__ void __launch_bounds__(W16_NT) flash_fwd16_wide_kernel(
     }
     if (live)
       online_softmax<NB, NJ>(s, acc, m0, m1, l0, l1, qa, k0, kv_end,
-                             a.causal, 0, a.scale, t);
+                             a.causal, off, a.scale, t);
     __syncthreads();  // this group's columns of the value tile
     load_tile16<BN, NT>(sv, vb, k0, kv_end, d, c0, nc, 64, mode, tid);
     cp_commit();

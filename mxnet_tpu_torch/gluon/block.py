@@ -1,8 +1,8 @@
 """Gluon's ``Block`` and ``HybridBlock`` as ``torch.nn.Module``s.
 
 The port of ``Block`` / ``HybridBlock`` from ``mxnet_tpu/gluon/block.py``
-(``collect_params`` :135, ``initialize`` :159, ``zero_grad`` :180,
-``setattr``, ``hybridize`` :272 and :826).  Every layer and model of the
+(``collect_params`` :135, ``initialize`` :159, ``cast`` :173,
+``zero_grad`` :180, ``setattr``, ``hybridize`` :272 and :826).  Every layer and model of the
 port derives from :class:`HybridBlock`, so children register by
 attribute assignment (torch's rule, as the JAX ``Block.__setattr__``
 does) and a parameter's structured name is its ``named_parameters``
@@ -34,7 +34,7 @@ from torch import nn
 
 from ..base import MXNetError
 from ..initializer import seeded_init
-from .parameter import GradReqHooks, set_grad_req
+from .parameter import GradReqHooks, rehook, set_grad_req
 
 __all__ = ["Block", "HybridBlock"]
 
@@ -62,6 +62,36 @@ class Block(nn.Module):
         """Seeded random weights (:func:`initializer.seeded_init`);
         returns the block."""
         return seeded_init(self, seed)
+
+    @torch.no_grad()
+    def cast(self, dtype):
+        """Cast every floating parameter and every floating buffer of the
+        block and its children to ``dtype`` (a torch dtype or a name such
+        as ``"bfloat16"``), in place; returns the block.  The JAX
+        ``Block.cast`` (``mxnet_tpu/gluon/block.py:173``) casts every
+        ``collect_params()`` entry, BatchNorm's running statistics among
+        them; here those are buffers, so buffers are cast too.  A
+        parameter stays the same tensor (its ``grad_req`` and "write" hook
+        stay attached); one that had a gradient gets a zero gradient of
+        the new type, as ``Parameter.cast`` re-attaches it.  The model's
+        own dtype attribute is not touched: a ``TransformerLM`` keeps the
+        cache type its constructor set, as in the JAX package."""
+        dt = _torch_dtype(dtype)
+        for mod in self.modules():
+            for p in mod.parameters(recurse=False):
+                if p.is_floating_point() and p.dtype != dt:
+                    had_grad = p.grad is not None
+                    p.grad = None
+                    # torch drops a leaf's gradient accumulator when its
+                    # type changes: the "write" hook moves to the new one
+                    p.data = p.data.to(dt)
+                    rehook(p)
+                    if had_grad:
+                        p.grad = torch.zeros_like(p)
+            for name, b in list(mod.named_buffers(recurse=False)):
+                if b is not None and b.is_floating_point() and b.dtype != dt:
+                    mod._buffers[name] = b.to(dt)
+        return self
 
     def zero_grad(self, set_to_none: bool = False):
         """Zero every parameter's gradient in place (MXNet's rule;
@@ -140,6 +170,21 @@ class Block(nn.Module):
                   backward_bulk_size: Optional[int] = None):
         """Accepted with the JAX signature; the block and its children
         still run eagerly (module docstring)."""
+
+
+_DTYPE_NAMES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16, "float64": torch.float64}
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype, a numpy dtype or its name
+    (``"bfloat16"``), as ``jnp.dtype`` reads the JAX ``cast``'s."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = str(getattr(dtype, "name", dtype))
+    if name not in _DTYPE_NAMES:
+        raise MXNetError(f"cast: unknown dtype {dtype!r}")
+    return _DTYPE_NAMES[name]
 
 
 class HybridBlock(Block):

@@ -17,6 +17,14 @@ One call serves both prefill (T = padded prompt chunk) and a decode step
   the model dtype, or with ``cache_dtype="int8"`` ``(k_q, k_scale, v_q,
   v_scale)``: int8 pages plus per-position f32 scales (B, H, C, 1).
   Every leaf has the capacity C on axis 2.
+
+16 bits, as in the JAX package.  ``dtype=torch.bfloat16`` (or f16)
+makes ``word_embed``, ``position_weight`` and the cache 16-bit and
+leaves the decoder cells, ``ln_f`` and ``out_bias`` f32, so f32 queries
+meet a 16-bit cache and the logits are f32; ``Block.cast`` makes every
+parameter 16-bit but keeps the cache the constructor's type (an f32
+cache under 16-bit queries, 16-bit logits); both together give a model,
+cache and logits all in 16 bits.  Mixed operands promote as jnp does.
 * ``cache_len`` — (B,) valid cache length per row BEFORE the call, read
   on the host.  Query ``i`` sees cache positions ``<= cache_len + i``,
   so padded garbage past a row's true length is never attended.
@@ -37,7 +45,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...base import MXNetError
 from ...context import resolve_device
 from ...ops import attention as _att
 from ...ops import nn as _ops
@@ -132,9 +139,6 @@ class TransformerLM(HybridBlock):
                 f"cache_dtype={cache_dtype!r} unsupported; None (cache in "
                 "the model dtype) or 'int8' (quantized KV pages with "
                 "per-position scales)")
-        if dtype != torch.float32:
-            raise MXNetError("the decode kernel of this port takes float32 "
-                             f"activations; got dtype={dtype}")
         dev = resolve_device(device)
         self._cache_dtype = cache_dtype
         self._vocab_size = vocab_size
@@ -147,14 +151,15 @@ class TransformerLM(HybridBlock):
         self.word_embed = Embedding(vocab_size, units, device=dev, dtype=dtype)
         self.position_weight = nn.Parameter(
             torch.empty(max_length, units, device=dev, dtype=dtype))
+        # the cells, ln_f and out_bias stay f32 whatever ``dtype`` is, as
+        # the JAX package builds them (module docstring)
         self.layers = nn.ModuleList(
             TransformerDecoderCell(units, hidden_size or 4 * units, num_heads,
-                                   layer_norm_eps, device=dev, dtype=dtype)
+                                   layer_norm_eps, device=dev)
             for _ in range(num_layers))
         self.ln_f = LayerNorm(epsilon=layer_norm_eps, in_channels=units,
-                              device=dev, dtype=dtype)
-        self.out_bias = nn.Parameter(
-            torch.zeros(vocab_size, device=dev, dtype=dtype))
+                              device=dev)
+        self.out_bias = nn.Parameter(torch.zeros(vocab_size, device=dev))
 
     @property
     def device(self) -> torch.device:

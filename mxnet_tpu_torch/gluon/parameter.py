@@ -33,7 +33,7 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["GRAD_REQS", "grad_req", "set_grad_req", "GradReqHooks"]
+__all__ = ["GRAD_REQS", "grad_req", "set_grad_req", "GradReqHooks", "rehook"]
 
 GRAD_REQS = ("write", "add", "null")
 
@@ -87,3 +87,13 @@ class GradReqHooks:
             node.register_prehook(_zero_before_write(weakref.ref(p)))
             self._nodes.append(node)
             p._mx_grad_hooks = weakref.ref(self)
+
+
+def rehook(p: torch.Tensor):
+    """Put ``p``'s "write" hook on its current gradient accumulator: torch
+    makes a new one when ``p.data`` changes type (``Block.cast``), and the
+    holder that hooked the old one hooks the new one."""
+    ref = p.__dict__.pop("_mx_grad_hooks", None)
+    owner = ref() if ref is not None else None
+    if owner is not None:
+        owner.attach([p])

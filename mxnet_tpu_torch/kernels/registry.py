@@ -30,6 +30,13 @@ KERNELS: Dict[str, Tuple[str, str]] = {
     "flash_attention_decode_int8": (
         "decode_attention.cu",
         "mxnet_tpu/ops/attention.py:333 _decode_kernel (int8 cache)"),
+    # the other ten (query type, cache type) pairs of the decode kernel
+    **{f"flash_attention_decode.{q}_{kv}": (
+        "decode_attention.cu" if q == "f32" else f"decode_attention_{q}.cu",
+        f"mxnet_tpu/ops/attention.py:333 _decode_kernel ({q} queries, {kv} "
+        "cache)")
+       for q in ("f32", "bf16", "f16") for kv in ("f32", "int8", "bf16", "f16")
+       if q != "f32" or kv in ("bf16", "f16")},
     "flash_attention_bwd_dq": (
         "flash_attention_bwd.cu",
         "mxnet_tpu/kernels/flash_bwd.py:59 _dq_kernel"),

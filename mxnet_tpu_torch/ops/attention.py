@@ -35,7 +35,7 @@ __all__ = ["attention_reference", "flash_attention", "flash_attention_reference"
            "FlashAttentionFunction", "flash_attention_decode",
            "flash_attention_decode_reference", "decode_mask", "cache_append",
            "cache_page_copy", "quantize_kv", "dequantize_kv", "split_plan",
-           "SPLIT_TQ"]
+           "decode_kernel_name", "SPLIT_TQ"]
 
 _NEG_INF = float("-inf")
 _HALF = _fbwd._HALF       # bf16 and f16 take the 16-bit kernels
@@ -106,13 +106,15 @@ def flash_attention_reference(q, k, v, mask=None, causal: bool = False,
 
 
 def _flash16_reference(q, k, v, m, scale: float):
-    """``(out, lse)`` for 16-bit q, k, v as the TPU kernel computes them
-    (``mxnet_tpu/ops/attention.py`` ``_flash_kernel``): S in f32 from
-    upcast q and k; ``p = exp(s - max)`` rounded to v's type for P V, the
-    products summed in f32; ``l`` summed from the f32 p; ``out = acc / l``
-    rounded to q's type once; the lse f32.  The row max here is over every
-    key at once where the kernels take a running max over key tiles, so
-    each rounded p may differ by one 16-bit ulp from theirs."""
+    """``(out, lse)`` as the TPU kernels compute them where q, k or v is
+    16-bit (``mxnet_tpu/ops/attention.py`` ``_flash_kernel`` and
+    ``_decode_kernel``; the types may differ, as decode's do): S in f32
+    from upcast q and k; ``p = exp(s - max)`` rounded to v's type for P V
+    (kept f32 for an f32 v), the products summed in f32; ``l`` summed from
+    the f32 p; ``out = acc / l`` rounded to q's type once; the lse f32.
+    The row max here is over every key at once where the kernels take a
+    running max over key tiles, so each rounded p may differ by one 16-bit
+    ulp from theirs."""
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if m is not None:
         s = s.masked_fill(~m, _NEG_INF)
@@ -358,21 +360,57 @@ def flash_attention_decode_reference(q, k, v, cache_len,
                                      scale: Optional[float] = None,
                                      return_lse: bool = False,
                                      k_scale=None, v_scale=None):
-    """The decode kernel's plain version: masked softmax attention with
-    the chunk-causal mask materialized, int8 caches dequantized first."""
+    """The decode kernel's plain version: attention with the chunk-causal
+    mask materialized, an int8 cache dequantized to f32 first.  f32
+    queries over an f32 or int8 cache run masked softmax attention in f32;
+    any pair with a 16-bit side runs the TPU kernel's roundings
+    (:func:`_flash16_reference`): q and k widened to f32, P rounded to v's
+    type for a 16-bit cache, the output in q's type, the lse f32."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if k_scale is not None:
-        k = dequantize_kv(k, k_scale, dtype=q.dtype)
-        v = dequantize_kv(v, v_scale, dtype=q.dtype)
+        k = dequantize_kv(k, k_scale)
+        v = dequantize_kv(v, v_scale)
     m = decode_mask(torch.as_tensor(cache_len, device=q.device),
                     q.shape[2], k.shape[2])
+    if q.dtype in _HALF or k.dtype in _HALF:
+        out, lse = _flash16_reference(q, k, v, m, scale)
+        return (out, lse) if return_lse else out
     out = attention_reference(q, k, v, mask=m, scale=scale)
     if return_lse:
         logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
         logits = logits.masked_fill(~m, _NEG_INF)
         return out, torch.logsumexp(logits, dim=-1)
     return out
+
+
+_DECODE_TYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+                 torch.float16: "f16", torch.int8: "int8"}
+
+
+def decode_kernel_name(q_dtype, kv_dtype) -> str:
+    """The registry name of the decode kernel for ``q_dtype`` queries
+    (f32, bf16, f16) over a cache of ``kv_dtype`` (f32, bf16, f16, or
+    ``torch.int8`` for a quantized cache): ``flash_attention_decode`` and
+    ``flash_attention_decode_int8`` for f32 queries over f32 and int8,
+    ``flash_attention_decode.<q>_<cache>`` (``.bf16_bf16``, ``.f32_f16``,
+    ...) for the other ten pairs."""
+    qn, kn = _DECODE_TYPES.get(q_dtype), _DECODE_TYPES.get(kv_dtype)
+    if qn in (None, "int8") or kn is None:
+        raise MXNetError(f"flash_attention_decode kernels take f32, bf16 or "
+                         f"f16 queries over an f32, bf16, f16 or int8 cache; "
+                         f"got {q_dtype} over {kv_dtype}")
+    if qn == "f32" and kn in ("f32", "int8"):
+        return "flash_attention_decode" + ("_int8" if kn == "int8" else "")
+    return f"flash_attention_decode.{qn}_{kn}"
+
+
+def _has_chunk_path(q_dtype, kv_dtype) -> bool:
+    """Whether the pair runs Tq > ``SPLIT_TQ`` (and d > 256) on the
+    tensor-core forward core: one float type on both sides, or f32
+    queries over int8.  Mixed pairs run split-K in query groups."""
+    return q_dtype == kv_dtype or (q_dtype == torch.float32
+                                   and kv_dtype == torch.int8)
 
 
 def _check_cuda_args(q, k, v, cache_len, k_scale, v_scale):
@@ -383,8 +421,13 @@ def _check_cuda_args(q, k, v, cache_len, k_scale, v_scale):
             f"flash_attention_decode kernel takes d >= 1 and C >= 1; got "
             f"d={d}, C={c}")
     quant = k_scale is not None
-    kv_dtype = torch.int8 if quant else torch.float32
-    want = [("q", q, torch.float32, (b, h, tq, d)),
+    kv_dtype = torch.int8 if quant else k.dtype
+    decode_kernel_name(q.dtype, kv_dtype)          # raises for other types
+    if not _has_chunk_path(q.dtype, kv_dtype) and d > 256:
+        raise MXNetError(
+            f"flash_attention_decode: {q.dtype} queries over a {kv_dtype} "
+            f"cache take d <= 256 (their chunks run split-K); got d={d}")
+    want = [("q", q, q.dtype, (b, h, tq, d)),
             ("k", k, kv_dtype, (b, h, c, d)),
             ("v", v, kv_dtype, (b, h, c, d)),
             ("cache_len", cache_len, torch.int32, (b,))]
@@ -395,16 +438,20 @@ def _check_cuda_args(q, k, v, cache_len, k_scale, v_scale):
                         aligned=False)
 
 
-def split_plan(bh: int, tq: int, c: int, d: int, sms: int):
+def split_plan(bh: int, tq: int, c: int, d: int, sms: int,
+               grouped: bool = False):
     """``(L, S)``: the decode kernel's split of a cache of capacity ``c``
     into ``S`` splits of ``L`` positions for ``bh`` = B * H heads on a card
     of ``sms`` SMs, or ``(0, 0)`` for the tensor-core chunk path (Tq >
-    ``SPLIT_TQ`` or d > 256).  Enough splits that B * H * S blocks cover
-    the SMs ``_SPLIT_WAVES`` times (at most ``_SPLIT_MAX``), each a
-    multiple of ``_SPLIT_MIN`` positions; the lengths live on the card, so the plan reads only
-    shapes and a split past a row's length does no work."""
-    if tq > SPLIT_TQ or d > 256:
+    ``SPLIT_TQ`` or d > 256).  With ``grouped`` (a mixed pair, which has
+    no chunk path) a longer chunk splits too, its blocks one a group of
+    ``SPLIT_TQ`` query rows.  Enough splits that the blocks cover the SMs
+    ``_SPLIT_WAVES`` times (at most ``_SPLIT_MAX``), each a multiple of
+    ``_SPLIT_MIN`` positions; the lengths live on the card, so the plan
+    reads only shapes and a split past a row's length does no work."""
+    if d > 256 or (tq > SPLIT_TQ and not grouped):
         return 0, 0
+    bh *= -(-tq // SPLIT_TQ)
     want = min(_SPLIT_MAX, max(1, -(-(_SPLIT_WAVES * sms) // max(1, bh))))
     length = max(_SPLIT_MIN, -(-c // want))
     length = -(-length // _SPLIT_MIN) * _SPLIT_MIN
@@ -422,15 +469,21 @@ def _sm_count(device) -> int:
     return _SMS[idx]
 
 
-def _entry(symbol: str, n_ptr: int):
-    """The C entry ``symbol`` of ``csrc/decode_attention.cu`` with its
-    argtypes set: ``n_ptr`` pointers, then B, H, Tq, C, d, L, S, scale,
-    stream (every pointer and the stream as ``c_void_p``)."""
+def _entry(q_dtype, kv_dtype):
+    """The C entry ``mx_decode_attention_<q>_<cache>`` of the pair's
+    source (``csrc/decode_attention.cu`` for f32 queries,
+    ``decode_attention_bf16.cu`` / ``_f16.cu`` for 16-bit ones) with its
+    argtypes set: q, k, k_scale, v, v_scale, cache_len, out, lse, part,
+    then B, H, Tq, C, d, L, S, scale, stream (every pointer and the stream
+    as ``c_void_p``)."""
     from ..kernels import _build
 
-    fn = getattr(_build.load("decode_attention.cu"), symbol)
+    qn, kn = _DECODE_TYPES[q_dtype], _DECODE_TYPES[kv_dtype]
+    src = "decode_attention.cu" if qn == "f32" else \
+        f"decode_attention_{qn}.cu"
+    fn = getattr(_build.load(src), f"mx_decode_attention_{qn}_{kn}")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + \
             [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -448,27 +501,24 @@ def _launch_cuda(q, k, v, cache_len, scale, return_lse, k_scale, v_scale,
         if return_lse else None
     if out.numel() == 0:                      # nothing to launch
         return (out, lse) if return_lse else out
+    kv_dtype = torch.int8 if k_scale is not None else k.dtype
     length, splits = plan if plan is not None else \
-        split_plan(b * h, tq, c, d, _sm_count(q.device))
+        split_plan(b * h, tq, c, d, _sm_count(q.device),
+                   grouped=not _has_chunk_path(q.dtype, kv_dtype))
     # S > 1: (max, sum, output) partials of every split for the combine
     part = torch.empty(b * h * splits * tq * (d + 2), dtype=torch.float32,
                        device=q.device) if splits > 1 else None
     with torch.cuda.device(q.device):
         tail = (b, h, tq, c, d, length, splits, scale,
                 torch.cuda.current_stream(q.device).cuda_stream)
-        lse_ptr = lse.data_ptr() if lse is not None else None
-        part_ptr = part.data_ptr() if part is not None else None
-        if k_scale is None:
-            name = "flash_attention_decode"
-            err = _entry("mx_decode_attention_f32", 7)(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), cache_len.data_ptr(),
-                out.data_ptr(), lse_ptr, part_ptr, *tail)
-        else:
-            name = "flash_attention_decode_int8"
-            err = _entry("mx_decode_attention_int8", 9)(
-                q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
-                v_scale.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
-                lse_ptr, part_ptr, *tail)
+        scales = (k_scale.data_ptr(), v_scale.data_ptr()) \
+            if k_scale is not None else (None, None)
+        err = _entry(q.dtype, kv_dtype)(
+            q.data_ptr(), k.data_ptr(), scales[0], v.data_ptr(), scales[1],
+            cache_len.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
+            part.data_ptr() if part is not None else None, *tail)
+    name = decode_kernel_name(q.dtype, kv_dtype)
     if err != 0:
         raise MXNetError(f"{name} kernel launch failed: CUDA error {err}")
     _kreg.count_launch(name)
@@ -491,10 +541,15 @@ def flash_attention_decode(q, k, v, cache_len, scale: Optional[float] = None,
         (:func:`quantize_kv`); the kernel dequantizes per loaded tile, so
         the cache stays int8 on the card.  Pass both or neither.
 
-    CUDA tensors launch the hand-written kernel (f32 q, contiguous inputs,
-    any Tq, C and d >= 1: split-K over the cache for Tq <= ``SPLIT_TQ``
-    and d <= 256, the tensor-core chunk path otherwise) or raise; CPU
-    tensors run :func:`flash_attention_decode_reference`."""
+    q is f32, bf16 or f16 and the cache f32, bf16, f16 (k and v of one
+    type) or int8 with its scales: twelve pairs, each its own kernel, the
+    output in q's type (the TPU kernel's numerics: scores in f32, P
+    rounded to v's type for a 16-bit cache).  CUDA tensors launch the
+    hand-written kernel (:func:`decode_kernel_name`; contiguous inputs,
+    any Tq, C and d >= 1, d <= 256 where q's type is not the cache's:
+    split-K over the cache for Tq <= ``SPLIT_TQ`` and d <= 256, the
+    tensor-core chunk path otherwise) or raise; CPU tensors run
+    :func:`flash_attention_decode_reference`."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("flash_attention_decode: pass both k_scale and "
                          "v_scale (quantized cache) or neither")

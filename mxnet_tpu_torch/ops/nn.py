@@ -29,10 +29,13 @@ __all__ = ["fully_connected", "layer_norm", "erf_gelu", "activation",
 
 def fully_connected(x, weight, bias=None, flatten: bool = True):
     """``y = x @ weight.T + bias`` with ``weight`` (units, in_units);
-    ``flatten=True`` collapses all but the batch axis first."""
+    ``flatten=True`` collapses all but the batch axis first.  Mixed types
+    promote as ``jnp.matmul`` and ``+`` do (a bf16 x with f32 weights, as
+    ``amp.convert_hybrid_block`` leaves them, gives f32)."""
     if flatten and x.ndim > 2:
         x = x.reshape(x.shape[0], -1)
-    y = torch.matmul(x, weight.T)
+    dt = torch.promote_types(x.dtype, weight.dtype)   # jnp's: bf16, f16 -> f32
+    y = torch.matmul(x.to(dt), weight.to(dt).T)
     return y if bias is None else y + bias
 
 
@@ -42,15 +45,26 @@ def layer_norm(x, gamma, beta, eps: float = 1e-5):
 
     f32 runs one fused ``F.layer_norm``.  Other types follow the JAX
     op's dtypes (``mxnet_tpu/ops/nn.py`` ``layer_norm``): the statistics
-    accumulate in f32 and the normalized rows come back in ``x``'s type
-    (rounded once here, where the JAX op rounds ``x - mean`` and the
-    product apart), then ``* gamma + beta`` in the promoted type of
-    ``x``, ``gamma`` and ``beta`` (bf16 under a bf16 policy; f32 where
-    bf16 rows meet f32 parameters)."""
+    accumulate in f32 and the normalized rows come back in ``x``'s type,
+    then ``* gamma + beta`` in the promoted type of ``x``, ``gamma`` and
+    ``beta``.  Where x, gamma and beta share a 16-bit type (a 16-bit
+    policy or ``Block.cast``) the rows are rounded once, where the JAX op
+    rounds ``x - mean`` and the product apart (a recorded difference, one
+    16-bit ulp of a 16-bit result).  Where 16-bit rows meet f32
+    parameters (``amp.convert_hybrid_block``) the result is f32, so the
+    rows take the JAX op's roundings exactly: mean and variance in f32
+    rounded to x's type, ``x - mean`` and the correctly rounded ``rsqrt``
+    and their product in x's type."""
     n = (x.shape[-1],)
     if x.dtype == gamma.dtype == beta.dtype == torch.float32:
         return F.layer_norm(x, n, gamma, beta, eps)
-    return F.layer_norm(x, n, None, None, eps) * gamma + beta
+    if x.dtype == gamma.dtype == beta.dtype:
+        return F.layer_norm(x, n, None, None, eps) * gamma + beta
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True).to(x.dtype)
+    inv = torch.rsqrt((var + eps).double()).to(x.dtype)
+    return (x - mean.to(x.dtype)) * inv * gamma + beta
 
 
 def erf_gelu(x):
@@ -112,12 +126,20 @@ def convolution(x, weight, bias=None, stride=1, dilate=1, pad=0,
     """2-D convolution: ``x`` NCHW with an OIHW ``weight``, or NHWC with
     an OHWI ``weight`` (module docstring); symmetric ``pad``."""
     last = is_channel_last(layout, x.ndim)
+    if x.dtype != weight.dtype:       # lax.conv_general_dilated refuses too
+        raise MXNetError(f"convolution of a {x.dtype} input with a "
+                         f"{weight.dtype} weight: the types must match (cast "
+                         "the block with Block.cast, or the input)")
     w = weight.permute(0, 3, 1, 2) if last else weight
     b = None if no_bias else bias
-    y = F.conv2d(_nchw(x, last), w, b, stride=_pair(stride),
-                 padding=_pair(pad), dilation=_pair(dilate),
-                 groups=int(num_group))
-    return _back(y, last)
+    late = b is not None and b.dtype != x.dtype  # added after, promoted
+    y = F.conv2d(_nchw(x, last), w, None if late else b,
+                 stride=_pair(stride), padding=_pair(pad),
+                 dilation=_pair(dilate), groups=int(num_group))
+    y = _back(y, last)
+    if late:
+        y = y + b.reshape([-1] + [1] * (y.ndim - 2) if not last else [-1])
+    return y
 
 
 def pooling(x, kernel=1, pool_type: str = "max", stride=None, pad=0,
@@ -216,18 +238,51 @@ def batch_norm_train(x, gamma, beta, moving_mean, moving_var,
         new_var
 
 
+def _fold16(gamma, beta, mean, var, eps: float):
+    """``(scale, shift)`` of 16-bit statistics (one type) in that type, as
+    XLA on the CPU computes the JAX op's fold under ``jit``: every op
+    rounded to the type (torch's own 16-bit ops, which compute in f32 and
+    round); in f16 ``eps`` rounded to the type first, ``rsqrt`` as ``1 /
+    sqrt`` and ``beta - (mean * gamma) * inv`` rounded once (a fused
+    multiply-add, ``addcmul``); in bf16 ``rsqrt`` of the rounded ``var +
+    eps`` in f32, rounded once (torch's bf16 ``rsqrt`` rounds otherwise)."""
+    mg = mean * gamma
+    if var.dtype == torch.float16:
+        inv = torch.reciprocal(torch.sqrt(
+            var + float(torch.tensor(eps, dtype=var.dtype))))
+        return gamma * inv, torch.addcmul(beta, mg, inv, value=-1.0)
+    inv = torch.rsqrt((var + eps).float()).to(var.dtype)
+    return gamma * inv, beta - mg * inv
+
+
 def batch_norm_infer(x, gamma, beta, moving_mean, moving_var,
                      eps: float = 1e-5, axis: int = 1, fix_gamma: bool = False):
     """Inference batch norm with the moving statistics, folded into
-    per-channel scale and shift."""
+    per-channel scale and shift, as the JAX op (``mxnet_tpu/ops/nn.py``
+    ``batch_norm_infer``): ``rsqrt(var + eps)`` and the fold in the
+    statistics' type, scale and shift cast to x's type, ``y = x * scale +
+    shift`` in x's type (a 16-bit x with f32 statistics gives a 16-bit
+    y).  16-bit statistics fold with XLA-on-the-CPU's roundings
+    (:func:`_fold16`), and the apply rounds as the batch-norm kernels' do
+    (bf16 twice, f16 once), so the result equals the jitted JAX op's
+    bits.  A few launches a layer: serving runs it once a layer a
+    batch."""
     axis = axis % x.ndim
     if fix_gamma:
         gamma = torch.ones_like(gamma)
     shape = _channel_shape(x, axis)
-    inv = torch.rsqrt(moving_var + eps)
-    scale = (gamma * inv).reshape(shape)
-    shift = (beta - moving_mean * gamma * inv).reshape(shape)
-    return x * scale + shift
+    stats = (gamma, beta, moving_mean, moving_var)
+    if moving_var.dtype in _HALF and all(t.dtype == moving_var.dtype
+                                         for t in stats):
+        scale, shift = _fold16(*stats, eps)
+    else:
+        inv = torch.rsqrt(moving_var + eps)
+        scale, shift = gamma * inv, beta - moving_mean * gamma * inv
+    scale = scale.to(x.dtype).reshape(shape)
+    shift = shift.to(x.dtype).reshape(shape)
+    if x.dtype == torch.float16:      # the f32 sum rounded once
+        return torch.addcmul(shift, x, scale)
+    return x * scale + shift          # bf16: the product, then the sum
 
 
 def batch_norm_act_train(x, gamma, beta, moving_mean, moving_var,

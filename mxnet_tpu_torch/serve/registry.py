@@ -79,6 +79,13 @@ def _start_d2h(leaf):
     return dst
 
 
+def _host_numpy(leaf):
+    if not torch.is_tensor(leaf):
+        return leaf
+    leaf = leaf.cpu()
+    return (leaf.float() if leaf.dtype == torch.bfloat16 else leaf).numpy()
+
+
 class ModelEntry:
     """One registered model (module docstring).  Serving runs outside any
     ``autograd.record()`` scope, so the port's layers run no dropout and
@@ -200,11 +207,13 @@ class ModelEntry:
     @staticmethod
     def to_host(out: Staged):
         """Wait for the batch's copy to the host, then its output tree as
-        numpy (views of the pinned buffers: no second host copy)."""
+        numpy (views of the pinned buffers: no second host copy).  numpy
+        has no bfloat16 of its own, so a bf16 leaf comes back as f32 with
+        the same values (the JAX package hands out the ``bfloat16`` type
+        of the package it depends on, which the port does not import)."""
         if out.event is not None:
             out.event.synchronize()
-        return map_tree(out.host, lambda l: l.cpu().numpy()
-                        if torch.is_tensor(l) else l)
+        return map_tree(out.host, _host_numpy)
 
     def slice_out(self, np_out, sl: Tuple, ref_shape: Tuple[int, ...]):
         """Cut request ``sl``'s rows out of a batched host output tree.

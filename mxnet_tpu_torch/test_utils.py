@@ -1,5 +1,6 @@
 """Test utilities (ref: python/mxnet/test_utils.py): inputs that probe
-the numerics of the 16-bit attention backward, shared by the card tests,
+the numerics of the 16-bit attention backward, and the decode kernel's
+cases in every (query type, cache type) pair, shared by the card tests,
 the CPU tests and ``chip_smoke.py``.
 
 Each builder returns f32 CPU tensors (B, H, T, d) whose values are exact
@@ -13,7 +14,7 @@ import numpy as np
 import torch
 
 __all__ = ["attention_large_ds_inputs", "attention_split_probe_inputs",
-           "attention_p_ds"]
+           "attention_p_ds", "DECODE_PAIRS", "decode_case", "decode_bar"]
 
 
 def attention_large_ds_inputs(b, h, tk, d, tq=96):
@@ -88,3 +89,63 @@ def attention_p_ds(q, k, v, g, out, lse, kv_len=None, causal=False,
                                     - lse[..., None]), zero)
     dp = g @ v.transpose(-1, -2) - (g * out).sum(-1)[..., None]
     return p, torch.where(live, p * dp, zero)
+
+
+# every (query type, cache type) pair of the decode kernel; torch.int8 is
+# the quantized cache (int8 pages with f32 row scales)
+DECODE_PAIRS = [(q, kv) for q in (torch.float32, torch.bfloat16,
+                                  torch.float16)
+                for kv in (torch.float32, torch.int8, torch.bfloat16,
+                           torch.float16)]
+
+
+def decode_case(q_dtype, kv_dtype, b, h, tq, c, d, lens, seed, device):
+    """The decode kernel's inputs and its plain version's for one pair:
+    ``(kernel kwargs, plain kwargs)`` on ``device``, q (B, H, Tq, d) in
+    ``q_dtype``, a (B, H, C, d) cache in ``kv_dtype`` (int8 with its
+    scales), ``cache_len`` = ``lens``.  Past each row's window (positions
+    >= lens + Tq) the cache holds NaN (a 16-bit or f32 cache's values, an
+    int8 cache's scales), which the kernel must never read; the plain
+    version gets those zeroed where it multiplies them by 0."""
+    from .ops import attention as att
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = (torch.rand(b, h, tq, d, generator=g) - 0.5).to(q_dtype)
+    k = torch.rand(b, h, c, d, generator=g) - 0.5
+    v = torch.rand(b, h, c, d, generator=g) - 0.5
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    past = (torch.arange(c)[None, :] >= lens_t[:, None] + tq)
+    past = past[:, None, :, None]
+    if kv_dtype == torch.int8:
+        k, ks = att.quantize_kv(k)
+        v, vs = att.quantize_kv(v)
+        ks = ks.masked_fill(past, float("nan"))
+        vs = vs.masked_fill(past, float("nan"))
+        kern = dict(q=q, k=k, v=v, cache_len=lens_t, k_scale=ks, v_scale=vs)
+        plain = dict(kern, v_scale=torch.nan_to_num(vs))
+    else:
+        k = k.to(kv_dtype).masked_fill(past, float("nan"))
+        v = v.to(kv_dtype).masked_fill(past, float("nan"))
+        kern = dict(q=q, k=k, v=v, cache_len=lens_t)
+        plain = dict(kern, v=torch.nan_to_num(v))
+    return ({n: t.to(device) for n, t in kern.items()},
+            {n: t.to(device) for n, t in plain.items()})
+
+
+def decode_bar(q_dtype, kv_dtype, ref):
+    """The decode kernel's bar against its plain version, as an absolute
+    error: 2^-7 (bf16) / 2^-10 (f16) x max|ref| where the output (q's
+    type) or the cache is 16-bit, the 16-bit forward's bars, taking the
+    16-bit side's type (bf16 where both are, as the coarser); None where
+    q, the output and the cache are f32 or int8, whose bar is atol = rtol
+    = 1e-4.  An f32 output over a 16-bit cache takes the cache type's
+    bar: P V rounds P to v's type at the kernel's running max, which the
+    plain version (the row's max) cannot reproduce, so two roundings of
+    each probability may differ by one 16-bit ulp."""
+    kinds = {q_dtype, kv_dtype}
+    top = float(ref.float().abs().max()) if ref.numel() else 0.0
+    if torch.bfloat16 in kinds:
+        return 2.0 ** -7 * top
+    if torch.float16 in kinds:
+        return 2.0 ** -10 * top
+    return None

@@ -1,5 +1,7 @@
 """The port's CUDA kernels on the card, against their plain versions:
-decode attention, the flash-attention forward and backward (dq, dk/dv)
+decode attention (f32 and int8 caches under f32 queries, and since the
+16-bit serving slice every pair of f32 / bf16 / f16 queries over f32 /
+int8 / bf16 / f16 caches: ``-k decode16``), the flash-attention forward and backward (dq, dk/dv)
 in f32 and in their bf16 / f16 variants, the flat-arena optimizer
 update, the batch-norm stats and apply kernels (f32, and their bf16 /
 f16 variants: y bit for bit, scale and shift equal to the plain
@@ -28,8 +30,10 @@ import torch
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.kernels import registry
 from mxnet_tpu_torch.ops import attention as att
+from mxnet_tpu_torch.test_utils import DECODE_PAIRS
 
 pytestmark = pytest.mark.cuda
+HALF_DECODE = [torch.bfloat16, torch.float16]
 TOL = 1e-4
 
 
@@ -140,6 +144,109 @@ def test_decode_split_cases_match_plain(dev, quantized, tq, c, d):
     torch.testing.assert_close(out, ref, atol=TOL, rtol=TOL)
     torch.testing.assert_close(lse, ref_lse, atol=TOL, rtol=TOL)
     assert torch.equal(out, again) and torch.equal(lse, again_lse)
+
+
+_DT = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16",
+       torch.int8: "int8"}
+
+
+def _decode16(dev, q_dtype, kv_dtype, b, h, tq, c, d, lens, seed):
+    """One decode case of a (query type, cache type) pair on the card:
+    output and lse against the plain version at ``test_utils.decode_bar``
+    (lse within 1e-4), finite everywhere (NaN past every window is never
+    read), one launch under the pair's name a call, the same bits on a
+    second call.  Returns the kernel's inputs and output."""
+    from mxnet_tpu_torch.test_utils import decode_bar, decode_case
+
+    kern, plain = decode_case(q_dtype, kv_dtype, b, h, tq, c, d, lens, seed,
+                              dev)
+    name = att.decode_kernel_name(q_dtype, kv_dtype)
+    before = registry.launches()[name]
+    out, lse = att.flash_attention_decode(**kern, return_lse=True)
+    again, again_lse = att.flash_attention_decode(**kern, return_lse=True)
+    torch.cuda.synchronize()
+    assert registry.launches()[name] == before + 2
+    ref, ref_lse = att.flash_attention_decode_reference(**plain,
+                                                        return_lse=True)
+    assert out.dtype == q_dtype and lse.dtype == torch.float32
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    bar = decode_bar(q_dtype, kv_dtype, ref)
+    err = (out.float() - ref.float()).abs()
+    if bar is None:
+        assert (err <= TOL + TOL * ref.abs()).all(), float(err.max())
+    else:
+        assert float(err.max()) <= bar, (float(err.max()), bar)
+    torch.testing.assert_close(lse, ref_lse, atol=TOL, rtol=TOL)
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
+    return kern, out
+
+
+@pytest.mark.parametrize("pair", DECODE_PAIRS,
+                         ids=[f"{_DT[q]}_{_DT[k]}" for q, k in DECODE_PAIRS])
+@pytest.mark.parametrize("d", [36, 64, 128])
+@pytest.mark.parametrize("tq,c", [(1, 100), (3, 1024), (8, 100), (9, 1024),
+                                  (64, 100), (256, 1024)])
+def test_decode16_pairs_match_plain(dev, pair, d, tq, c):
+    """Every (query type, cache type) pair at ``chip_smoke.py`` phase
+    35's shapes: Tq either side of the split-K edge and at prefill
+    chunks, C 100 and 1024, d 36 / 64 / 128; an inert row (cache_len 0:
+    it attends its own position, so its output is v[0] in q's type), a
+    row at the capacity's edge (cache_len + Tq = C) and two between."""
+    q_dtype, kv_dtype = pair
+    lens = [0, 1, (c - tq) // 2, c - tq]
+    kern, out = _decode16(dev, q_dtype, kv_dtype, 4, 3, tq, c, d, lens,
+                          seed=tq * 1000 + c + d)
+    v0 = kern["v"][0, :, 0].float()
+    if kv_dtype == torch.int8:
+        v0 = v0 * kern["v_scale"][0, :, 0]
+    if q_dtype == torch.float32:      # the f32 chunk path's 3xTF32 P V
+        torch.testing.assert_close(out[0, :, 0], v0, atol=TOL, rtol=0)
+    else:                             # p = 1 is exact in every type
+        assert torch.equal(out[0, :, 0], v0.to(q_dtype))
+
+
+@pytest.mark.parametrize("pair", DECODE_PAIRS,
+                         ids=[f"{_DT[q]}_{_DT[k]}" for q, k in DECODE_PAIRS])
+@pytest.mark.parametrize("tq,d", [(1, 37), (9, 37), (5, 8), (1, 256)])
+def test_decode16_pairs_at_odd_widths_match_plain(dev, pair, tq, d):
+    """Widths whose 16-bit rows take 4-byte copies (d = 8 bytes apart),
+    byte copies (d = 37) and the widest split-K rows (d = 256)."""
+    _decode16(dev, *pair, 2, 2, tq, 130, d, [0, 130 - tq], seed=tq + d)
+
+
+@pytest.mark.parametrize("dtype", HALF_DECODE, ids=["bf16", "f16"])
+@pytest.mark.parametrize("tq", [9, 64, 127, 256])
+@pytest.mark.parametrize("d", [64, 320])
+def test_decode16_chunk_path_at_tile_edges(dev, dtype, tq, d):
+    """The 16-bit forward core as decode's chunk path (``q_off`` =
+    cache_len): Tq 9, 64, 127, 256 with cache lengths that are no
+    multiple of 64, so the causal diagonal crosses a key tile inside it,
+    at d = 64 (``wgmma``) and d = 320 (WIDE)."""
+    c = 1024
+    _decode16(dev, dtype, dtype, 3, 2, tq, c, d, [0, 37, c - tq - 5],
+              seed=tq * 7 + d)
+
+
+def test_decode16_refuses_pairs_it_cannot_launch(dev):
+    """Mismatched k / v types, an int8 cache with 16-bit scales, a mixed
+    pair wider than 256 (no chunk path for it) and an f64 query raise on
+    the card; nothing falls back to the plain version."""
+    lens = torch.zeros(1, dtype=torch.int32, device=dev)
+    q = torch.zeros(1, 1, 1, 8, dtype=torch.bfloat16, device=dev)
+    k = torch.zeros(1, 1, 16, 8, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(MXNetError):
+        att.flash_attention_decode(q, k, k.half(), lens)
+    ki = torch.zeros(1, 1, 16, 8, dtype=torch.int8, device=dev)
+    sc = torch.ones(1, 1, 16, 1, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(MXNetError):
+        att.flash_attention_decode(q, ki, ki, lens, k_scale=sc, v_scale=sc)
+    wide = torch.zeros(1, 1, 1, 264, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(MXNetError):
+        att.flash_attention_decode(wide, wide.float().expand(1, 1, 16, 264)
+                                   .contiguous(), wide.float().expand(
+                                       1, 1, 16, 264).contiguous(), lens)
+    with pytest.raises(MXNetError):
+        att.flash_attention_decode(q.double(), k, k, lens)
 
 
 def _flash_case(b, h, tq, tk, d, lens, seed):

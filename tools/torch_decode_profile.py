@@ -4,13 +4,17 @@ port's serving and training paths, on one CUDA card.
     python3 tools/torch_decode_profile.py [--steps 20] [--cache-len 500]
         [--only decode,bert_batch,train_step,train_step_adamw,
                 train_step_bf16,train_step_fp16,resnet_step,
-                resnet_step_bf16,eager]
+                resnet_step_bf16,eager,decode_bf16,bert_batch_bf16]
 
 Decode: builds ``transformer_lm`` at GPT-2-small widths (seeded random
 weights, f32) on ``cuda:0`` and runs the decode tier's two forwards
 directly: one 8-slot decode step at capacity 1024 with every row at
 ``--cache-len``, and one 256-token prefill into an empty 256-position
-cache.  Batch serving: builds ``bert_12_768_12`` (seeded random weights,
+cache; ``decode_bf16`` the same with the model and its cache in bf16
+(``transformer_lm(dtype=torch.bfloat16).cast(torch.bfloat16)``), and
+``bert_batch_bf16`` the batch below on ``cast(torch.bfloat16)``; the
+16-bit serving profiles split the device time into GEMMs, the port's
+kernels and the rest.  Batch serving: builds ``bert_12_768_12`` (seeded random weights,
 f32, TF32 off as in ``chip_smoke.py``) and runs one full batch as the
 batch tier dispatches it: 16 rows padded to 512 tokens, lengths drawn
 from 16-512 with a seed.  Training: builds
@@ -256,10 +260,23 @@ def train_step_profile(steps, compute_dtype=None, opt=None):
                    groups=HALF_GROUPS)
 
 
-def decode_profiles(steps, cache_len):
+SERVE_GROUPS = {
+    "the port's kernels": lambda k: any(w in k for w in PORT_KERNELS),
+    "GEMMs": HALF_GROUPS["GEMMs"],
+}
+
+
+def decode_profiles(steps, cache_len, dtype=None):
     """The decode step and a prefill of GPT-2-small widths (module
-    docstring)."""
-    lm = transformer_lm(device="cuda", **GPT2_SMALL).initialize(seed=0)
+    docstring); with ``dtype`` the model and its cache in that type."""
+    from mxnet_tpu_torch.gluon.model_zoo import transformer_lm
+
+    lm = transformer_lm(device="cuda", dtype=dtype or torch.float32,
+                        **GPT2_SMALL).initialize(seed=0)
+    if dtype is not None:
+        lm.cast(dtype)
+    tag = "" if dtype is None else f", {str(dtype)[6:]}"
+    groups = None if dtype is None else SERVE_GROUPS
     slots = 8
     cache = lm.begin_cache(slots, 1024)
     lens = np.full(slots, cache_len, np.int64)
@@ -276,17 +293,20 @@ def decode_profiles(steps, cache_len):
         return logits[0, -1].float().cpu()
 
     return {"decode_step": profile(f"decode step (8 slots, C=1024, "
-                                   f"cache_len={cache_len})", step, steps),
-            "prefill": profile("prefill (1 row, 256 tokens, C=256)",
-                               prefill, max(2, steps // 4))}
+                                   f"cache_len={cache_len}{tag})", step,
+                                   steps, groups),
+            "prefill": profile(f"prefill (1 row, 256 tokens, C=256{tag})",
+                               prefill, max(2, steps // 4), groups)}
 
 
-def bert_batch_profile(steps):
+def bert_batch_profile(steps, dtype=None):
     """One BERT-base batch as the batch tier dispatches it (module
-    docstring)."""
+    docstring); with ``dtype`` the model cast to it."""
     from mxnet_tpu_torch.gluon.model_zoo import bert_12_768_12
 
     bert = bert_12_768_12(dropout=0.0, device="cuda").initialize(seed=0)
+    if dtype is not None:
+        bert.cast(dtype)
     rs = np.random.RandomState(3)
     lens = rs.randint(16, 513, size=16).astype(np.int32)
     lens[0] = 512
@@ -299,9 +319,11 @@ def bert_batch_profile(steps):
         seq, pooled = bert(tokens, types, lens_dev)
         return seq.cpu(), pooled.cpu()
 
+    tag = "" if dtype is None else f", {str(dtype)[6:]}"
     with torch.inference_mode():
         return profile(f"BERT-base batch (16 rows x 512 tokens, "
-                       f"{int(lens.sum())} valid)", bert_batch, steps)
+                       f"{int(lens.sum())} valid{tag})", bert_batch, steps,
+                       None if dtype is None else SERVE_GROUPS)
 
 
 def main() -> int:
@@ -310,7 +332,8 @@ def main() -> int:
     ap.add_argument("--cache-len", type=int, default=500)
     ap.add_argument("--only", default="decode,bert_batch,train_step,"
                     "train_step_adamw,train_step_bf16,train_step_fp16,"
-                    "resnet_step,resnet_step_bf16,eager",
+                    "resnet_step,resnet_step_bf16,eager,decode_bf16,"
+                    "bert_batch_bf16",
                     help="comma-separated profiles to run")
     args = ap.parse_args()
     only = set(args.only.split(","))
@@ -345,6 +368,12 @@ def main() -> int:
             torch.cuda.empty_cache()
     if "eager" in only:
         out.update(eager_step_profiles(args.steps))
+    if "decode_bf16" in only:
+        out["decode_bf16"] = decode_profiles(args.steps, args.cache_len,
+                                             torch.bfloat16)
+    if "bert_batch_bf16" in only:
+        out["bert_batch_bf16"] = bert_batch_profile(max(2, args.steps // 4),
+                                                    torch.bfloat16)
     print(card)
     print(json.dumps(out))
     return 0

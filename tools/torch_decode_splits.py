@@ -4,7 +4,8 @@ CUDA card.
     python3 tools/torch_decode_splits.py
 
 At the decode tier's shape (B=8 slots, H=12 heads, d=64, capacity
-C=1024, cache lengths 979-1000, f32 and int8 cache) it times the decode
+C=1024, cache lengths 979-1000; f32 queries over an f32 and an int8
+cache, and bf16 queries over a bf16 cache) it times the decode
 kernel under several split lengths L (``ops.attention.split_plan``'s
 choice among them) and under the tensor-core chunk path, then, at Tq in
 {1, 2, 4, 8, 9, 16}, the split-K path (Tq <= 8 only) beside the chunk
@@ -15,7 +16,8 @@ device time of one call, from ``torch.profiler`` kernel records summed
 over 50 calls (the combine launch included; at Tq = 1 also each
 kernel's share), with the inputs cycled
 through copies of at least 200 MB so the cache is read from HBM.  Each
-plan is first checked against the plain version (atol = rtol = 1e-4).
+plan is first checked against the plain version (atol = rtol = 1e-4;
+bf16 within 2^-7 x max|ref|, ``test_utils.decode_bar``).
 Prints one line per measurement and one JSON line last.
 """
 from __future__ import annotations
@@ -57,19 +59,23 @@ def device_ms(fn, nbuf, calls=50, kernels=None):
     return total / calls / 1e3
 
 
-def inputs(tq, quantized, dev, seed=7, c=C):
+ELT = {"f32": 4, "int8": 1, "bf16": 2}
+
+
+def inputs(tq, kind, dev, seed=7, c=C):
     from mxnet_tpu_torch.ops import attention as att
 
     g = torch.Generator().manual_seed(seed)
-    one = B * H * c * D * (1 if quantized else 4) * 2
+    one = B * H * c * D * ELT[kind] * 2
     nbuf = max(1, math.ceil(200e6 / one))
     bufs = []
+    dt = torch.bfloat16 if kind == "bf16" else torch.float32
     for _ in range(nbuf):
-        q = (torch.rand(B, H, tq, D, generator=g) - 0.5).to(dev)
-        k = (torch.rand(B, H, c, D, generator=g) - 0.5).to(dev)
-        v = (torch.rand(B, H, c, D, generator=g) - 0.5).to(dev)
+        q = (torch.rand(B, H, tq, D, generator=g) - 0.5).to(dev, dt)
+        k = (torch.rand(B, H, c, D, generator=g) - 0.5).to(dev, dt)
+        v = (torch.rand(B, H, c, D, generator=g) - 0.5).to(dev, dt)
         kw = {}
-        if quantized:
+        if kind == "int8":
             k, ks = att.quantize_kv(k)
             v, vs = att.quantize_kv(v)
             kw = dict(k_scale=ks, v_scale=vs)
@@ -89,11 +95,15 @@ def run(bufs, lens, plan, check=True, kernels=None):
                                 kw.get("k_scale"), kw.get("v_scale"), plan)
 
     if check:
+        from mxnet_tpu_torch.test_utils import decode_bar
+
         q, k, v, kw = bufs[0]
         got = call(0)
         want = att.flash_attention_decode_reference(q, k, v, lens, **kw)
-        err = (got - want).abs()
-        if not bool((err <= TOL + TOL * want.abs()).all()):
+        err = (got.float() - want.float()).abs()
+        bar = decode_bar(q.dtype, k.dtype, want)
+        if not bool((err <= (TOL + TOL * want.abs() if bar is None
+                             else bar)).all()):
             raise RuntimeError(f"plan {plan}: max err {err.max().item():.3e}")
     return device_ms(call, len(bufs), kernels=kernels)
 
@@ -112,9 +122,8 @@ def main() -> int:
         timeout=60).stdout.strip()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
-    for quantized in (False, True):
-        kind = "int8" if quantized else "f32"
-        bufs, lens = inputs(1, quantized, dev)
+    for kind in ("f32", "int8", "bf16"):
+        bufs, lens = inputs(1, kind, dev)
         chosen = att.split_plan(B * H, 1, C, D, sms)
         for plan in ((128, 8), (256, 4), (384, 3), (512, 2), (1024, 1),
                      (0, 0)):
@@ -128,7 +137,7 @@ def main() -> int:
                   f"{' (plan)' if plan == chosen else ''}: {ms:.4f} ms "
                   f"({each})")
         for tq in (2, 4, 8, 9, 16):
-            bufs, lens = inputs(tq, quantized, dev, seed=tq)
+            bufs, lens = inputs(tq, kind, dev, seed=tq)
             for plan in ([att.split_plan(B * H, min(tq, att.SPLIT_TQ), C, D,
                                          sms)] if tq <= 8 else []) + \
                     [(0, 0)]:
@@ -139,7 +148,7 @@ def main() -> int:
                     f"split L={plan[0]} S={plan[1]}"
                 print(f"  {kind} Tq={tq} {how}: {ms:.4f} ms")
         for c in (100, 256):          # short caches: the first buckets
-            bufs, lens = inputs(1, quantized, dev, seed=c, c=c)
+            bufs, lens = inputs(1, kind, dev, seed=c, c=c)
             chosen = att.split_plan(B * H, 1, c, D, sms)
             for length in (32, 64, 128, 256):
                 plan = (length, -(-c // length))
