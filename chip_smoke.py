@@ -25,7 +25,8 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    where three profiles in a row record no device time, CUDA events
    around calls queued behind a spin kernel, which the kernel's time on
    these rows is also taken with every run, to hold one to the other),
-   the decode row the split count of the plan, and every row two bounds:
+   the decode row the split count of the plan and the kernels a call
+   (one: the splits merge inside the launch), and every row two bounds:
    f32 on CUDA cores and 3xTF32 on tensor cores (the chunk path's).
 4. Serve ``transformer_lm`` at GPT-2-small widths (vocab 50257, 768
    units, 12 layers, 12 heads, 1024 positions; seeded random weights)
@@ -282,7 +283,8 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     atol = rtol = 1e-4 otherwise; the lse within 1e-4.  Then each of the
     ten new pairs at the decode shape (B=8, H=12, d=64, Tq=1, C=1024,
     cache lengths 979-1000), and bf16 over bf16 at a 256-token prefill
-    chunk: device time (``torch.profiler``), the plain version (events),
+    chunk: device time (``torch.profiler``) and the kernels a call
+    (one on split-K), the plain version (events),
     ``scaled_dot_product_attention`` in the same type with the boolean
     decode mask where q and the cache share a float type (a yardstick
     the port never calls), and the bound.
@@ -292,7 +294,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     f32; 12 launches of ``flash_attention_decode.bf16_bf16`` a step and
     a prefill, none of the f32 kernel; teacher-forced logits on the card
     within 2^-4 x max|logit| of the port's bf16 plain path on the CPU;
-    greedy agreement with the unbatched loop >= 0.9.  Then a short run
+    greedy agreement with the unbatched loop >= 0.9; the kernel launches
+    of one decode step (8 slots, C=1024, cache_len 500; profiler).  Then a
+    short run
     (4 requests, 8 new tokens) of every other way the public API builds
     a 16-bit model, each through its own pair: ``dtype=`` only (f32
     queries over a 16-bit cache), ``cast`` only (16-bit queries over an
@@ -426,19 +430,38 @@ DEVICE_TIME_BY = {"torch.profiler": 0, "events behind a spin": 0}
 PROFILER_TRIES = 3
 
 
-def profiled_ms_per_call(fn, nbuf, calls):
-    """Every kernel record of ``torch.profiler`` over ``calls`` calls of
-    ``fn(i)``, summed, over ``calls`` (ms); None when the profiler
-    recorded no device time (CUPTI now and then hands back no kernel
-    records)."""
+def kernel_records(fn, nbuf, calls):
+    """``torch.profiler``'s kernel records over ``calls`` calls of
+    ``fn(i)``: (device microseconds a call, kernels a call), or None.
+    CUPTI now and then hands back no kernel record, or only some (one run
+    read a kernel at 0.43 of its time by summing what it kept).  So each
+    kernel counts as its mean recorded duration times its launches a call
+    (its records over the calls, a whole number within 10%); a profile
+    with none, or further off, gives None and is taken again by the
+    callers."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(calls):
             fn(i % nbuf)
         torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.key_averages())
-    return total_us / calls / 1e3 if total_us > 0 else None
+    us = n = 0
+    for e in prof.key_averages():
+        if e.device_time_total <= 0:
+            continue
+        k = round(e.count / calls)
+        if k == 0 or abs(e.count - k * calls) > 0.1 * k * calls:
+            return None
+        us += e.device_time_total / e.count * k
+        n += k
+    return (us, n) if n else None
+
+
+def profiled_ms_per_call(fn, nbuf, calls):
+    """Device time (ms) of one ``fn(i)`` call from ``torch.profiler``'s
+    kernel records over ``calls`` calls (``kernel_records``), or None."""
+    rec = kernel_records(fn, nbuf, calls)
+    return None if rec is None else rec[0] / 1e3
 
 
 def spun_ms_per_call(fn, nbuf, calls):
@@ -495,6 +518,17 @@ def device_ms_per_call(fn, nbuf, calls=20):
     DEVICE_TIME_BY["events behind a spin"] += 1
     check(ms > 0, "no device time by either the profiler or events")
     return ms
+
+
+def kernels_per_call(fn, nbuf, calls=10):
+    """Kernels the card runs a call of ``fn(i)``: ``torch.profiler``'s
+    kernel records over ``calls`` calls (``kernel_records``; up to
+    ``PROFILER_TRIES`` profiles, as ``device_ms_per_call``), or None."""
+    for _ in range(PROFILER_TRIES):
+        rec = kernel_records(fn, nbuf, calls)
+        if rec is not None:
+            return rec[1]
+    return None
 
 
 def two_bounds(nbytes, flops):
@@ -567,13 +601,14 @@ def time_shape(b, tq, c, lens, quantized, dev, label, d=D, device=False):
         *bufs[i][:3], lens_t, **bufs[i][3]), nbuf)
     lib = None if quantized else cuda_time_ms(lib_fn, nbuf)
     kern_dev = lib_dev = None
-    kern_spun = None
+    kern_spun = per_call = None
     if device:   # device time alone: events count a wrapper's host time
         kern_dev = device_ms_per_call(kern_fn, nbuf)
         lib_dev = None if quantized else device_ms_per_call(lib_fn, nbuf)
         # the profiler's fallback, run on every such row to hold it to
         # the profiler's reading
         kern_spun = spun_ms_per_call(kern_fn, nbuf, 20)
+        per_call = kernels_per_call(kern_fn, nbuf)
     bd, nbytes, flops = bound(b, H, tq, c, d, lens, quantized)
     length, splits = att.split_plan(
         b * H, tq, c, d, torch.cuda.get_device_properties(dev)
@@ -583,7 +618,8 @@ def time_shape(b, tq, c, lens, quantized, dev, label, d=D, device=False):
     dev_note = "" if not device else (
         f"; device time kernel {kern_dev:.4f} ms (events behind a spin "
         f"{kern_spun:.4f} ms), SDPA "
-        f"{'n/a' if lib_dev is None else f'{lib_dev:.4f} ms'}")
+        f"{'n/a' if lib_dev is None else f'{lib_dev:.4f} ms'}, "
+        f"{per_call} kernel launches a call")
     print(f"  time {label}: B={b} Tq={tq} C={c} d={d} cache_len~{lens[0]} "
           f"({path}) kernel {kern:.4f} ms, plain {plain:.4f} ms, library "
           f"{'n/a' if lib is None else f'{lib:.4f} ms'}{dev_note}; bound "
@@ -596,7 +632,7 @@ def time_shape(b, tq, c, lens, quantized, dev, label, d=D, device=False):
                 bound_tf32x3_ms=t3, bound_tf32x3_by=t3_by,
                 device_ms=kern_dev, device_spun_ms=kern_spun,
                 library_device_ms=lib_dev, splits=splits, split_len=length,
-                max_abs_err=err)
+                launches_per_call=per_call, max_abs_err=err)
 
 
 # ------------------------------------------------------------- phases
@@ -3764,15 +3800,17 @@ def dec16_bound(q_dt, kv_dt, b, tq, c, d, lens):
     """Least time (ms) of a decode call: each input read once (the
     attended cache positions only), the output written once, at 3.35e12
     B/s; or its multiply-adds (4 d flops an attended pair) at the peak of
-    the units that run them: f32 CUDA cores (67e12) on the split-K path
-    (Tq <= 8), 16-bit MMAs (989e12) on the chunk path."""
+    the units that run them: 16-bit MMAs (989e12) where q and the cache
+    share a 16-bit type (split-K and the chunk path) and on the chunk path,
+    f32 CUDA cores (67e12) on every other pair's split-K path (Tq <= 8)."""
     qe = torch.tensor([], dtype=q_dt).element_size()
     ke = torch.tensor([], dtype=kv_dt).element_size()
     kv_pos = sum(min(x + tq, c) for x in lens) * H
     nbytes = (2 * b * H * tq * d * qe + 2 * kv_pos * d * ke + b * 4
               + (2 * kv_pos * 4 if kv_dt == torch.int8 else 0))
     attended = sum(min(x + i + 1, c) for x in lens for i in range(tq)) * H
-    rate = F32_FLOP_PER_S if tq <= 8 else HALF_FLOP_PER_S
+    mma = q_dt == kv_dt and q_dt in (torch.bfloat16, torch.float16)
+    rate = HALF_FLOP_PER_S if mma or tq > 8 else F32_FLOP_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 4 * d * attended / rate * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
@@ -3807,6 +3845,7 @@ def time_decode16(q_dt, kv_dt, b, tq, c, lens, dev, d=D):
 
     same = q_dt == kv_dt
     dev_ms = device_ms_per_call(kern_fn, nbuf)
+    per_call = kernels_per_call(kern_fn, nbuf)
     lib_ms = device_ms_per_call(lambda i: F.scaled_dot_product_attention(
         plains[i]["q"], plains[i]["k"], plains[i]["v"], attn_mask=mask),
         nbuf) if same else None
@@ -3819,7 +3858,8 @@ def time_decode16(q_dt, kv_dt, b, tq, c, lens, dev, d=D):
         .multi_processor_count, grouped=not att._has_chunk_path(q_dt, kv_dt))
     path = f"split-K S={splits} L={length}" if splits else "chunk"
     print(f"  time {name}: B={b} H={H} Tq={tq} C={c} d={d} cache_len "
-          f"{min(lens)}..{max(lens)} ({path}) device {dev_ms:.4f} ms, bound "
+          f"{min(lens)}..{max(lens)} ({path}) device {dev_ms:.4f} ms "
+          f"({per_call} kernel launches a call), bound "
           f"{bnd:.4f} ms ({by}; {nbytes} B), plain {plain_ms:.4f} ms "
           f"(events), SDPA "
           f"{'n/a (no one call)' if lib_ms is None else f'{lib_ms:.4f} ms'}"
@@ -3829,7 +3869,8 @@ def time_decode16(q_dt, kv_dt, b, tq, c, lens, dev, d=D):
                            q=_SHORT[q_dt], cache=_SHORT[kv_dt]),
                 ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bnd, bound_by=by, nbytes=nbytes, splits=splits,
-                split_len=length, max_abs_err=err)
+                split_len=length, launches_per_call=per_call,
+                max_abs_err=err)
 
 
 def phase_decode16_times(dev):
@@ -3854,6 +3895,40 @@ def phase_decode16_times(dev):
 
 SHORT_SERVE = dict(slots=4, prompt_buckets=(32, 64),
                    capacity_buckets=(256, 512), max_new_tokens=8)
+
+
+def decode_step_launches(lm, slots=8, cache_len=500):
+    """Kernels a decode step of ``lm`` launches (one forward of ``slots``
+    rows at capacity 1024 and ``cache_len``, as
+    ``tools/torch_decode_profile.py`` runs the step): ``torch.profiler``'s
+    kernel records of one step a profile, taken when two profiles in a row
+    agree (late in a long process CUPTI loses records; a loss repeated to
+    the record is unlikely), and the decode kernel's launches in it (the
+    registry's count); None where no two agreed."""
+    from mxnet_tpu_torch.kernels import registry
+
+    cache = lm.begin_cache(slots, 1024)
+    lens = np.full(slots, cache_len, np.int64)
+    toks = np.zeros((slots, 1), np.int64)
+
+    def step(_):
+        with torch.inference_mode():
+            lm(toks, cache, lens, np.ones(slots, np.int64))
+
+    step(0)
+    torch.cuda.synchronize()
+    prev = None
+    for _ in range(2 * PROFILER_TRIES):
+        before = sum(v for k, v in registry.launches().items()
+                     if k.startswith("flash_attention_decode"))
+        rec = kernel_records(step, 1, 1)
+        decode = (sum(v for k, v in registry.launches().items()
+                      if k.startswith("flash_attention_decode")) - before)
+        n = None if rec is None else rec[1]
+        if n is not None and n == prev:
+            return n, decode
+        prev = n
+    return None, None
 
 
 def short_serve(lm, name, want, precision=None):
@@ -3952,6 +4027,11 @@ def phase_serve_bf16(dev, card, f32):
                    for dt in (torch.float32, bf16)}
     ttft = snap["serve.ttft_seconds"]["p50"]
     step = snap["serve.decode_step_seconds"]["p50"]
+    step_launches, step_decode = decode_step_launches(lm)
+    print(f"  a decode step (8 slots, C=1024, cache_len 500): "
+          f"{step_launches} kernel launches (profiler; None: every "
+          f"profile lost records), {step_decode} of them the decode "
+          f"kernel's")
     del lm
     # the other ways to a 16-bit model, each its own pair of the kernel
     routes = {}
@@ -3993,7 +4073,9 @@ def phase_serve_bf16(dev, card, f32):
           f"{f32['step_p50_ms']:.3f}), warmup {run['warm']:.2f} s [{card}]")
     return dict(tokens_per_s=tokens / run["wall"], ttft_p50_ms=ttft * 1e3,
                 step_p50_ms=step * 1e3, launches=routes, steps=steps,
-                prefills=prefills, agreement=agree, logit_delta=delta,
+                prefills=prefills, step_launches=step_launches,
+                step_decode_launches=step_decode, agreement=agree,
+                logit_delta=delta,
                 logit_rel=delta / scale,
                 cache_bytes={"bf16": cache_bytes[bf16],
                              "f32": cache_bytes[torch.float32]})
@@ -4245,6 +4327,7 @@ def main() -> int:
             library="scaled_dot_product_attention with the boolean decode "
                     "mask" if variant == "f32" else None,
             splits=dec["splits"], split_len=dec["split_len"],
+            launches_per_call=dec["launches_per_call"],
             shape=dec["shape"], prefill=times[name]["prefill"],
             prefill_1024=times[name]["prefill_1024"],
             decode_c100=times[name]["decode_c100"],
@@ -4408,8 +4491,10 @@ def main() -> int:
             plain_ms=dec["plain_ms"], plain="events",
             bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
             bound_note="max(bytes / 3.35e12, 4 d flops an attended pair / "
-                       "67e12 on the split-K path, / 989e12 on the 16-bit "
-                       "chunk path); each value its type's bytes",
+                       "989e12 where q and the cache share a 16-bit type "
+                       "and on the chunk path, / 67e12 on the other pairs' "
+                       "split-K path); each value its type's bytes",
+            launches_per_call=dec["launches_per_call"],
             library_ms=dec["library_ms"],
             library=("scaled_dot_product_attention in the same type with "
                      "the boolean decode mask, device time"

@@ -45,7 +45,7 @@ _HALF = _fbwd._HALF       # bf16 and f16 take the 16-bit kernels
 SPLIT_TQ = 8
 _SPLIT_MIN = 128      # positions a split holds at least, and their multiple
 _SPLIT_WAVES = 3      # blocks aimed at, in multiples of the card's SMs
-_SPLIT_MAX = 32       # splits at most (the combine's lanes)
+_SPLIT_MAX = 8        # splits at most (a portable cluster's blocks)
 
 
 def attention_reference(q, k, v, mask=None, scale: Optional[float] = None):
@@ -473,9 +473,9 @@ def _entry(q_dtype, kv_dtype):
     """The C entry ``mx_decode_attention_<q>_<cache>`` of the pair's
     source (``csrc/decode_attention.cu`` for f32 queries,
     ``decode_attention_bf16.cu`` / ``_f16.cu`` for 16-bit ones) with its
-    argtypes set: q, k, k_scale, v, v_scale, cache_len, out, lse, part,
-    then B, H, Tq, C, d, L, S, scale, stream (every pointer and the stream
-    as ``c_void_p``)."""
+    argtypes set: q, k, k_scale, v, v_scale, cache_len, out, lse, then
+    B, H, Tq, C, d, L, S, scale, stream (every pointer and the stream as
+    ``c_void_p``)."""
     from ..kernels import _build
 
     qn, kn = _DECODE_TYPES[q_dtype], _DECODE_TYPES[kv_dtype]
@@ -483,7 +483,7 @@ def _entry(q_dtype, kv_dtype):
         f"decode_attention_{qn}.cu"
     fn = getattr(_build.load(src), f"mx_decode_attention_{qn}_{kn}")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + \
             [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -505,9 +505,6 @@ def _launch_cuda(q, k, v, cache_len, scale, return_lse, k_scale, v_scale,
     length, splits = plan if plan is not None else \
         split_plan(b * h, tq, c, d, _sm_count(q.device),
                    grouped=not _has_chunk_path(q.dtype, kv_dtype))
-    # S > 1: (max, sum, output) partials of every split for the combine
-    part = torch.empty(b * h * splits * tq * (d + 2), dtype=torch.float32,
-                       device=q.device) if splits > 1 else None
     with torch.cuda.device(q.device):
         tail = (b, h, tq, c, d, length, splits, scale,
                 torch.cuda.current_stream(q.device).cuda_stream)
@@ -516,8 +513,7 @@ def _launch_cuda(q, k, v, cache_len, scale, return_lse, k_scale, v_scale,
         err = _entry(q.dtype, kv_dtype)(
             q.data_ptr(), k.data_ptr(), scales[0], v.data_ptr(), scales[1],
             cache_len.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if lse is not None else None,
-            part.data_ptr() if part is not None else None, *tail)
+            lse.data_ptr() if lse is not None else None, *tail)
     name = decode_kernel_name(q.dtype, kv_dtype)
     if err != 0:
         raise MXNetError(f"{name} kernel launch failed: CUDA error {err}")

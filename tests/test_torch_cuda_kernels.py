@@ -249,6 +249,167 @@ def test_decode16_refuses_pairs_it_cannot_launch(dev):
         att.flash_attention_decode(q.double(), k, k, lens)
 
 
+# ------------------------------------------ split-K decode in one launch
+_PAIR_IDS = [f"{_DT[q]}_{_DT[k]}" for q, k in DECODE_PAIRS]
+_GROUPED = [p for p in DECODE_PAIRS if not att._has_chunk_path(*p)]
+
+
+def _split_call(kern, plan=None):
+    """One decode call of the kernel on ``decode_case``'s inputs, the plan
+    forced where ``plan`` is given; returns (output, lse)."""
+    d = kern["q"].shape[-1]
+    return att._launch_cuda(kern["q"], kern["k"], kern["v"],
+                            kern["cache_len"], 1.0 / d ** 0.5, True,
+                            kern.get("k_scale"), kern.get("v_scale"), plan)
+
+
+def _split_check(q_dtype, kv_dtype, kern, plain, plan=None):
+    """The kernel's output and lse (plan forced or the wrapper's) against
+    the plain version at ``decode_bar`` (lse within 1e-4), finite
+    everywhere; returns the output."""
+    from mxnet_tpu_torch.test_utils import decode_bar
+
+    out, lse = _split_call(kern, plan)
+    torch.cuda.synchronize()
+    ref, ref_lse = att.flash_attention_decode_reference(**plain,
+                                                        return_lse=True)
+    assert out.dtype == q_dtype and torch.isfinite(out).all()
+    err = (out.float() - ref.float()).abs()
+    bar = decode_bar(q_dtype, kv_dtype, ref)
+    if bar is None:
+        assert (err <= TOL + TOL * ref.abs()).all(), float(err.max())
+    else:
+        assert float(err.max()) <= bar, (plan, float(err.max()), bar)
+    torch.testing.assert_close(lse, ref_lse, atol=TOL, rtol=TOL)
+    return out
+
+
+def _kernels_a_call(fn, calls=10):
+    """Kernels the card ran a call of ``fn``, from ``torch.profiler``'s
+    kernel records: each kernel's records over the calls, a whole number
+    within 10% (CUPTI now and then loses records; a profile further off
+    is taken again)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        n = 0
+        for e in prof.key_averages():
+            if e.device_time_total <= 0:
+                continue
+            k = round(e.count / calls)
+            if k == 0 or abs(e.count - k * calls) > 0.1 * k * calls:
+                n = 0
+                break
+            n += k
+        if n:
+            return n
+    raise AssertionError("five profiles lost kernel records")
+
+
+@pytest.mark.parametrize("pair", DECODE_PAIRS, ids=_PAIR_IDS)
+def test_decode_split_is_one_launch_with_the_same_bits(dev, pair):
+    """Split-K at the decode step's shape (C = 1024, d = 64, S = 4 of the
+    card's plan): one kernel a call by the profiler (the splits merge
+    inside the launch), the output and lse the same bits over 20 calls."""
+    from mxnet_tpu_torch.test_utils import decode_case
+
+    kern, plain = decode_case(*pair, 8, 12, 1, 1024, 64,
+                              [1000 - 3 * i for i in range(8)], seed=3,
+                              device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert att.split_plan(96, 1, 1024, 64, sms)[1] > 1
+    out = _split_check(*pair, kern, plain)
+    lse = _split_call(kern)[1]
+    for _ in range(20):
+        again, again_lse = _split_call(kern)
+        assert torch.equal(out, again) and torch.equal(lse, again_lse)
+    assert _kernels_a_call(lambda: _split_call(kern)) == 1
+
+
+@pytest.mark.parametrize("pair", DECODE_PAIRS, ids=_PAIR_IDS)
+@pytest.mark.parametrize("splits", range(1, 9))
+def test_decode_forced_splits_match_plain(dev, pair, splits):
+    """S forced to 1-8 (one cluster of S blocks; at S >= 6 the last splits
+    lie wholly past C = 300 and every row) with Tq = S: an inert row (the
+    splits past its own position wholly past it), a row whose window ends
+    on a split boundary, one ending mid-split and one at the capacity's
+    edge; NaN past every window."""
+    from mxnet_tpu_torch.test_utils import decode_case
+
+    c, tq = 300, splits
+    length = 32 * -(-c // (32 * splits))
+    lens = [min(x, c - tq) for x in (0, length - tq,
+                                     length + length // 2 - tq, c - tq)]
+    kern, plain = decode_case(*pair, 4, 3, tq, c, 40, lens,
+                              seed=splits * 31, device=dev)
+    out = _split_check(*pair, kern, plain, plan=(length, splits))
+    assert torch.equal(out, _split_call(kern, (length, splits))[0])
+
+
+@pytest.mark.parametrize("pair", _GROUPED,
+                         ids=[f"{_DT[q]}_{_DT[k]}" for q, k in _GROUPED])
+@pytest.mark.parametrize("tq", [9, 64])
+@pytest.mark.parametrize("forced", [False, True], ids=["plan", "S8"])
+def test_decode_grouped_chunks_in_clusters(dev, pair, tq, forced):
+    """A mixed pair's chunk (no chunk path: query groups of 8 rows on the
+    grid's third axis, each group's splits one cluster), at the card's
+    plan and at 8 splits of 64 (the last lie past C = 300)."""
+    from mxnet_tpu_torch.test_utils import decode_case
+
+    c = 300
+    lens = [0, 1, (c - tq) // 2, c - tq]
+    kern, plain = decode_case(*pair, 4, 3, tq, c, 64, lens, seed=tq,
+                              device=dev)
+    _split_check(*pair, kern, plain, plan=(64, 8) if forced else None)
+
+
+@pytest.mark.parametrize("pair", DECODE_PAIRS, ids=_PAIR_IDS)
+@pytest.mark.parametrize("tq", [1, 8])
+def test_decode_split_cap_of_eight(dev, pair, tq):
+    """C = 1,500 at B * H = 4, where the cap of 8 splits (a portable
+    cluster) changes the plan: 6 splits of 256, not 12 of 128."""
+    from mxnet_tpu_torch.test_utils import decode_case
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = att.split_plan(4, tq, 1500, 64, sms)
+    assert plan == (256, 6)
+    kern, plain = decode_case(*pair, 2, 2, tq, 1500, 64,
+                              [1500 - tq, 700], seed=tq, device=dev)
+    _split_check(*pair, kern, plain)
+
+
+def _offset_view(x, elems):
+    """``x`` copied into a view at storage offset ``elems`` elements."""
+    flat = torch.empty(x.numel() + elems, dtype=x.dtype, device=x.device)
+    flat[elems:] = x.reshape(-1)
+    return flat[elems:].view(x.shape)
+
+
+@pytest.mark.parametrize("pair", DECODE_PAIRS, ids=_PAIR_IDS)
+@pytest.mark.parametrize("d,align", [(8, 4), (8, 1), (37, 1)],
+                         ids=["d8_4byte", "d8_byte", "d37_byte"])
+def test_decode_split_copy_paths_through_offset_views(dev, pair, d, align):
+    """The cache's 4-byte copies (rows and views 4-byte aligned, not 16)
+    and byte copies (2 d or d bytes no multiple of 4, or views at a 1- or
+    2-byte offset; an f32 cache takes 4-byte copies there) on q, k and v
+    at a storage offset."""
+    from mxnet_tpu_torch.test_utils import decode_case
+
+    kern, plain = decode_case(*pair, 3, 2, 3, 130, d, [0, 64, 127],
+                              seed=d + align, device=dev)
+    for name in ("q", "k", "v"):
+        t = kern[name]
+        elems = max(1, align // t.element_size())
+        kern[name] = _offset_view(t, elems)
+        assert kern[name].data_ptr() % 16
+    plain = dict(plain, q=kern["q"])
+    _split_check(*pair, kern, plain)
+
+
 def _flash_case(b, h, tq, tk, d, lens, seed):
     """q/k/v with NaN garbage in k/v past each row's length; the plain
     version gets the values with the garbage zeroed (it multiplies a

@@ -131,8 +131,7 @@ def profile(label, fn, n, groups=None):
 
 
 # the port's hand-written kernels, by the name the profiler records
-PORT_KERNELS = ("decode_split_kernel", "decode_combine_kernel",
-                "flash_fwd_kernel", "flash_fwd_wide_kernel",
+PORT_KERNELS = ("decode_split_kernel", "flash_fwd_kernel", "flash_fwd_wide_kernel",
                 "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                 "flash_bwd_dq_wide_kernel", "flash_bwd_dkv_wide_kernel",
                 "opt_arena_kernel", "bn_stats_fold", "bn_apply_kernel",

@@ -3,15 +3,17 @@ bit, on one CUDA card.
 
     python3 tools/torch_f32_attention_bits.py --parent DIR
 
-Builds ``flash_attention.cu``, ``decode_attention.cu`` and
-``flash_attention_bwd.cu`` from this checkout and from DIR (an unpacked
-checkout of an earlier commit) with ``nvcc`` (sm_90a, the port's flags),
-loads both, and runs each build's f32 flash forward (output and lse),
-backward (dq, dk, dv) and decode attention (f32 cache: split-K at Tq = 1,
-the chunk path at Tq = 64) on the same seeded inputs at B=32, H=12,
-T=128, d=64; B=4, T=512, d=320; B=3, T=70, d=36 (per-row key lengths
-from a seed).  A change to the shared header's 16-bit section must leave
-these outputs the same bits.  Prints one line a shape and output, the
+Builds ``flash_attention.cu`` and ``flash_attention_bwd.cu`` from this
+checkout and from DIR (an unpacked checkout of an earlier commit) with
+``nvcc`` (sm_90a, the port's flags), loads both, and runs each build's
+f32 flash forward (output and lse) and backward (dq, dk, dv) on the same
+seeded inputs at B=32, H=12, T=128, d=64; B=4, T=512, d=320; B=3, T=70,
+d=36 (per-row key lengths from a seed).  A change to the shared header's
+16-bit section must leave these outputs the same bits.  The decode
+kernel's C entries changed with its one-launch split-K, so an earlier
+build cannot run behind this checkout's wrapper: its bits against an
+earlier checkout are ``tools/torch_decode_turns.py``'s, each checkout in
+a process of its own.  Prints one line a shape and output, the
 card as ``nvidia-smi`` names it, and one JSON line last; exits 1 if any
 output differs.
 """
@@ -30,8 +32,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-SOURCES = ("flash_attention.cu", "decode_attention.cu",
-           "flash_attention_bwd.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu")
 SHAPES = ((32, 12, 128, 64), (4, 12, 512, 320), (3, 12, 70, 36))
 
 
@@ -53,7 +54,7 @@ def build(csrc: Path, tag: str):
 
 
 def outputs(b, h, t, d, dev):
-    """Every f32 output of the three kernels on seeded inputs."""
+    """Every f32 output of the forward and backward on seeded inputs."""
     from mxnet_tpu_torch.kernels import flash_bwd as fb
     from mxnet_tpu_torch.ops import attention as att
 
@@ -67,11 +68,6 @@ def outputs(b, h, t, d, dev):
                                    return_lse=True)
     dq, dk, dv = fb.flash_attention_bwd(q, k, v, go, out, lse, lt)
     got = dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv)
-    cache = torch.tensor([max(0, n - 64) for n in lens], dtype=torch.int32,
-                         device=dev)
-    for tq in (1, 64):
-        got[f"decode_tq{tq}"] = att.flash_attention_decode(
-            q[:, :, :tq].contiguous(), k, v, cache)
     torch.cuda.synchronize()
     return got
 
