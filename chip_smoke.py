@@ -3796,23 +3796,42 @@ def phase_decode16_kernels(dev):
     return worst
 
 
+def dec_mma_terms(q_dt, kv_dt):
+    """``(S, P V)``: the 16-bit MMAs a product of the pair's split-K takes
+    where it runs on tensor cores (a 16-bit cache, or int8 under 16-bit
+    queries): S one a term of q in the cache's type (f32 three, f16 into
+    bf16 two, else one), P V one, or three over int8 (w = p * v_scale
+    as three bf16 terms); None where it runs on CUDA cores."""
+    half = (torch.bfloat16, torch.float16)
+    if kv_dt in half:
+        return (1 if q_dt in (kv_dt, torch.bfloat16) else
+                3 if q_dt == torch.float32 else 2, 1)
+    if kv_dt == torch.int8 and q_dt in half:
+        return 1, 3
+    return None
+
+
 def dec16_bound(q_dt, kv_dt, b, tq, c, d, lens):
     """Least time (ms) of a decode call: each input read once (the
     attended cache positions only), the output written once, at 3.35e12
-    B/s; or its multiply-adds (4 d flops an attended pair) at the peak of
-    the units that run them: 16-bit MMAs (989e12) where q and the cache
-    share a 16-bit type (split-K and the chunk path) and on the chunk path,
-    f32 CUDA cores (67e12) on every other pair's split-K path (Tq <= 8)."""
+    B/s; or its multiply-adds (2 d flops an attended pair a product) at
+    the peak of the units that run them: on the chunk path (Tq > 8 where
+    q and the cache share a float type, or f32 over int8) 16-bit MMAs
+    (989e12), one each for S and P V; on split-K 16-bit MMAs as many as
+    ``dec_mma_terms`` counts where it runs on tensor cores, f32 CUDA cores
+    (67e12) for S and P V elsewhere."""
     qe = torch.tensor([], dtype=q_dt).element_size()
     ke = torch.tensor([], dtype=kv_dt).element_size()
     kv_pos = sum(min(x + tq, c) for x in lens) * H
     nbytes = (2 * b * H * tq * d * qe + 2 * kv_pos * d * ke + b * 4
               + (2 * kv_pos * 4 if kv_dt == torch.int8 else 0))
     attended = sum(min(x + i + 1, c) for x in lens for i in range(tq)) * H
-    mma = q_dt == kv_dt and q_dt in (torch.bfloat16, torch.float16)
-    rate = HALF_FLOP_PER_S if mma or tq > 8 else F32_FLOP_PER_S
+    chunk = tq > 8 and (q_dt == kv_dt or (q_dt == torch.float32
+                                         and kv_dt == torch.int8))
+    terms = (1, 1) if chunk else dec_mma_terms(q_dt, kv_dt)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * d * attended / rate * 1e3
+    t_ops = (2 * d * attended * sum(terms) / HALF_FLOP_PER_S if terms
+             else 4 * d * attended / F32_FLOP_PER_S) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations", nbytes)
 
@@ -3875,7 +3894,11 @@ def time_decode16(q_dt, kv_dt, b, tq, c, lens, dev, d=D):
 
 def phase_decode16_times(dev):
     """Phase 35b: each new pair at the decode shape; the main path's pair
-    (bf16 over bf16) also at a 256-token prefill chunk."""
+    (bf16 over bf16) also at a 256-token prefill chunk; the six pairs
+    whose split-K moved from CUDA cores onto tensor cores (a mixed pair
+    over a 16-bit cache, 16-bit queries over int8: no chunk path) also
+    with 8 query rows (the most a split-K block takes) and at a 256-token
+    prefill chunk (split-K in 32 query groups of 8)."""
     from mxnet_tpu_torch.ops import attention as att
     from mxnet_tpu_torch.test_utils import DECODE_PAIRS
 
@@ -3887,6 +3910,12 @@ def phase_decode16_times(dev):
             continue                      # phase 3 times them
         rows[name] = dict(decode=time_decode16(q_dt, kv_dt, B, 1, 1024,
                                                decode_lens, dev))
+        if kv_dt != torch.float32 and not att._has_chunk_path(q_dt, kv_dt):
+            rows[name]["tq8"] = time_decode16(
+                q_dt, kv_dt, B, 8, 1024, [992 - 3 * i for i in range(B)],
+                dev)
+            rows[name]["prefill"] = time_decode16(q_dt, kv_dt, 1, 256, 256,
+                                                  [0], dev)
     rows["flash_attention_decode.bf16_bf16"]["prefill"] = time_decode16(
         torch.bfloat16, torch.bfloat16, 1, 256, 256, [0], dev)
     print("phase 35b decode kernel times: done")
@@ -4490,10 +4519,12 @@ def main() -> int:
             ms=dec["ms"], time_by="device time (profiler)",
             plain_ms=dec["plain_ms"], plain="events",
             bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
-            bound_note="max(bytes / 3.35e12, 4 d flops an attended pair / "
-                       "989e12 where q and the cache share a 16-bit type "
-                       "and on the chunk path, / 67e12 on the other pairs' "
-                       "split-K path); each value its type's bytes",
+            bound_note="max(bytes / 3.35e12, 2 d flops an attended pair "
+                       "a product / 989e12 on the chunk path and on the "
+                       "tensor-core split-K path (every 16-bit cache, int8 "
+                       "under 16-bit queries; each MMA of a split term "
+                       "counted), / 67e12 on the other pairs' split-K "
+                       "path); each value its type's bytes",
             launches_per_call=dec["launches_per_call"],
             library_ms=dec["library_ms"],
             library=("scaled_dot_product_attention in the same type with "

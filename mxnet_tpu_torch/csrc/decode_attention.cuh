@@ -31,26 +31,45 @@
 // device-memory round trip sits before the cache's bytes move.  Its warps
 // take tiles in turn through warp-private `cp.async` rings of 16-byte
 // copies (4-byte, or bytes where the width or a pointer does not allow
-// them), each warp with its own masked online softmax and accumulator:
-//  - q and the cache of one 16-bit type (bf16 over bf16, f16 over f16, the
-//    16-bit serving path's pair): tensor cores.  64-position tiles a warp;
-//    S = Q K^T and O += P V on mma.sync.m16n8k16 with the query rows as a
-//    register A fragment held for the whole split, K and V by ldmatrix
+// them), each warp with its own masked online softmax and accumulator.
+// Which pairs take which branch, and why:
+//  - a 16-bit cache, under any query type (bf16 or f16 over its own type,
+//    f32 over bf16 or f16, bf16 over f16, f16 over bf16): tensor cores
+//    (split_tiles16).  64-position tiles a warp; S = Q K^T and O += P V
+//    on mma.sync.m16n8k16 in the cache's type with the query rows as
+//    register A fragments held for the whole split, K and V by ldmatrix
 //    from unpadded rows whose 16-byte chunks are XOR-swizzled, the
 //    softmax on the accumulators and P rounded to the cache's type packed
-//    from them as the A fragment of P V (split_tiles16).  At d <= 64
-//    4 warps x 64 positions cover a split of 256 in one tile a warp, so the
-//    whole split is in flight after one wait; a second stage only where L
-//    is longer.
-//  - every other pair: CUDA cores (split_tiles).  32-position tiles, one
-//    position a lane, two stages a warp; each lane dots its key row
-//    (shared, row stride = 4 mod 32 words or 16 x odd bytes,
-//    conflict-free) with the query rows (f32, broadcast reads); int8 keys
-//    dequantized in registers and scaled once per dot, 16-bit keys widened
-//    8 a 16-byte read; a position's probability shuffled from its lane
-//    into P V, a lane owning columns lane + 32 i; an int8 value row's scale
-//    folded into the probability, a 16-bit cache's probability rounded to
-//    its type.  Their products would not be exact in one 16-bit MMA type.
+//    from them as the A fragment of P V.  Every product stays exact: q is
+//    brought into the cache's type once a split, as terms that sum back
+//    to it (kQTerms): f32 as three terms (8 + 8 + 8 bits in bf16; 11 + 11
+//    + 11 in f16, after a power-of-two row scale that the scores take
+//    back), bf16 into f16 as one term after that scale, f16 into bf16 as
+//    two; in f16 only the subnormal floor rounds, within 2^-39 of the
+//    row's largest |q|.  S is the sum of their MMAs against one K
+//    fragment.  At d <= 64 4 warps x 64 positions cover a split of 256
+//    in one tile a warp, so the whole split is in flight after one wait;
+//    a second stage only where L is longer.
+//  - an int8 cache under 16-bit queries: tensor cores (split_tiles_i8).
+//    The same tiles and softmax; the int8 rows land as bytes and are
+//    widened exactly in registers (|k| <= 127 is exact in bf16 and f16),
+//    which a shared 16-bit tile would only add a pass of stores to: K
+//    into q's type for S = Q K (each score then times its position's f32
+//    k_scale, as on CUDA cores), V into bf16 for P V.  P stays f32 (the
+//    TPU kernel's numerics for an int8 cache): w = p * v_scale in f32,
+//    split into three bf16 terms that sum back to it, three MMAs against
+//    V (as O^T = V^T W^T, the query rows the MMA's 8 columns), the
+//    largest term's products summed apart from the others' so that a
+//    row with one live position gets v_scale * v rounded once.
+//  - f32 over f32 or int8, and bf16 or f16 over f32: CUDA cores
+//    (split_tiles).  32-position tiles, one position a lane, two stages
+//    a warp; each lane dots its key row (shared, row stride = 4 mod 32
+//    words or 16 x odd bytes, conflict-free) with the query rows (f32,
+//    broadcast reads); int8 keys dequantized in registers and scaled once
+//    per dot; a position's probability shuffled from its lane into P V,
+//    a lane owning columns lane + 32 i; an int8 value row's scale folded
+//    into the probability.  An f32 cache value is exact in no 16-bit
+//    type, and f32 queries over int8 keep the parent's bits.
 // The block merges its warps in a fixed order in shared memory, into its
 // split's (max, sum, unnormalized output) a query row; every other split
 // pushes that partial into rank 0's shared memory through distributed
@@ -94,11 +113,19 @@ enum { KV_BF16 = 2, KV_F16 = 3 };  // beside flash_fwd.cuh's KV_F32, KV_I8
 template <int KV>
 constexpr bool kKv16 = KV == KV_BF16 || KV == KV_F16;
 
-// q and the cache of one 16-bit type: split-K on tensor cores
+// a 16-bit cache's element type
+template <int KV>
+using kv16_t =
+    typename std::conditional<KV == KV_F16, __half, __nv_bfloat16>::type;
+
+// an int8 cache under 16-bit queries
 template <int KV, typename QT>
-constexpr bool kMma16 =
-    (KV == KV_BF16 && std::is_same<QT, __nv_bfloat16>::value) ||
-    (KV == KV_F16 && std::is_same<QT, __half>::value);
+constexpr bool kI8Mma = KV == KV_I8 && !std::is_same<QT, float>::value;
+
+// split-K on tensor cores: every 16-bit cache, and int8 under 16-bit
+// queries (the header)
+template <int KV, typename QT>
+constexpr bool kMma16 = kKv16<KV> || kI8Mma<KV, QT>;
 
 constexpr int TQ_SPLIT = 8;    // the most query rows a split-K block takes
 constexpr int TILE = 32;       // positions a warp takes at once, CUDA cores
@@ -143,47 +170,69 @@ __device__ __forceinline__ T of_f32(float x) {
     return __float2bfloat16_rn(x);
 }
 
-// A 16-bit cache value (its bits) as f32, exactly.
-template <int KV>
-__device__ __forceinline__ float kv_f32(uint16_t x) {
-  if constexpr (KV == KV_F16)
-    return __half2float(__ushort_as_half(x));
-  else
-    return __uint_as_float((uint32_t)x << 16);
+// Four int8 values (the bytes of w, byte 0 first) as two packed pairs of
+// T, exactly: lo = (byte 0, byte 1), hi = (byte 2, byte 3).  Each byte
+// goes in as u = k + 128 beside a constant exponent: in f16 0x6400 | u is
+// 1024 + u, less 1152 is k; in bf16 through f32, 0x4B000000 | u is 2^23 +
+// u, less 2^23 + 128 is k, whose f32 bits end in 16 zeros (|k| <= 128 has
+// at most 8 significant bits), so its high half is k in bf16.
+template <typename T>
+__device__ __forceinline__ void i8x4_to16(uint32_t w, uint32_t& lo,
+                                          uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  if constexpr (kF16<T>) {
+    const __half2 off = __float2half2_rn(1152.f);
+    uint32_t a = __byte_perm(u, 0x64646464u, 0x5140);
+    uint32_t b = __byte_perm(u, 0x64646464u, 0x7362);
+    const __half2 ha = __hsub2(*reinterpret_cast<const __half2*>(&a), off);
+    const __half2 hb = __hsub2(*reinterpret_cast<const __half2*>(&b), off);
+    lo = *reinterpret_cast<const uint32_t*>(&ha);
+    hi = *reinterpret_cast<const uint32_t*>(&hb);
+  } else {
+    const float m = 8388736.f;  // 2^23 + 128
+    const uint32_t f0 = __float_as_uint(
+        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - m);
+    const uint32_t f1 = __float_as_uint(
+        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - m);
+    const uint32_t f2 = __float_as_uint(
+        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - m);
+    const uint32_t f3 = __float_as_uint(
+        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - m);
+    lo = __byte_perm(f0, f1, 0x7632);
+    hi = __byte_perm(f2, f3, 0x7632);
+  }
 }
 
-// The probability P V multiplies: rounded to a 16-bit cache's type (the
-// TPU kernel's `p.astype(v.dtype)`), f32 for an f32 cache.
-template <int KV>
-__device__ __forceinline__ float p_for_v(float p) {
-  if constexpr (KV == KV_F16)
-    return __half2float(__float2half_rn(p));
-  else if constexpr (KV == KV_BF16)
-    return __bfloat162float(__float2bfloat16_rn(p));
-  else
-    return p;
-}
+// Terms of T that q is brought into the cache's type T as (the header):
+// one where q is T or bf16 into f16, two for f16 into bf16, three for f32.
+template <typename T, typename QT>
+constexpr int kQTerms =
+    std::is_same<QT, T>::value      ? 1
+    : std::is_same<QT, float>::value ? 3
+    : kF16<QT>                       ? 2
+                                     : 1;
 
-// Eight 16-bit values of one 16-byte read, widened to f32.
-template <int KV>
-__device__ __forceinline__ void widen8(const uint4 raw, float (&f)[8]) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+// whether q is scaled by a power of two a row first (f16's range)
+template <typename T, typename QT>
+constexpr bool kQScale = kF16<T> && !kF16<QT>;
+
+// (x, y) as N packed pairs of T that sum back to them, largest first:
+// each term the rest rounded to T, the rest after it exact in f32.
+template <typename T, int N>
+__device__ __forceinline__ void split_terms(float x, float y,
+                                            uint32_t (&t)[N]) {
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    if constexpr (KV == KV_F16) {
-      const float2 h = __half22float2(*reinterpret_cast<const __half2*>(&w[e]));
-      f[2 * e] = h.x;
-      f[2 * e + 1] = h.y;
-    } else {
-      f[2 * e] = __uint_as_float(w[e] << 16);
-      f[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
-    }
+  for (int i = 0; i < N; ++i) {
+    t[i] = pack16<T>(x, y);
+    const float2 h = unpack_f2<T>(t[i]);
+    x -= h.x;
+    y -= h.y;
   }
 }
 
 // ------------------------------------------------------------ tiles
 // Widths of a row: d padded to dpk (8 in f32 and 16-bit; 16 in int8, one
-// 16-byte read a step), and the shared row stride in bytes.
+// 16-byte read a step), and on CUDA cores the shared row stride in bytes.
 template <int KV>
 __host__ __device__ inline int dec_dpk(int d) {
   return KV == KV_I8 ? (d + 15) & ~15 : (d + 7) & ~7;
@@ -191,9 +240,7 @@ __host__ __device__ inline int dec_dpk(int d) {
 
 template <int KV>
 __host__ __device__ inline int dec_rs(int dpk) {
-  return KV == KV_I8    ? 16 * ((dpk >> 4) | 1)
-         : kKv16<KV> ? 16 * ((dpk >> 3) | 1)
-                     : 4 * (dpk + 4);
+  return KV == KV_I8 ? 16 * ((dpk >> 4) | 1) : 4 * (dpk + 4);
 }
 
 template <int KV>
@@ -201,30 +248,15 @@ __host__ __device__ inline int dec_stage(int rs) {
   return 2 * TILE * rs + (KV == KV_I8 ? 2 * TILE * 4 : 0);
 }
 
-template <int KV>
-__device__ __forceinline__ const void* dec_rows_at(const void* p,
-                                                   size_t off) {
-  if constexpr (kKv16<KV>)
-    return static_cast<const uint16_t*>(p) + off;
-  else
-    return rows_at<KV>(p, off);
-}
-
 // TILE cache rows from row0 (zero at or past `valid`) into a warp's
-// stage: f32 rows at stride rs bytes, int8 bytes with their scales, or a
-// 16-bit row's 2 d bytes as bytes.
+// stage: f32 rows at stride rs bytes, or int8 bytes with their scales.
 template <int KV>
 __device__ __forceinline__ void dec_rows(char* dst, float* dsc,
                                          const void* src, const float* sc,
                                          int row0, int valid, int d, int dpk,
                                          int rs, int mode, int lane) {
-  if constexpr (kKv16<KV>)
-    load_tile_i8<TILE, 32>(reinterpret_cast<int8_t*>(dst),
-                           static_cast<const int8_t*>(src), row0, valid,
-                           2 * d, 0, 2 * d, 2 * dpk, rs, mode, lane);
-  else
-    stage_rows<TILE, 32, KV>(dst, dsc, src, sc, row0, valid, d, 0, d, dpk,
-                             rs / 4, rs, mode, lane);
+  stage_rows<TILE, 32, KV>(dst, dsc, src, sc, row0, valid, d, 0, d, dpk,
+                           rs / 4, rs, mode, lane);
 }
 
 // ------------------------------------------------------------ merges
@@ -394,9 +426,9 @@ __device__ __forceinline__ void merge_splits(const MergeArea& g,
 }
 
 // ------------------------------------------------- tiles on CUDA cores
-// The split's positions [p0, p1) for every pair but the same-type 16-bit
-// ones: 32-position tiles a warp, one position a lane; each warp's (max,
-// sum, output) a query row into the merge area.
+// The split's positions [p0, p1) over an f32 cache, or an int8 one under
+// f32 queries: 32-position tiles a warp, one position a lane; each warp's
+// (max, sum, output) a query row into the merge area.
 template <int NCOL, int KV, typename QT>
 __device__ __forceinline__ void split_tiles(const DecArgs& a, float* smem,
                                             const MergeArea& g, int bh,
@@ -413,8 +445,8 @@ __device__ __forceinline__ void split_tiles(const DecArgs& a, float* smem,
   char* mine = ring + (size_t)warp * 2 * sb;
 
   const size_t koff = (size_t)bh * a.C;
-  const void* kb = dec_rows_at<KV>(a.k, koff * d);
-  const void* vb = dec_rows_at<KV>(a.v, koff * d);
+  const void* kb = rows_at<KV>(a.k, koff * d);
+  const void* vb = rows_at<KV>(a.v, koff * d);
   const float* ksb = KV == KV_I8 ? a.k_scale + koff : nullptr;
   const float* vsb = KV == KV_I8 ? a.v_scale + koff : nullptr;
   const int ntile = (p1 - p0 + TILE - 1) / TILE;
@@ -479,7 +511,7 @@ __device__ __forceinline__ void split_tiles(const DecArgs& a, float* smem,
           xp[r].w = fmaf(qx.w, kx.w, xp[r].w);
         }
       }
-    } else if (KV == KV_I8) {
+    } else {
       const int8_t* kr = reinterpret_cast<const int8_t*>(s) + lane * rs;
 #pragma unroll 2
       for (int c = 0; c < dpk; c += 16) {
@@ -503,26 +535,6 @@ __device__ __forceinline__ void split_tiles(const DecArgs& a, float* smem,
           }
         }
       }
-    } else {
-      const char* kr = s + lane * rs;
-#pragma unroll 2
-      for (int c = 0; c < dpk; c += 8) {
-        float kf[8];
-        widen8<KV>(*reinterpret_cast<const uint4*>(kr + 2 * c), kf);
-#pragma unroll
-        for (int r = 0; r < TQ_SPLIT; ++r) {
-          if (r >= tq) break;
-#pragma unroll
-          for (int e = 0; e < 8; e += 4) {
-            const float4 qx =
-                *reinterpret_cast<const float4*>(sq + r * dpk + c + e);
-            xp[r].x = fmaf(qx.x, kf[e], xp[r].x);
-            xp[r].y = fmaf(qx.y, kf[e + 1], xp[r].y);
-            xp[r].z = fmaf(qx.z, kf[e + 2], xp[r].z);
-            xp[r].w = fmaf(qx.w, kf[e + 3], xp[r].w);
-          }
-        }
-      }
     }
     float x[TQ_SPLIT];
 #pragma unroll
@@ -537,7 +549,7 @@ __device__ __forceinline__ void split_tiles(const DecArgs& a, float* smem,
 
     // the masked online-softmax update, row by row across the warp
     float pw[TQ_SPLIT];  // p as P V takes it: times the value row's scale
-                         // (int8), rounded to the cache's type (16-bit)
+                         // (int8)
 #pragma unroll
     for (int r = 0; r < TQ_SPLIT; ++r) {
       pw[r] = 0.f;
@@ -556,7 +568,7 @@ __device__ __forceinline__ void split_tiles(const DecArgs& a, float* smem,
       l[r] = l[r] * corr + p;
 #pragma unroll
       for (int i = 0; i < NCOL; ++i) acc[r][i] *= corr;
-      pw[r] = KV == KV_I8 ? p * vs : p_for_v<KV>(p);
+      pw[r] = KV == KV_I8 ? p * vs : p;
     }
 
     // acc += p V over the tile's positions in the split (unrolled, so
@@ -571,12 +583,8 @@ __device__ __forceinline__ void split_tiles(const DecArgs& a, float* smem,
         const int c = lane + 32 * i;
         if (KV == KV_F32)
           vx[i] = c < dpk ? reinterpret_cast<const float*>(vrow)[c] : 0.f;
-        else if (KV == KV_I8)
-          vx[i] = c < dpk ? (float)reinterpret_cast<const int8_t*>(vrow)[c]
-                          : 0.f;
         else
-          vx[i] = c < dpk ? kv_f32<KV>(
-                                reinterpret_cast<const uint16_t*>(vrow)[c])
+          vx[i] = c < dpk ? (float)reinterpret_cast<const int8_t*>(vrow)[c]
                           : 0.f;
       }
 #pragma unroll
@@ -619,8 +627,9 @@ __device__ __forceinline__ void split_tiles(const DecArgs& a, float* smem,
 }
 
 // ----------------------------------------------- tiles on tensor cores
-// q and the cache of one 16-bit type T: 64-position tiles a warp, S = Q
-// K^T and O += P V on mma.sync.m16n8k16 with f32 accumulators.  Rows of
+// A 16-bit cache of type T, under queries of any type: 64-position tiles a
+// warp, S = Q K^T and O += P V on mma.sync.m16n8k16 in T with f32
+// accumulators.  Rows of
 // DK = max(64, 32 NCOL) columns (zero past d), 2 DK bytes with no
 // padding: the 16-byte chunk c of row r is stored at chunk c ^ (r & 7), so
 // ldmatrix's eight rows at one chunk fall on eight distinct 16-byte bank
@@ -663,22 +672,27 @@ __device__ __forceinline__ void load_rows16(char* dst, const int8_t* src,
   }
 }
 
-// The query rows (<= 8, zero-padded to the MMA's 16) are the A fragment,
+// The query rows (<= 8, zero-padded to the MMA's 16) are the A fragments,
 // held in registers for the whole split: lane (g, t) holds row g's columns
-// 16 ks + 2t.. and 16 ks + 8 + 2t.. (rows g + 8 are zero registers).  K
-// comes by ldmatrix as B; the scores' accumulators (row g, keys 8j + 2t,
-// 8j + 2t + 1) take the online softmax, each row's max and sum across the
-// quad by two shuffles; P, rounded to T (the TPU kernel's
-// `p.astype(v.dtype)`), is packed from them as the A fragment of O += P V
-// (FlashAttention-2's reuse of registers) and V comes by transposed
-// ldmatrix.  Products of two 16-bit values are exact in f32, as the TPU
-// kernel's upcast products are; the sum l is taken from the f32 P.
-template <int NCOL, typename T>
+// 16 ks + 2t.. and 16 ks + 8 + 2t.. (rows g + 8 are zero registers), as
+// the kQTerms terms of T that sum back to q (q's own bits where q is T;
+// where kQScale, times a power of two a row from the quad's max |q|, which
+// the scores take back).  K comes by ldmatrix as B, every term's MMA
+// against the same fragment, the smallest term first; the scores'
+// accumulators (row g, keys 8j + 2t, 8j + 2t + 1) take the online
+// softmax, each row's max and sum across the quad by two shuffles; P,
+// rounded to T (the TPU kernel's `p.astype(v.dtype)`), is packed from
+// them as the A fragment of O += P V (FlashAttention-2's reuse of
+// registers) and V comes by transposed ldmatrix.  Products of two 16-bit
+// values are exact in f32, as the TPU kernel's upcast products are; the
+// sum l is taken from the f32 P.
+template <int NCOL, typename T, typename QT>
 __device__ __forceinline__ void split_tiles16(const DecArgs& a, char* ring,
                                               const MergeArea& g, int bh,
                                               int r0, int tq, int len, int p0,
                                               int p1) {
   constexpr int DK = kDk16<NCOL>, NKS = DK / 16, NJ = DK / 8, RB = 2 * DK;
+  constexpr int NQ = kQTerms<T, QT>;
   const int tid = threadIdx.x, nw = blockDim.x >> 5;
   const int warp = tid >> 5, lane = tid & 31;
   const int gr = lane >> 2, t = lane & 3;  // fragment row and column pair
@@ -708,8 +722,9 @@ __device__ __forceinline__ void split_tiles16(const DecArgs& a, char* ring,
   int tt = warp;
   fetch(tt, 0);
   fetch(tt + nw, 1);
-  uint32_t qa[NKS][2];
-  {
+  uint32_t qa[NQ][NKS][2];
+  [[maybe_unused]] float qun = 1.f;  // undoes row gr's scale in its scores
+  if constexpr (std::is_same<QT, T>::value) {
     const bool row = gr < tq;
     const uint16_t* qr = static_cast<const uint16_t*>(a.q) +
                          ((size_t)bh * a.Tq + r0 + (row ? gr : 0)) * d;
@@ -720,7 +735,44 @@ __device__ __forceinline__ void split_tiles16(const DecArgs& a, char* ring,
         const int c = 16 * ks + 8 * h + 2 * t;
         const uint32_t lo = row && c < d ? qr[c] : 0u;
         const uint32_t hi = row && c + 1 < d ? qr[c + 1] : 0u;
-        qa[ks][h] = lo | hi << 16;
+        qa[0][ks][h] = lo | hi << 16;
+      }
+  } else {
+    const bool row = gr < tq;
+    const QT* qr = static_cast<const QT*>(a.q) +
+                   ((size_t)bh * a.Tq + r0 + (row ? gr : 0)) * d;
+    float qf[NKS][4];
+#pragma unroll
+    for (int ks = 0; ks < NKS; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 16 * ks + 8 * (e >> 1) + 2 * t + (e & 1);
+        qf[ks][e] = row && c < d ? f32_of(qr[c]) : 0.f;
+      }
+    if constexpr (kQScale<T, QT>) {
+      float mx = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < NKS; ++ks)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx = fmaxf(mx, fabsf(qf[ks][e]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const int eb = ebits(mx);
+      const float f = eb_scale(eb);
+      qun = eb_unscale(eb);
+#pragma unroll
+      for (int ks = 0; ks < NKS; ++ks)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qf[ks][e] *= f;
+    }
+#pragma unroll
+    for (int ks = 0; ks < NKS; ++ks)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t tm[NQ];
+        split_terms<T, NQ>(qf[ks][2 * h], qf[ks][2 * h + 1], tm);
+#pragma unroll
+        for (int i = 0; i < NQ; ++i) qa[i][ks][h] = tm[i];
       }
   }
 
@@ -748,14 +800,17 @@ __device__ __forceinline__ void split_tiles16(const DecArgs& a, char* ring,
     for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < NKS; ++ks) {
-      const uint32_t af[4] = {qa[ks][0], 0u, qa[ks][1], 0u};
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         uint32_t bf[4];
         ldsm_x4(bf, reinterpret_cast<const uint16_t*>(
                         sk + krow + j * 16 * RB + (((2 * ks + kc) ^ sw) << 4)));
-        mma16<T>(s[2 * j], af, bf[0], bf[1]);
-        mma16<T>(s[2 * j + 1], af, bf[2], bf[3]);
+#pragma unroll
+        for (int i = NQ - 1; i >= 0; --i) {
+          const uint32_t af[4] = {qa[i][ks][0], 0u, qa[i][ks][1], 0u};
+          mma16<T>(s[2 * j], af, bf[0], bf[1]);
+          mma16<T>(s[2 * j + 1], af, bf[2], bf[3]);
+        }
       }
     }
 
@@ -766,6 +821,7 @@ __device__ __forceinline__ void split_tiles16(const DecArgs& a, char* ring,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int key = t0 + 8 * j + 2 * t + e;
+        if constexpr (kQScale<T, QT>) s[j][e] *= qun;  // exact
         s[j][e] = key < p1 && key <= lim ? s[j][e] * a.scale : -INFINITY;
         mx = fmaxf(mx, s[j][e]);
       }
@@ -830,6 +886,294 @@ __device__ __forceinline__ void split_tiles16(const DecArgs& a, char* ring,
   }
 }
 
+// ------------------------------------- int8 tiles on tensor cores
+// An int8 cache under 16-bit queries.  A warp's stage holds 64 K rows of
+// DK bytes (unpadded; at DK >= 128 an odd row's 16-byte chunk c at c ^ 4),
+// 64 V rows at a stride of 16 x odd bytes, then the tile's 64 k_scale and
+// 64 v_scale values.
+__host__ __device__ inline int dec8_vrs(int dk) { return 16 * ((dk >> 4) | 1); }
+
+__host__ __device__ inline int dec8_stage(int dk) {
+  return TILE16 * (dk + dec8_vrs(dk)) + 2 * TILE16 * 4;
+}
+
+// Rows [row0, row0 + 64) of an int8 matrix (d bytes a row) into a tile of
+// DK columns at row stride rs, zero past d and at or past `valid`: `mode`
+// bytes a copy (kv_mode: 16, 4, or 1, a plain load and store visible
+// after the next __syncwarp); with `swz` an odd row's chunk c at c ^ 4.
+template <int DK>
+__device__ __forceinline__ void load_rows8(char* dst, const int8_t* src,
+                                           int row0, int valid, int d,
+                                           int rs, bool swz, int mode,
+                                           int lane) {
+  constexpr int LRB = DK == 64 ? 6 : DK == 128 ? 7 : 8;  // log2(DK)
+  const int lm = mode == 16 ? 4 : mode == 4 ? 2 : 0;     // log2(mode)
+  const int lc = LRB - lm;                              // log2(copies a row)
+  for (int i = lane; i < TILE16 << lc; i += 32) {
+    const int r = i >> lc, b = (i & ((1 << lc) - 1)) << lm;
+    const bool ok = row0 + r < valid && b < d;
+    const int8_t* from = ok ? src + (size_t)(row0 + r) * d + b : src;
+    char* to = dst + r * rs + (swz ? b ^ ((r & 1) << 6) : b);
+    if (mode == 16)
+      cp16(to, from, ok);
+    else if (mode == 4)
+      cp4(to, from, ok);
+    else
+      *to = ok ? *from : (int8_t)0;
+  }
+}
+
+// The 64 f32 scales of rows [row0, row0 + 64), zero at or past `valid`.
+__device__ __forceinline__ void load_scales(float* dst, const float* src,
+                                            int row0, int valid, int lane) {
+  for (int i = lane; i < TILE16; i += 32) {
+    const bool ok = row0 + i < valid;
+    cp4(dst + i, ok ? src + row0 + i : src, ok);
+  }
+}
+
+// The tiles of split_tiles16 over int8 rows, widened in registers.
+// S = Q K in q's type QT: the depth of both fragments is permuted so that
+// lane (g, t) reads 16 bytes of its key row 8j + g at once (one LDS.128
+// for four MMA steps; a quarter warp reads two whole rows, conflict-free):
+// step u of the 64-column block jj takes columns 64 jj + 16 t + 4 u, +1 as
+// depth 2t, 2t + 1 (a0, b0) and +2, +3 as depth 2t + 8, 2t + 9 (a2, b1).
+// Each score is then times its position's k_scale and the scale, as on
+// CUDA cores.  P V in bf16 as O^T = V^T W^T, w = p * v_scale (f32): the
+// <= 8 query rows are the MMA's 8 columns (no zero half), W^T's fragment
+// is the score accumulators as they stand, and V^T's is built by lane
+// (g, t) from V rows 16 i + 2t, + 1 (a0, a1) and + 8, + 9 (a2, a3) of
+// chunk i, W bytes of each at column W g of every 128-column block (W = 8
+// at DK = 64, else 16; conflict-free at the odd row stride), two rows'
+// bytes interleaved into pairs by byte_perm: m-tile mt of block bb takes
+// columns 128 bb + W g + 2 mt (rows g) and + 1 (rows g + 8).  w is split
+// into three bf16 terms that sum back to it; the largest multiplies into
+// one accumulator, the other two into a second, and the two are added in
+// f32 at the end.  So a row with one live position (p = 1: an inert row)
+// gets v_scale * v rounded once, as the plain version's dequantized v:
+// every partial sum before that addition is exact.
+template <int NCOL, typename QT>
+__device__ __forceinline__ void split_tiles_i8(const DecArgs& a, char* ring,
+                                               const MergeArea& g, int bh,
+                                               int r0, int tq, int len,
+                                               int p0, int p1) {
+  using BF = __nv_bfloat16;
+  constexpr int DK = kDk16<NCOL>, NKS = DK / 16, NM = DK / 16;
+  constexpr int W = DK == 64 ? 8 : 16, NB = DK / (8 * W);
+  constexpr int VOFF = TILE16 * DK;  // the V rows in a stage
+  const int tid = threadIdx.x, nw = blockDim.x >> 5;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, t = lane & 3;  // fragment row and column pair
+  const int d = a.d, vrs = dec8_vrs(DK), sb = dec8_stage(DK);
+  const int soff = VOFF + TILE16 * vrs;   // the scales in a stage
+  char* mine = ring + (size_t)warp * dec16_stages(a.L, nw) * sb;
+  const size_t koff = (size_t)bh * a.C;
+  const int8_t* kb = static_cast<const int8_t*>(a.k) + koff * d;
+  const int8_t* vb = static_cast<const int8_t*>(a.v) + koff * d;
+  const float* ksb = a.k_scale + koff;
+  const float* vsb = a.v_scale + koff;
+  const int ntile = (p1 - p0 + TILE16 - 1) / TILE16;
+
+  // tile tt of the split into stage `st`: K rows and their scales, then
+  // V rows and theirs, each its own commit group
+  auto fetch = [&](int tt, int st) {
+    char* s = mine + st * sb;
+    float* sc = reinterpret_cast<float*>(s + soff);
+    const int t0 = p0 + tt * TILE16;
+    if (tt < ntile) {
+      load_rows8<DK>(s, kb, t0, p1, d, DK, DK >= 128, a.kv_mode, lane);
+      load_scales(sc, ksb, t0, p1, lane);
+    }
+    cp_commit();
+    if (tt < ntile) {
+      load_rows8<DK>(s + VOFF, vb, t0, p1, d, vrs, false, a.kv_mode, lane);
+      load_scales(sc + TILE16, vsb, t0, p1, lane);
+    }
+    cp_commit();
+  };
+
+  int tt = warp;
+  fetch(tt, 0);
+  fetch(tt + nw, 1);
+  // q's bits in the permuted depth order: step ks = 4 jj + u takes columns
+  // c = 64 jj + 16 t + 4 u .. c + 3
+  uint32_t qa[NKS][2];
+  {
+    const bool row = gr < tq;
+    const uint16_t* qr = static_cast<const uint16_t*>(a.q) +
+                         ((size_t)bh * a.Tq + r0 + (row ? gr : 0)) * d;
+#pragma unroll
+    for (int ks = 0; ks < NKS; ++ks)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = 64 * (ks >> 2) + 16 * t + 4 * (ks & 3) + 2 * h;
+        const uint32_t lo = row && c < d ? qr[c] : 0u;
+        const uint32_t hi = row && c + 1 < d ? qr[c + 1] : 0u;
+        qa[ks][h] = lo | hi << 16;
+      }
+  }
+
+  // O^T a query row a column: lane (g, t) holds rows 2t, 2t + 1 of m-tile
+  // mt's columns; oh takes w's largest term, ol the other two
+  float m = -INFINITY, l = 0.f, oh[NM][4], ol[NM][4];
+#pragma unroll
+  for (int n = 0; n < NM; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oh[n][e] = ol[n][e] = 0.f;
+  const int lim = gr < tq ? len + r0 + gr : -1;  // row gr's last position
+  const int swk = DK >= 128 ? (gr & 1) << 6 : 0;  // its K rows' swizzle
+  for (int st = 0; tt < ntile; tt += nw, st ^= 1) {
+    cp_wait<3>();
+    __syncwarp();  // every lane's K copies (and byte stores) of the stage
+    const char* sk = mine + st * sb;
+    const char* sv = sk + VOFF;
+    const float* sc = reinterpret_cast<const float*>(sk + soff);
+    const int t0 = p0 + tt * TILE16;
+
+    // the scores of eight 8-key tiles, four MMA steps a 16-byte read
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < DK / 64; ++jj) {
+      uint4 kr[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        kr[j] = *reinterpret_cast<const uint4*>(
+            sk + (8 * j + gr) * DK + ((64 * jj + 16 * t) ^ swk));
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const uint32_t af[4] = {qa[4 * jj + u][0], 0u, qa[4 * jj + u][1], 0u};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const uint32_t w = u == 0   ? kr[j].x
+                             : u == 1 ? kr[j].y
+                             : u == 2 ? kr[j].z
+                                      : kr[j].w;
+          uint32_t b0, b1;
+          i8x4_to16<QT>(w, b0, b1);
+          mma16<QT>(s[j], af, b0, b1);
+        }
+      }
+    }
+
+    // each score times its position's k_scale, then the masked
+    // online-softmax update of row gr on its accumulators
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 ks = *reinterpret_cast<const float2*>(sc + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = t0 + 8 * j + 2 * t + e;
+        const float x = s[j][e] * (e ? ks.y : ks.x);
+        s[j][e] = key < p1 && key <= lim ? x * a.scale : -INFINITY;
+        mx = fmaxf(mx, s[j][e]);
+      }
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float mn = fmaxf(m, mx);
+    const float z = mn == -INFINITY ? 0.f : mn;
+    const float corr = m == -INFINITY ? 0.f : expf(m - z);
+    float ps = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[j][e] = s[j][e] == -INFINITY ? 0.f : expf(s[j][e] - z);
+        ps += s[j][e];
+      }
+    m = mn;
+    l = l * corr + ps;
+    // rows 2t and 2t + 1 of O^T take their own rows' corrections
+    const float c0 = __shfl_sync(0xffffffffu, corr, 8 * t);
+    const float c1 = __shfl_sync(0xffffffffu, corr, 8 * t + 4);
+#pragma unroll
+    for (int n = 0; n < NM; ++n) {
+      oh[n][0] *= c0, oh[n][2] *= c0, ol[n][0] *= c0, ol[n][2] *= c0;
+      oh[n][1] *= c1, oh[n][3] *= c1, ol[n][1] *= c1, ol[n][3] *= c1;
+    }
+
+    // O^T += V^T W^T over four 16-key chunks
+    cp_wait<2>();
+    __syncwarp();  // and its V copies
+    const float* vsc = sc + TILE16;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v0 = *reinterpret_cast<const float2*>(vsc + 16 * i + 2 * t);
+      const float2 v1 =
+          *reinterpret_cast<const float2*>(vsc + 16 * i + 8 + 2 * t);
+      uint32_t w0[3], w1[3];  // keys 16i + 2t.. and 16i + 8 + 2t..
+      split_terms<BF, 3>(s[2 * i][0] * v0.x, s[2 * i][1] * v0.y, w0);
+      split_terms<BF, 3>(s[2 * i + 1][0] * v1.x, s[2 * i + 1][1] * v1.y, w1);
+      const char* vr = sv + (16 * i + 2 * t) * vrs + W * gr;
+#pragma unroll
+      for (int bb = 0; bb < NB; ++bb) {
+        // m-tile mt's A fragment: rows + 0, 1 (a0 column 2 mt, a1 2 mt +
+        // 1), rows + 8, 9 (a2, a3)
+        uint32_t va[W / 2][4];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const char* rp = vr + 8 * hh * vrs + 128 * bb;
+          uint32_t x0[W / 4], x1[W / 4];
+          if constexpr (W == 8) {
+            const uint2 y0 = *reinterpret_cast<const uint2*>(rp);
+            const uint2 y1 = *reinterpret_cast<const uint2*>(rp + vrs);
+            x0[0] = y0.x, x0[1] = y0.y, x1[0] = y1.x, x1[1] = y1.y;
+          } else {
+            const uint4 y0 = *reinterpret_cast<const uint4*>(rp);
+            const uint4 y1 = *reinterpret_cast<const uint4*>(rp + vrs);
+            x0[0] = y0.x, x0[1] = y0.y, x0[2] = y0.z, x0[3] = y0.w;
+            x1[0] = y1.x, x1[1] = y1.y, x1[2] = y1.z, x1[3] = y1.w;
+          }
+#pragma unroll
+          for (int q = 0; q < W / 4; ++q) {
+            i8x4_to16<BF>(__byte_perm(x0[q], x1[q], 0x5140),
+                          va[2 * q][2 * hh], va[2 * q][2 * hh + 1]);
+            i8x4_to16<BF>(__byte_perm(x0[q], x1[q], 0x7362),
+                          va[2 * q + 1][2 * hh], va[2 * q + 1][2 * hh + 1]);
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < W / 2; ++mt)
+          mma16<BF>(ol[W / 2 * bb + mt], va[mt], w0[2], w1[2]);
+#pragma unroll
+        for (int mt = 0; mt < W / 2; ++mt)
+          mma16<BF>(ol[W / 2 * bb + mt], va[mt], w0[1], w1[1]);
+#pragma unroll
+        for (int mt = 0; mt < W / 2; ++mt)
+          mma16<BF>(oh[W / 2 * bb + mt], va[mt], w0[0], w1[0]);
+      }
+    }
+    __syncwarp();  // every lane is done reading the stage
+    fetch(tt + 2 * nw, st);
+  }
+  cp_wait<0>();
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+
+  __syncthreads();  // the merge area is the ring's memory
+  if (gr < tq && t == 0) {
+    g.wm[warp * tq + gr] = m;
+    g.wl[warp * tq + gr] = l;
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = 2 * t + e;
+    if (r >= tq) break;
+    float* wa = g.wa + (warp * tq + r) * DK + W * gr;
+#pragma unroll
+    for (int bb = 0; bb < NB; ++bb)
+#pragma unroll
+      for (int mt = 0; mt < W / 2; ++mt) {
+        const int n = W / 2 * bb + mt;
+        wa[128 * bb + 2 * mt] = ol[n][e] + oh[n][e];
+        wa[128 * bb + 2 * mt + 1] = ol[n][2 + e] + oh[n][2 + e];
+      }
+  }
+}
+
 // Grid (B*H, S, G), clusters (1, S, 1): block (bh, s, z) takes query rows
 // [8z, 8z + 8) and cache positions [s L, (s+1) L) up to min(C, cache_len
 // + its last row + 1).  A split wholly past that skips its tiles and
@@ -861,9 +1205,12 @@ __global__ void __launch_bounds__(128) decode_split_kernel(const DecArgs a) {
   if (blockIdx.y == 0 && threadIdx.x == 0 && a.S > 1)
     mbar_init(bar, (unsigned)(a.S - 1) * blockDim.x);
   if (p0 < p1) {
-    if constexpr (mma)
-      split_tiles16<NCOL, QT>(a, reinterpret_cast<char*>(work), g, bh, r0,
-                              tq, len, p0, p1);
+    if constexpr (kKv16<KV>)
+      split_tiles16<NCOL, kv16_t<KV>, QT>(a, reinterpret_cast<char*>(work),
+                                          g, bh, r0, tq, len, p0, p1);
+    else if constexpr (mma)
+      split_tiles_i8<NCOL, QT>(a, reinterpret_cast<char*>(work), g, bh, r0,
+                               tq, len, p0, p1);
     else
       split_tiles<NCOL, KV, QT>(a, smem, g, bh, r0, tq, len, p0, p1);
   }
@@ -882,20 +1229,19 @@ int launch_split(DecArgs a, int B, cudaStream_t st) {
   size_t lead, ring;
   if constexpr (kMma16<KV, QT>) {
     // 4 warps x one 64-row K and V tile each at d <= 64 (65,536 bytes a
-    // block: three blocks an SM); fewer warps at wider rows
+    // block in 16 bits: three blocks an SM; 38,912 in int8); fewer warps
+    // at wider rows
     constexpr int DK = kDk16<NCOL>;
     nw = DK <= 64 ? 4 : DK <= 128 ? 2 : 1;
     wd = DK;
     lead = 0;
-    ring = (size_t)nw * dec16_stages(a.L, nw) * dec16_stage(DK);
+    ring = (size_t)nw * dec16_stages(a.L, nw) *
+           (kKv16<KV> ? dec16_stage(DK) : dec8_stage(DK));
   } else {
     // warps a block: f32 rings are large (two stages of 32 K and V rows
-    // a warp), so fewer warps and more blocks an SM at wide rows; 16-bit
-    // rings are half their size
+    // a warp), so fewer warps and more blocks an SM at wide rows
     const int dpk = dec_dpk<KV>(a.d);
-    nw = KV == KV_I8    ? 4
-         : KV == KV_F32 ? (dpk <= 104 ? 2 : 1)
-                        : (dpk <= 64 ? 4 : dpk <= 128 ? 2 : 1);
+    nw = KV == KV_I8 ? 4 : (dpk <= 104 ? 2 : 1);
     wd = dpk;
     lead = 4 * (size_t)tq * dpk;
     ring = (size_t)nw * 2 * dec_stage<KV>(dec_rs<KV>(dpk));

@@ -410,6 +410,81 @@ def test_decode_split_copy_paths_through_offset_views(dev, pair, d, align):
     _split_check(*pair, kern, plain)
 
 
+# the pairs whose split-K runs on mma.sync: every 16-bit cache, and int8
+# under 16-bit queries; the other four (an f32 cache, f32 over int8) run on
+# CUDA cores
+_MMA_PAIRS = [(q, k) for q, k in DECODE_PAIRS
+              if k in HALF_DECODE or (k == torch.int8 and q != torch.float32)]
+
+
+def test_decode_split_kernels_take_their_pairs_branch(dev):
+    """The SASS of ``decode_split_kernel``, each of its 48 instantiations
+    (12 pairs x 4 widths) by ``tools/torch_sass_counts.py``'s counting:
+    HMMA in every width of the eight tensor-core pairs, none in the four
+    CUDA-core pairs'."""
+    import importlib.util
+    import pathlib
+    import re
+    import subprocess
+
+    from mxnet_tpu_torch.kernels import _build
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / \
+        "torch_sass_counts.py"
+    spec = importlib.util.spec_from_file_location("torch_sass_counts", path)
+    sass_counts = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sass_counts)
+    q_of = {"decode_attention.cu": torch.float32,
+            "decode_attention_bf16.cu": torch.bfloat16,
+            "decode_attention_f16.cu": torch.float16}
+    kv_of = {"0": torch.float32, "1": torch.int8, "2": torch.bfloat16,
+             "3": torch.float16}
+    hmma = {}
+    for src, q_dtype in q_of.items():
+        _build.load(src)
+        sass = subprocess.run(
+            [sass_counts._cuobjdump(), "-sass",
+             str(_build._target(_build.CSRC / src))],
+            capture_output=True, text=True, check=True).stdout
+        for fn, c in sass_counts.counts(sass, ["HMMA"]).items():
+            m = re.search(r"decode_split_kernelILi(\d)ELi(\d)E", fn)
+            if m:
+                hmma[(q_dtype, kv_of[m.group(2)], m.group(1))] = c["HMMA"]
+    assert len(hmma) == 48, sorted(hmma)
+    for (q_dtype, kv_dtype, ncol), n in hmma.items():
+        label = f"{_DT[q_dtype]}_{_DT[kv_dtype]} NCOL={ncol}"
+        if (q_dtype, kv_dtype) in _MMA_PAIRS:
+            assert n > 0, label
+        else:
+            assert n == 0, (label, n)
+
+
+# f16 queries take 2^8 at most (their own range)
+_SHIFTS = [(p, s) for p in _MMA_PAIRS
+           for s in ((-16, 8) if p[0] == torch.float16 else (-16, 8, 17))]
+
+
+@pytest.mark.parametrize("pair,shift", _SHIFTS,
+                         ids=[f"{_DT[p[0]]}_{_DT[p[1]]}-{s}"
+                              for p, s in _SHIFTS])
+def test_decode_mma_pairs_take_queries_of_any_scale(dev, pair, shift):
+    """Queries times 2^shift on the tensor-core pairs: at 2^17 an f32 or
+    bf16 query passes f16's range (the f16 cache's pairs scale q by a
+    power of two a row before their split), at 2^-16 it lies below f16's
+    normal range; scores of 10^4 and more at 2^8 and 2^17, so the softmax
+    is sharp and an inexact term would show."""
+    from mxnet_tpu_torch.test_utils import decode_case
+
+    q_dtype = pair[0]
+    kern, plain = decode_case(*pair, 3, 2, 4, 300, 64, [0, 150, 296],
+                              seed=shift + 40, device=dev)
+    q = (kern["q"].float() * 2.0 ** shift).to(q_dtype)
+    assert torch.isfinite(q).all()
+    kern, plain = dict(kern, q=q), dict(plain, q=q)
+    out = _split_check(*pair, kern, plain)
+    assert torch.equal(out, _split_call(kern)[0])
+
+
 def _flash_case(b, h, tq, tk, d, lens, seed):
     """q/k/v with NaN garbage in k/v past each row's length; the plain
     version gets the values with the garbage zeroed (it multiplies a

@@ -15,7 +15,10 @@ cycled through copies of at least 200 MB so the cache is read from HBM:
 device time a call from ``torch.profiler`` kernel records over 50 calls,
 the kernels a call, and at the decode shape, where q and the cache share
 a float type, ``scaled_dot_product_attention`` in that type with the
-boolean decode mask (a yardstick the port never calls).  It
+boolean decode mask (a yardstick the port never calls); and a 256-token
+prefill chunk (B=1, C=256: the chunk path where q and the cache share a
+float type or f32 queries meet int8, split-K in query groups of 8
+otherwise).  It
 also keeps the outputs and lse of every pair at the main path's shapes:
 the decode shape, cache capacity 100 (``chip_smoke.py`` phase 3's
 ``decode_c100``), d = 36 and Tq in {4, 7} (phase 2b's splits), and a
@@ -39,6 +42,7 @@ B, H, D, C = 8, 12, 64, 1024
 TIMED = {  # name: (B, Tq, C, d, cache lengths)
     "decode": (B, 1, C, D, [1000 - 3 * i for i in range(B)]),
     "tq8": (B, 8, C, D, [992 - 3 * i for i in range(B)]),
+    "chunk256": (1, 256, 256, D, [0]),
 }
 SHAPES = {  # name: (B, Tq, C, d, cache lengths)
     "decode": (B, 1, C, D, [1000 - 3 * i for i in range(B)]),
@@ -161,8 +165,10 @@ def main() -> int:
         cells = ", ".join(
             f"{who} {r['times'][name]['ms']:.4f} ms "
             f"x{r['times'][name]['kernels_a_call']:g}" for who, r in runs)
-        cells += "; Tq=8: " + ", ".join(
-            f"{who} {r['times'][name]['tq8_ms']:.4f}" for who, r in runs)
+        for key, label in (("tq8", "Tq=8"), ("chunk256", "chunk 256")):
+            cells += f"; {label}: " + ", ".join(
+                f"{who} {r['times'][name][f'{key}_ms']:.4f}"
+                for who, r in runs)
         sdpa = [r["times"][name]["sdpa_ms"] for _, r in runs
                 if r["times"][name]["sdpa_ms"] is not None]
         print(f"{name}: {cells}"

@@ -66,8 +66,8 @@ VARIANTS = {
     "this checkout": [],
     "default placement": [("  cfg.numAttrs = 2;", "  cfg.numAttrs = 1;")],
     "early push": [
-        ("  if (p0 < p1) {\n    if constexpr (mma)\n",
-         "  cluster_arrive();\n  if (p0 < p1) {\n    if constexpr (mma)\n"),
+        ("  if (p0 < p1) {\n    if constexpr (kKv16<KV>)\n",
+         "  cluster_arrive();\n  if (p0 < p1) {\n    if constexpr (kKv16<KV>)\n"),
         ("  cluster_arrive();  // this block's ring is read\n", ""),
         ("  float* box = g.pA + tq * d;",
          "  float* box = reinterpret_cast<float*>(bar + 2);"),
