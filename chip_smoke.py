@@ -425,6 +425,45 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     and the bytes bound; the kernels line's ``opt_arena`` row carries
     them under ``sgd_modes``.
 
+50. ``hybridize()`` as CUDA-graph capture: a ``HybridSequential`` (Dense,
+    BatchNorm, Dropout 0.1, Dense; 256 -> 1024 -> 256, B=128) and a
+    2-layer BERT at 256 units (dropout 0.1; the flash-attention kernel
+    and, under ``record()``, its backward pair), each eager and
+    hybridized in one process, from the same seed before every call (the
+    same dropout masks), in inference and under ``autograd.record()``:
+    outputs and every gradient within ``HYB_BAR`` x max|eager| (bits
+    expected), misses equal signatures and later calls hit, kernel launch
+    counts on replay equal the eager ones; an update in place read
+    without a capture, ``load_parameters(cast_dtype=True)`` one capture,
+    two training replays draw different masks, a forward calling
+    ``.item()`` raises ``MXNetError``.
+51. Phase 4's GPT-2 small behind ``serve.register_decode`` eager
+    (``hybridize(False)`` on the entry's blocks) and hybridized, f32,
+    bf16 and the int8 cache (phase 4's 16 requests each, the first of
+    256 tokens, so the cache grows once), every request queued before
+    the worker admits any: every answer equal token for token, no
+    capture after the warmup, the server left on the entry's own batch
+    cache (a donated cache is never copied: another buffer would have
+    been a capture); tokens/s, step p50, a step's device kernels and
+    host launch calls and busy share (``torch.profiler``), the capture
+    seconds, the memory the graphs and buffers hold and their peak.
+52. Phase 42's ``LSTMLM`` the same way, at phase 42's traffic (its 512
+    requests arriving as its Poisson stream): answers equal, no capture
+    after the warmup, the entry's own cache, no growth.
+53. The batch tier eager and hybridized through ``serve.register(...,
+    background=True)`` and ``warmup_handle.wait()``: BERT-base in bf16
+    at phase 37's requests, and ResNet-50 v1 NHWC in bf16 scoring at
+    B = 32 and 128 (an f32 image cast inside the forward; 6 batches, too
+    few for a throughput: the model call's readings are the measure):
+    answers within ``HYB_BAR`` x max|eager|, no capture after the
+    warmup; requests/s or img/s through the server, and one model call's
+    time, launch calls and busy share.
+54. The verify skill's LeNet drive as written (hybridized: forward and
+    backward captured under ``record()``) and without ``hybridize()``,
+    both from one numpy seed (the shuffle's) and with cuDNN's
+    deterministic algorithms: losses within 1e-6 over the 120 steps;
+    img/s, step p50 and busy share of both.
+
 It prints a ``{"kernels": [...]}`` line, the card line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository beside it, it exits non-zero and prints no result.
@@ -934,6 +973,7 @@ def serve_run(lm, name, n_req, seed, precision=None):
     launches = registry.launches()
     snap = telemetry.snapshot()
     serve.shutdown_decode(120.0)
+    lm.hybridize(False)          # the phase's own references run eagerly
     return dict(prompts=prompts, results=results, wall=wall, warm=warm,
                 launches=launches, snap=snap)
 
@@ -1257,6 +1297,7 @@ def phase_bert(dev, card):
     launches = registry.launches()
     snap = telemetry.snapshot()
     srv.close(120.0)
+    bert.hybridize(False)        # the references below run eagerly
     batches = snap["serve.batches"]["value"]
     n_flash = launches["flash_attention"]
     check(n_flash == 12 * batches,
@@ -2322,10 +2363,12 @@ def phase_ext_drive(dev, card):
           f"torch_ops.py registered {sorted(ops)}")
     out = train_eager(xavier_init(ext_lenet(dev), 0), dev, EXT_LR,
                       "extension block")
-    want = {k: out["steps"] for k in EXT_KERNELS}
+    # train_eager hybridizes the block: its first step runs eagerly, the
+    # second warms (one real launch of each kernel), captures and replays
+    want = {k: out["steps"] + 1 for k in EXT_KERNELS}
     check(out["launches"] == want,
           f"extension drive launches {out['launches']}, want 1 of each "
-          f"{EXT_KERNELS} a step ({want})")
+          f"{EXT_KERNELS} a step, and one in the warm run ({want})")
     # one step on the card and on the CPU from the same seed, on the first
     # held-out batch
     xs, ys = mnist_arrays(False, LENET["batch"])
@@ -4107,6 +4150,7 @@ def short_serve(lm, name, want, precision=None):
     launches = registry.launches()
     snap = telemetry.snapshot()
     serve.shutdown_decode(120.0)
+    lm.hybridize(False)
     steps = snap["serve.decode_step_seconds"]["count"]
     prefills = snap["serve.prefill_seconds"]["count"]
     others = {k: v for k, v in launches.items()
@@ -4267,6 +4311,7 @@ def phase_bert_bf16(dev, card, f32):
     snap = telemetry.snapshot()
     srv.close(120.0)
     serve.unregister("bert16")
+    bert.hybridize(False)        # the references below run eagerly
     batches = snap["serve.batches"]["value"]
     n_flash = launches["flash_attention.bf16"]
     check(n_flash == 12 * batches, f"flash_attention.bf16 launches {n_flash} "
@@ -4414,7 +4459,7 @@ def timer_total(name):
     return telemetry.snapshot().get(name, {}).get("total", 0.0)
 
 
-def lenet_drive(num_workers, pin_memory, card, **loader):
+def lenet_drive(num_workers, pin_memory, card, hybridize=True, **loader):
     """The verify skill's canonical drive with ``import mxnet_tpu_torch
     as mx``: seed 42,
     ``DataLoader(MNIST(train=True).transform_first(ToTensor()),
@@ -4442,7 +4487,7 @@ def lenet_drive(num_workers, pin_memory, card, **loader):
                      batch_size=LENET_DRIVE["val_batch"],
                      num_workers=num_workers, pin_memory=pin_memory, **loader)
     net = mx.gluon.model_zoo.get_model('lenet')
-    net.initialize(mx.init.Xavier()); net.hybridize()
+    net.initialize(mx.init.Xavier()); net.hybridize(hybridize)
     loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
     trainer = mx.gluon.Trainer(net.collect_params(), 'sgd',
                                {'learning_rate': 0.05, 'momentum': 0.9})
@@ -4506,8 +4551,8 @@ def lenet_drive(num_workers, pin_memory, card, **loader):
                wall_ms_per_step=wall * 1e3 / steps,
                loader_wait_share=wait / wall, loader_wait_s=wait,
                accuracy=float(value), val_images=acc.num_inst,
-               loss_first=vals[0], loss_last=vals[-1],
-               busy_share=prof["busy_share"],
+               loss_first=vals[0], loss_last=vals[-1], losses=vals,
+               hybridized=hybridize, busy_share=prof["busy_share"],
                launches_per_step=prof["launches"],
                device_busy_ms_per_step=prof["device_busy_ms"])
     print(f"  num_workers={num_workers}, pin_memory={pin_memory}: MNIST "
@@ -4883,9 +4928,10 @@ def phase_lstm_serve(dev, card):
     truncated = [f.truncated for f in futs]
     pending = np.zeros(entry.slots, np.int64)
     lens = np.zeros(entry.slots, np.int64)
-    cache = lm.begin_cache(entry.slots)
+    cache = entry.batch_cache(entry.capacity_buckets[0])    # captured
     prof = profile_steps(lambda: entry.step(pending, cache, lens), 5)
     serve.shutdown_decode(120.0)
+    lm.hybridize(False)          # the eager loop below runs eagerly
     check(all(len(r) == n_new for r in results) and not any(truncated),
           "a request resolved short of max_new_tokens or truncated")
     grows = snap.get("serve.cache_grows", {"value": 0})["value"]
@@ -5468,6 +5514,515 @@ def phase_arena_sgd(dev, ssd_params):
     return out
 
 
+# ------------------------------------- hybridize(): CUDA-graph capture (A9)
+HYB_BAR = 1e-6          # captured vs eager, x max|eager| (bits expected)
+HYB_DECODE = dict(f32=16, bf16=16, int8=16)    # phase 4's requests
+HYB_INFER = dict(batches=6)         # B x 6 requests stay under the queue bound
+
+
+def profile_calls(fn, n):
+    """``fn`` run ``n`` times under ``torch.profiler``: device kernels a
+    call, the host's launch calls a call (``cudaLaunchKernel``,
+    ``cudaLaunchKernelExC``, ``cuLaunchKernel``, ``cudaGraphLaunch``) and
+    the device busy share of the window."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, kernels, calls, graphs = 0.0, 0, 0, 0
+    for evt in prof.key_averages():
+        us = next((float(getattr(evt, k)) for k in (
+            "self_device_time_total", "self_cuda_time_total")
+            if hasattr(evt, k)), 0.0)
+        if us > 0 and "CUDA" in str(getattr(evt, "device_type", "")):
+            busy_us += us
+            kernels += evt.count
+        elif evt.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                         "cuLaunchKernel", "cuLaunchKernelEx",
+                         "cudaGraphLaunch"):
+            calls += evt.count
+            graphs += evt.count if evt.key == "cudaGraphLaunch" else 0
+    return dict(kernels=kernels / n, launch_calls=calls / n,
+                graph_launches=graphs / n,
+                busy_share=busy_us / 1e3 / window_ms,
+                ms_per_call=window_ms / n)
+
+
+def hyb_dist(got, want):
+    """max |got - want| / max |want| over matching tensors (0 when equal)."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        scale = float(w.detach().float().abs().max()) or 1.0
+        worst = max(worst, float((g.detach().float() - w.detach().float())
+                                 .abs().max()) / scale)
+    return worst
+
+
+def phase_hybrid_block(dev, card):
+    """Phase 50: a HybridSequential (Dense, BatchNorm, Dropout, Dense) and
+    a 2-layer BERT at 256 units (the flash-attention kernel), each eager
+    and hybridized in one process, in inference and under record()."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import MXNetError, autograd, telemetry
+    from mxnet_tpu_torch.gluon import HybridBlock, nn
+    from mxnet_tpu_torch.gluon.model_zoo import get_bert
+    from mxnet_tpu_torch.kernels import registry
+
+    def seq():
+        return xavier_init(nn.HybridSequential().add(
+            nn.Dense(1024, activation="relu", in_units=256, device=dev),
+            nn.BatchNorm(in_channels=1024, device=dev), nn.Dropout(0.1),
+            nn.Dense(256, in_units=1024, device=dev)), 0)
+
+    def bert():
+        return xavier_init(get_bert(num_layers=2, units=256, hidden_size=1024,
+                                    num_heads=4, vocab_size=1000,
+                                    max_length=128, dropout=0.1,
+                                    device=dev), 0)
+
+    rs = np.random.RandomState(50)
+    inputs = {
+        "seq": (torch.as_tensor(rs.rand(128, 256), dtype=torch.float32,
+                                device=dev),),
+        "bert": (torch.as_tensor(rs.randint(0, 1000, (16, 128)), device=dev),
+                 torch.zeros(16, 128, dtype=torch.int32, device=dev),
+                 torch.as_tensor(rs.randint(32, 129, 16), dtype=torch.int32,
+                                 device=dev))}
+    telemetry.set_enabled(True)
+    rows = {}
+    for name, make in (("seq", seq), ("bert", bert)):
+        eager, hyb = make(), make()
+        hyb.load_state_dict(eager.state_dict())
+        hyb.hybridize()
+        args = inputs[name]
+        for mode in ("infer", "record"):
+            telemetry.reset()
+            dist, launches = 0.0, []
+            for step in range(5):
+                res = []
+                for net in (eager, hyb):
+                    mx.random.seed(500 + step)   # the same dropout masks
+                    registry.reset_launches()
+                    if mode == "infer":
+                        with torch.no_grad():
+                            out = net(*args)
+                        res.append([out] if torch.is_tensor(out)
+                                   else list(out))
+                    else:
+                        net.zero_grad()
+                        with autograd.record():
+                            out = net(*args)
+                            outs = [out] if torch.is_tensor(out) else list(out)
+                            loss = sum((o.float() ** 2).mean() for o in outs)
+                        loss.backward()
+                        res.append([o.detach() for o in outs] +
+                                   [p.grad.clone() for p in net.parameters()
+                                    if p.grad is not None])
+                    launches.append({k: v for k, v in
+                                     registry.launches().items() if v})
+                if step >= 2:                    # captured replays
+                    dist = max(dist, hyb_dist(res[1], res[0]))
+                    check(launches[-1] == launches[-2],
+                          f"phase 50 {name} {mode}: launches on replay "
+                          f"{launches[-1]} != eager {launches[-2]}")
+            snap = telemetry.snapshot()
+            miss = snap["hybridize.cache_misses"]["value"]
+            hits = snap["hybridize.cache_hits"]["value"]
+            check(dist <= HYB_BAR, f"phase 50 {name} {mode}: captured vs "
+                  f"eager {dist:.3e} > {HYB_BAR} x max|eager|")
+            # inference: the eager first call, the capture, 3 replays;
+            # record: the capture, 4 replays
+            want_hits = 3 if mode == "infer" else 4
+            check(miss == 1 and hits == want_hits, f"phase 50 {name} "
+                  f"{mode}: {miss} misses, {hits} hits for one signature")
+            rows[f"{name}_{mode}"] = dict(max_rel_dist=dist, misses=miss,
+                                          hits=hits, launches=launches[-1])
+            print(f"  {name} {mode}: captured vs eager {dist:.3e} x "
+                  f"max|eager| (bar {HYB_BAR}), {miss} miss, {hits} hits, "
+                  f"launches a call {launches[-1]} both")
+        # an update in place is read without a capture
+        telemetry.reset()
+        with torch.no_grad():
+            for net in (eager, hyb):
+                for p in net.parameters():
+                    p.mul_(0.5)
+            got, want = hyb(*args), eager(*args)
+        got = [got] if torch.is_tensor(got) else list(got)
+        want = [want] if torch.is_tensor(want) else list(want)
+        d = hyb_dist(got, want)
+        check(d <= HYB_BAR and telemetry.snapshot().get(
+            "hybridize.cache_misses", {}).get("value", 0) == 0,
+            f"phase 50 {name}: an update in place: {d:.3e}, misses "
+            f"{telemetry.snapshot().get('hybridize.cache_misses')}")
+        rows[f"{name}_in_place"] = d
+        if name == "seq":
+            # two replays in training draw different masks, so give
+            # different outputs (BatchNorm's batch statistics do not
+            # depend on the mask, which follows it)
+            outs = []
+            for _ in range(2):
+                with autograd.record():
+                    outs.append(hyb(*args).detach().clone())
+            check(not torch.equal(outs[0], outs[1]), "phase 50: two "
+                  "replays drew the same dropout mask")
+            # load_parameters(cast_dtype=True): one new capture
+            path = "build/smoke_hyb.params"
+            os.makedirs("build", exist_ok=True)
+            eager.cast("float16").save_parameters(path)
+            telemetry.reset()
+            with torch.no_grad():
+                hyb.load_parameters(path, cast_dtype=True)
+                eager.load_parameters(path, cast_dtype=True)
+                x16 = args[0].half()
+                d16 = hyb_dist([hyb(x16)], [eager(x16)])
+                hyb(x16)
+            os.remove(path)
+            n = telemetry.snapshot()["hybridize.cache_misses"]["value"]
+            check(n == 1 and d16 <= 1e-3, f"phase 50: load_parameters("
+                  f"cast_dtype=True) gave {n} captures, {d16:.3e} off")
+            rows["cast_recaptures"] = n
+    class Reads(HybridBlock):
+        def forward(self, x):
+            return x * float(x.sum().item())
+
+    net = Reads()
+    net.hybridize()
+    x = torch.ones(8, device=dev)
+    net(x)
+    raised = ""
+    try:
+        net(x)
+    except MXNetError as err:
+        raised = str(err)
+    check("cannot be captured" in raised and
+          not torch.cuda.is_current_stream_capturing(),
+          f"phase 50: a forward calling .item() did not raise: {raised!r}")
+    print(f"phase 50 hybridized blocks: every replay within {HYB_BAR} x "
+          f"max|eager| of the eager block, launches equal, an update in "
+          f"place read without a capture, cast_dtype load one capture, "
+          f"dropout masks differ between replays, .item() raises "
+          f"MXNetError [{card}]")
+    rows["item_raises"] = raised[:120]
+    return rows
+
+
+def hyb_serve(lm, name, prompts, hybridize, cfg=None, precision=None,
+              arrivals=None):
+    """Serve ``prompts`` greedily through ``serve.register_decode``, the
+    entry's blocks hybridized or (with ``hybridize`` False) turned back
+    to eager before its warmup: all queued before the worker admits any
+    (so admission and growth do not depend on timing), or submitted at
+    ``arrivals`` (seconds from the start).  Returns tokens, timings,
+    counters, whether the server ended on the entry's own batch cache,
+    and a profiled step at the last capacity."""
+    from mxnet_tpu_torch import serve, telemetry
+
+    cfg = cfg or SERVE_CFG
+    telemetry.set_enabled(True)
+    telemetry.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    entry = serve.register_decode(name, lm, precision=precision,
+                                  warmup=False, **cfg)
+    if not hybridize:
+        for blk in entry.blocks:
+            blk.hybridize(False)
+    entry.warmup()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() - m0
+    peak = torch.cuda.max_memory_allocated() - m0
+    snap = telemetry.snapshot()
+    capture_s = snap.get("hybridize.compile_seconds", {}).get("total", 0.0)
+    graphs = snap.get("hybridize.cache_misses", {}).get("value", 0)
+    telemetry.reset()
+    srv = serve.decode_server(name)
+    t0 = time.perf_counter()
+    if arrivals is None:
+        with srv._cv:
+            futs = [srv.submit(p) for p in prompts]
+    else:
+        futs = []
+        for p, at in zip(prompts, arrivals):
+            lag = t0 + at - time.perf_counter()
+            if lag > 0:
+                time.sleep(lag)
+            futs.append(srv.submit(p))
+    results = [f.result(600.0) for f in futs]
+    wall = time.perf_counter() - t0
+    snap = telemetry.snapshot()
+    last = entry.batch_cache(entry.capacity_buckets[srv._cap_i])
+    own = all(a.data_ptr() == b.data_ptr() for a, b in zip(
+        [x for layer in srv._cache for x in layer],
+        [x for layer in last for x in layer]))
+    cap = entry.capacity_buckets[0 if entry.capacity_static else -1]
+    cache = entry.batch_cache(cap)
+    pending = np.zeros(entry.slots, np.int64)
+    lens = np.full(entry.slots, cap // 2, np.int64)
+    prof = profile_calls(lambda: entry.step(pending, cache, lens), 5)
+    serve.shutdown_decode(120.0)
+    lm.hybridize(False)
+    tokens = sum(len(r) for r in results)
+    return dict(results=results, tokens_per_s=tokens / wall,
+                step_p50_ms=snap["serve.decode_step_seconds"]["p50"] * 1e3,
+                warm_s=warm, capture_s=capture_s, graphs=graphs,
+                held_mib=held / 2 ** 20, peak_mib=peak / 2 ** 20,
+                misses=snap.get("hybridize.cache_misses",
+                                {}).get("value", 0),
+                own_cache=own,
+                grows=snap.get("serve.cache_grows", {}).get("value", 0),
+                step_profile=prof)
+
+
+def hyb_compare(label, eager, hyb, card):
+    same = eager["results"] == hyb["results"]
+    check(same, f"{label}: captured answers differ from the eager server's")
+    check(hyb["misses"] == 0, f"{label}: {hyb['misses']} captures after "
+          "warmup")
+    check(hyb["own_cache"], f"{label}: the server ended on another batch "
+          "cache than the entry's own")
+    e, h = eager["step_profile"], hyb["step_profile"]
+    print(f"  {label}: answers equal token for token; eager "
+          f"{eager['tokens_per_s']:.1f} tokens/s, step p50 "
+          f"{eager['step_p50_ms']:.3f} ms, a step {e['kernels']:.0f} kernels "
+          f"/ {e['launch_calls']:.0f} launch calls, busy {e['busy_share']:.4f}"
+          f"; captured {hyb['tokens_per_s']:.1f} tokens/s, step p50 "
+          f"{hyb['step_p50_ms']:.3f} ms, a step {h['kernels']:.0f} kernels / "
+          f"{h['launch_calls']:.0f} launch calls ({h['graph_launches']:.0f} "
+          f"graph), busy {h['busy_share']:.4f}; {hyb['graphs']} graphs "
+          f"captured in {hyb['capture_s']:.2f} s (warmup {hyb['warm_s']:.2f}"
+          f" s), graphs and buffers hold {hyb['held_mib']:.1f} MiB, peak "
+          f"{hyb['peak_mib']:.1f} MiB; ended on the entry's own cache "
+          f"(no donated-cache copy), growths {hyb['grows']} [{card}]")
+    out = {k: {kk: vv for kk, vv in r.items() if kk != "results"}
+           for k, r in (("eager", eager), ("captured", hyb))}
+    out["equal"] = same
+    return out
+
+
+def phase_hybrid_decode(dev, card):
+    """Phase 51: GPT-2 small served eager and hybridized (f32, bf16 and
+    int8 caches), the same greedy requests, in one process."""
+    from mxnet_tpu_torch.gluon.model_zoo import transformer_lm
+
+    rows = {}
+    for variant, n in HYB_DECODE.items():
+        dt = torch.bfloat16 if variant == "bf16" else torch.float32
+        lm = xavier_init(transformer_lm(device=dev, dtype=dt, **GPT2_SMALL), 0)
+        if variant == "bf16":
+            lm.cast(dt)
+        rs = np.random.RandomState(51)
+        lengths = rs.randint(16, 257, size=n)
+        lengths[0] = 256             # 256 + 64 tokens outgrow C = 256
+        prompts = [rs.randint(0, GPT2_SMALL["vocab_size"], size=k).tolist()
+                   for k in lengths]
+        prec = "int8" if variant == "int8" else None
+        eager = hyb_serve(lm, f"e_{variant}", prompts, False, precision=prec)
+        hyb = hyb_serve(lm, f"h_{variant}", prompts, True, precision=prec)
+        rows[variant] = hyb_compare(f"GPT-2 small {variant}", eager, hyb,
+                                    card)
+        del lm
+        torch.cuda.empty_cache()
+    print(f"phase 51 GPT-2 small decode hybridized: answers equal the eager "
+          f"server's in " + ", ".join(rows) + "; captured / eager tokens/s "
+          + ", ".join(f"{k} {r['captured']['tokens_per_s']:.1f} / "
+                      f"{r['eager']['tokens_per_s']:.1f}"
+                      for k, r in rows.items()) + f" [{card}]")
+    return rows
+
+
+def phase_hybrid_lstm(dev, card):
+    """Phase 52: phase 42's LSTMLM served eager and hybridized."""
+    from mxnet_tpu_torch.gluon.model_zoo import LSTMLM
+
+    lm = xavier_init(LSTMLM(vocab_size=LSTM_LM["vocab"],
+                            units=LSTM_LM["hidden"],
+                            num_layers=LSTM_LM["layers"]), 0)
+    prompts, arrivals = lstm_traffic(np.random.RandomState(52))
+    eager = hyb_serve(lm, "lstm_e", prompts, False, cfg=LSTM_SERVE,
+                      arrivals=arrivals)
+    hyb = hyb_serve(lm, "lstm_h", prompts, True, cfg=LSTM_SERVE,
+                    arrivals=arrivals)
+    check(hyb["grows"] == 0, f"phase 52: {hyb['grows']} growths")
+    row = hyb_compare("LSTMLM", eager, hyb, card)
+    print(f"phase 52 LSTMLM served hybridized at phase 42's traffic: "
+          f"{len(prompts)} answers equal the eager server's; "
+          f"{row['captured']['tokens_per_s']:.1f} vs "
+          f"{row['eager']['tokens_per_s']:.1f} tokens/s; no cache copy in "
+          f"steady state [{card}]")
+    return row
+
+
+def scorer(net):
+    """ResNet-50 in bf16 behind the batch tier: the request's f32 image
+    cast to bf16 inside the forward (numpy has no bf16), the scores
+    back in f32."""
+    from mxnet_tpu_torch.gluon import HybridBlock
+
+    class Bf16Scorer(HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.net = net
+
+        def forward(self, x):
+            return self.net(x.to(torch.bfloat16)).float()
+
+    return Bf16Scorer()
+
+
+def hyb_batch(name, block, bucketer, sample, reqs, max_batch, hybridize):
+    from mxnet_tpu_torch import serve, telemetry
+
+    telemetry.set_enabled(True)
+    telemetry.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    entry = serve.register(name, block, bucketer=bucketer, sample=sample,
+                           warmup=hybridize, background=hybridize)
+    if hybridize:
+        entry.warmup_handle.wait(900)
+    else:
+        block.hybridize(False)
+        entry.warm()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    capture_s = telemetry.snapshot().get("hybridize.compile_seconds",
+                                         {}).get("total", 0.0)
+    telemetry.reset()
+    srv = serve.Server(max_wait_ms=5, max_batch=max_batch)
+    t0 = time.perf_counter()
+    outs = [f.result(600.0) for f in [srv.submit(name, *r) for r in reqs]]
+    wall = time.perf_counter() - t0
+    snap = telemetry.snapshot()
+    srv.close(120.0)
+    batch, _, _ = entry.pad_requests(reqs[:max_batch])
+    dev_batch = tuple(torch.as_tensor(l, device=entry.device) for l in batch)
+
+    def call():
+        with torch.inference_mode():
+            block(*dev_batch)
+
+    call()
+    prof = profile_calls(call, 5)
+    serve.unregister(name)
+    block.hybridize(False)
+    return outs, dict(per_s=len(reqs) / wall, warm_s=warm,
+                      capture_s=capture_s,
+                      misses=snap.get("hybridize.cache_misses",
+                                      {}).get("value", 0),
+                      batches=snap["serve.batches"]["value"],
+                      model_call=prof)
+
+
+def phase_hybrid_batch(dev, card):
+    """Phase 53: the batch tier eager and hybridized (registered with
+    ``background=True``, then ``warmup_handle.wait()``): BERT-base in
+    bf16 at phase 37's requests, and ResNet-50 bf16 scoring at B = 32 and
+    128."""
+    from mxnet_tpu_torch.gluon.model_zoo import bert_12_768_12
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+
+    rows = {}
+    bert = xavier_init(bert_12_768_12(dropout=0.0, device=dev, **BERT_BASE),
+                       0).cast(torch.bfloat16)
+    reqs = bert_requests(BERT_REQUESTS, seed=53)
+    sample = (np.zeros(32, np.int32), np.zeros(32, np.int32),
+              np.asarray(32, np.int32))
+    runs = {}
+    for hyb in (False, True):
+        runs[hyb] = hyb_batch(f"bert_{hyb}", bert, BERT_BUCKETS, sample, reqs,
+                              16, hyb)
+    dist = max(hyb_dist([torch.from_numpy(np.asarray(x)) for x in g],
+                        [torch.from_numpy(np.asarray(x)) for x in w])
+               for g, w in zip(runs[True][0], runs[False][0]))
+    check(dist <= HYB_BAR and runs[True][1]["misses"] == 0,
+          f"phase 53 BERT bf16: captured vs eager {dist:.3e}, misses "
+          f"{runs[True][1]['misses']}")
+    rows["bert_bf16"] = dict(eager=runs[False][1], captured=runs[True][1],
+                             max_rel_dist=dist)
+    del bert
+    torch.cuda.empty_cache()
+    net = xavier_init(get_model("resnet50_v1", layout="NHWC", device=dev),
+                      0).cast(torch.bfloat16)
+    block = scorer(net)
+    for b in INFER_BATCHES:
+        imgs = np.random.RandomState(0).rand(
+            b * HYB_INFER["batches"], 224, 224, 3).astype(np.float32)
+        reqs = [(x,) for x in imgs]
+        runs = {}
+        for hyb in (False, True):
+            runs[hyb] = hyb_batch(f"resnet_{b}_{hyb}", block, {0: [b]},
+                                  np.zeros((224, 224, 3), np.float32), reqs,
+                                  b, hyb)
+        dist = max(hyb_dist([torch.from_numpy(g)], [torch.from_numpy(w)])
+                   for g, w in zip(runs[True][0], runs[False][0]))
+        check(dist <= HYB_BAR and runs[True][1]["misses"] == 0,
+              f"phase 53 ResNet-50 B={b}: captured vs eager {dist:.3e}, "
+              f"misses {runs[True][1]['misses']}")
+        rows[f"resnet50_bf16_b{b}"] = dict(
+            eager=runs[False][1], captured=runs[True][1], max_rel_dist=dist)
+        del imgs, reqs
+    for k, r in rows.items():
+        e, h = r["eager"], r["captured"]
+        unit = "requests/s" if k.startswith("bert") else "img/s"
+        print(f"  {k}: captured vs eager {r['max_rel_dist']:.3e} x max|eager|"
+              f" (bar {HYB_BAR}); through the server {h['per_s']:.1f} vs "
+              f"{e['per_s']:.1f} {unit}; one model call "
+              f"{h['model_call']['ms_per_call']:.3f} vs "
+              f"{e['model_call']['ms_per_call']:.3f} ms, busy "
+              f"{h['model_call']['busy_share']:.4f} vs "
+              f"{e['model_call']['busy_share']:.4f}, launch calls "
+              f"{h['model_call']['launch_calls']:.0f} vs "
+              f"{e['model_call']['launch_calls']:.0f}; {h['misses']} misses "
+              f"after the background warmup (captured in "
+              f"{h['capture_s']:.2f} s) [{card}]")
+    print(f"phase 53 batch tier hybridized: BERT-base bf16 and ResNet-50 "
+          f"bf16 at B={INFER_BATCHES} equal eager within {HYB_BAR} [{card}]")
+    return rows
+
+
+def phase_hybrid_lenet(dev, card):
+    """Phase 54: the verify skill's drive as written (hybridized: forward
+    and backward captured under ``record()``) against the same drive
+    without ``hybridize()``, same seed and batches, both with cuDNN's
+    deterministic algorithms (its default backward sums in no fixed
+    order): the loss trajectory within 1e-6."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # the shuffle draws from numpy's global state (as the JAX
+        # sampler does): one seed before each drive gives one batch order
+        np.random.seed(54)
+        eager = lenet_drive(0, False, card, hybridize=False)
+        np.random.seed(54)
+        hyb = lenet_drive(0, False, card)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    worst = max(abs(a - b) for a, b in zip(hyb["losses"], eager["losses"]))
+    check(worst <= 1e-6, f"phase 54: hybridized drive's losses leave the "
+          f"eager drive's by {worst:.3e} > 1e-6")
+    print(f"phase 54 the LeNet drive hybridized vs eager (cuDNN "
+          f"deterministic): losses within {worst:.3e} over "
+          f"{len(eager['losses'])} steps (bar 1e-6); {hyb['img_per_s']:.1f} "
+          f"vs {eager['img_per_s']:.1f} img/s, step p50 "
+          f"{hyb['step_p50_ms']:.3f} vs {eager['step_p50_ms']:.3f} ms, busy "
+          f"share {hyb['busy_share']:.4f} vs {eager['busy_share']:.4f}, "
+          f"device kernels a step {hyb['launches_per_step']:.1f} vs "
+          f"{eager['launches_per_step']:.1f} [{card}]")
+    return dict(max_loss_dist=worst,
+                **{k: {kk: vv for kk, vv in r.items() if kk != "losses"}
+                   for k, r in (("eager", eager), ("captured", hyb))})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -5538,6 +6093,11 @@ def main() -> int:
     ssd_drive = phase_ssd_drive(dev, card)
     losses = phase_losses(dev)
     arena_sgd = phase_arena_sgd(dev, ssd_train["parameters"])
+    hyb_block = phase_hybrid_block(dev, card)
+    hyb_decode = phase_hybrid_decode(dev, card)
+    hyb_lstm = phase_hybrid_lstm(dev, card)
+    hyb_batch = phase_hybrid_batch(dev, card)
+    hyb_lenet = phase_hybrid_lenet(dev, card)
     launches = {"flash_attention_decode": f32["launches"],
                 "flash_attention_decode_int8": i8["launches"]}
     kernels = []
@@ -5801,6 +6361,11 @@ def main() -> int:
                                 "ssd_resnet50": ssd_train,
                                 "ssd_card_vs_cpu": ssd_cpu,
                                 "ssd_drive": ssd_drive},
+                      "hybridize": {"block": hyb_block,
+                                    "decode": hyb_decode,
+                                    "lstm_lm": hyb_lstm,
+                                    "batch": hyb_batch,
+                                    "lenet_drive": hyb_lenet},
                       "detections": ssd_dets, "box_ops_card_vs_cpu": boxes,
                       "losses_card_vs_cpu": losses,
                       "rnn_ops_card_vs_cpu": rnn_ops,

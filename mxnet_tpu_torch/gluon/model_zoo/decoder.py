@@ -26,8 +26,10 @@ meet a 16-bit cache and the logits are f32; ``Block.cast`` makes every
 parameter 16-bit but keeps the cache the constructor's type (an f32
 cache under 16-bit queries, 16-bit logits); both together give a model,
 cache and logits all in 16 bits.  Mixed operands promote as jnp does.
-* ``cache_len`` — (B,) valid cache length per row BEFORE the call, read
-  on the host.  Query ``i`` sees cache positions ``<= cache_len + i``,
+* ``cache_len`` — (B,) valid cache length per row BEFORE the call, a
+  host array or a tensor; it is moved to the model's device and never
+  read back, so the call can be captured as a CUDA graph.  Query ``i``
+  sees cache positions ``<= cache_len + i``,
   so padded garbage past a row's true length is never attended.
 * ``n_tokens``  — (B,) how many of the T tokens are real; the transformer
   needs no gating (masking is positional), so it is accepted and unused.
@@ -66,6 +68,14 @@ __all__ = ["CausalSelfAttentionCell", "TransformerDecoderCell",
            "TransformerLM", "LSTMLM", "transformer_lm", "lstm_lm"]
 
 
+def _on_device(x, dtype, device):
+    """A host array or a tensor as a tensor on ``device`` (of ``dtype``
+    when given); a tensor already there is not copied."""
+    if not torch.is_tensor(x):
+        x = torch.as_tensor(np.asarray(x))
+    return x.to(device=device, dtype=dtype if dtype is not None else x.dtype)
+
+
 class CausalSelfAttentionCell(HybridBlock):
     """Self-attention against the KV cache: fused QKV projection, append
     of the new keys/values at ``cache_len``, then decode attention through
@@ -84,7 +94,7 @@ class CausalSelfAttentionCell(HybridBlock):
         self.proj = Dense(units, flatten=False, in_units=units, device=device,
                           dtype=dtype)
 
-    def forward(self, x, layer_cache, lens, lens_dev):
+    def forward(self, x, layer_cache, lens):
         b, t = x.shape[0], x.shape[1]
         h, dh = self._num_heads, self._head_dim
 
@@ -100,13 +110,13 @@ class CausalSelfAttentionCell(HybridBlock):
             vq, vs = _att.quantize_kv(v)
             for dst, src in ((k_q, kq), (k_s, ks), (v_q, vq), (v_s, vs)):
                 _att.cache_append(dst, src, lens)
-            out = _att.flash_attention_decode(q, k_q, v_q, lens_dev,
+            out = _att.flash_attention_decode(q, k_q, v_q, lens,
                                               k_scale=k_s, v_scale=v_s)
         else:
             k_c, v_c = layer_cache
             _att.cache_append(k_c, k, lens)
             _att.cache_append(v_c, v, lens)
-            out = _att.flash_attention_decode(q, k_c, v_c, lens_dev)
+            out = _att.flash_attention_decode(q, k_c, v_c, lens)
         return self.proj(out.transpose(1, 2).reshape(b, t, self._units))
 
 
@@ -126,8 +136,8 @@ class TransformerDecoderCell(HybridBlock):
         self.ln_ffn = LayerNorm(epsilon=layer_norm_eps, in_channels=units,
                                 device=device, dtype=dtype)
 
-    def forward(self, x, layer_cache, lens, lens_dev):
-        x = x + self.attention(self.ln_att(x), layer_cache, lens, lens_dev)
+    def forward(self, x, layer_cache, lens):
+        x = x + self.attention(self.ln_att(x), layer_cache, lens)
         return x + self.ffn(self.ln_ffn(x))
 
 
@@ -194,20 +204,18 @@ class TransformerLM(HybridBlock):
     @torch.no_grad()
     def forward(self, tokens, cache, cache_len, n_tokens=None):
         dev = self.device
-        tokens = torch.as_tensor(np.asarray(tokens) if not torch.is_tensor(tokens)
-                                 else tokens, dtype=torch.long, device=dev)
-        lens = [int(x) for x in np.asarray(
-            cache_len.cpu() if torch.is_tensor(cache_len) else cache_len
-        ).reshape(-1)]
+        tokens = _on_device(tokens, torch.long, dev)
+        # the lengths stay on the card: nothing here reads them back, so
+        # a step and a prefill each capture as one CUDA graph
+        lens = _on_device(cache_len, torch.int32, dev).reshape(-1)
         t = tokens.shape[1]
-        lens_dev = torch.tensor(lens, dtype=torch.int32, device=dev)
         # absolute position = cache_len + local offset; the clip keeps
         # padded garbage rows inside the table (their outputs are unread)
-        pos = (lens_dev[:, None].long() + torch.arange(t, device=dev)
+        pos = (lens[:, None].long() + torch.arange(t, device=dev)
                ).clamp_(0, self._max_length - 1)
         x = self.word_embed(tokens) + self.position_weight[pos]
         for cell, layer_cache in zip(self.layers, cache):
-            x = cell(x, layer_cache, lens, lens_dev)
+            x = cell(x, layer_cache, lens)
         logits = _ops.fully_connected(self.ln_f(x), self.word_embed.weight,
                                       self.out_bias, flatten=False)
         return logits, cache
@@ -250,12 +258,9 @@ class LSTMLM(HybridBlock):
 
     def forward(self, tokens, cache, cache_len, n_tokens):
         dev = self.device
-        tokens = torch.as_tensor(np.asarray(tokens) if not torch.is_tensor(tokens)
-                                 else tokens, dtype=torch.long, device=dev)
+        tokens = _on_device(tokens, torch.long, dev)
         t = tokens.shape[1]
-        n_tokens = torch.as_tensor(np.asarray(n_tokens)
-                                   if not torch.is_tensor(n_tokens)
-                                   else n_tokens, device=dev).reshape(-1, 1)
+        n_tokens = _on_device(n_tokens, None, dev).reshape(-1, 1)
         emb = self.word_embed(tokens)                       # (B, T, U)
         states = [list(pair) for pair in cache]
         outs = []

@@ -208,7 +208,10 @@ def _check_dev(op: str, x2d):
 
 # (device index, stream) -> (tickets, partials): the stats kernel's
 # workspace, kept so that a call allocates only its outputs.  Its tickets
-# are zeroed once, and each launch leaves them at 0.
+# are zeroed once, and each launch leaves them at 0.  A hybridized block
+# captures on a stream of its own, and its warm run there makes that
+# stream's workspace before the capture, so no allocation or memset lands
+# inside a graph; graphs of one block share it and replay in turn.
 _WORKSPACE = {}
 
 

@@ -4,6 +4,11 @@ Each hand-written kernel has one name here and one plain-integer launch
 count.  A kernel's wrapper adds one to its count where it launches the
 kernel and nowhere else, so a run can show that its main path went
 through the kernel (``reset_launches()`` before, ``launches()`` after).
+A launch recorded into a CUDA graph (``HybridBlock.hybridize()``) runs
+nothing when it is recorded: a launch on a stream under :func:`recording`
+goes to that stream's recorder instead (from any thread: a captured
+backward runs on autograd's worker thread), and each replay of the graph
+adds the recorded counts with :func:`count_launches`.
 
 There is no mode switch and no silent fallback: a wrapper given CPU
 tensors runs the kernel's plain PyTorch version, a wrapper given CUDA
@@ -11,13 +16,14 @@ tensors launches the kernel or raises.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Dict, Tuple
 
 from ..base import MXNetError
 
-__all__ = ["KERNELS", "count_launch", "launches", "reset_launches",
-           "check_tensors"]
+__all__ = ["KERNELS", "count_launch", "count_launches", "recording",
+           "launches", "reset_launches", "check_tensors"]
 
 # name -> (CUDA source under mxnet_tpu_torch/csrc, the TPU kernel it replaces)
 KERNELS: Dict[str, Tuple[str, str]] = {
@@ -80,15 +86,56 @@ KERNELS: Dict[str, Tuple[str, str]] = {
 
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 _LOCK = threading.Lock()
+# capture stream (its CUDA handle) -> the launches recorded on it
+_RECORDERS: Dict[int, Dict[str, int]] = {}
 
 
 def count_launch(name: str):
-    """Add one launch of kernel ``name``; called by its wrapper only."""
+    """Add one launch of kernel ``name``; called by its wrapper only,
+    after it launched on the current stream.  On a stream under
+    :func:`recording` the launch goes to its recorder, not to the
+    counts."""
     if name not in _LAUNCHES:
         raise MXNetError(f"unknown kernel {name!r}; registry has "
                          f"{sorted(KERNELS)}")
+    if _RECORDERS:
+        import torch
+
+        rec = _RECORDERS.get(torch.cuda.current_stream().cuda_stream)
+        if rec is not None:
+            with _LOCK:
+                rec[name] = rec.get(name, 0) + 1
+            return
     with _LOCK:
         _LAUNCHES[name] += 1
+
+
+def count_launches(counts: Dict[str, int]):
+    """Add ``counts`` (kernel name -> launches), as one replay of a CUDA
+    graph launches them."""
+    with _LOCK:
+        for name, n in counts.items():
+            _LAUNCHES[name] += n
+
+
+@contextlib.contextmanager
+def recording(stream):
+    """Collect the launches on ``stream`` (a ``torch.cuda.Stream``) into
+    the yielded dict instead of the counts: a CUDA graph's capture, whose
+    kernels run only when the graph is replayed."""
+    key = stream.cuda_stream
+    counts: Dict[str, int] = {}
+    with _LOCK:
+        prev = _RECORDERS.get(key)
+        _RECORDERS[key] = counts
+    try:
+        yield counts
+    finally:
+        with _LOCK:
+            if prev is None:
+                del _RECORDERS[key]
+            else:
+                _RECORDERS[key] = prev
 
 
 def launches() -> Dict[str, int]:

@@ -25,6 +25,7 @@ import ctypes
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..base import MXNetError
@@ -284,29 +285,35 @@ def cache_append(cache, new, lengths):
     (B, H, C, d) at each row's offset ``lengths`` (B,):
     ``cache[b, :, lengths[b]:lengths[b]+T] = new[b]``.
 
-    Updates ``cache`` IN PLACE (slice assignment) and returns it: this
-    takes the place of the JAX package's buffer donation, so a decode step
-    never holds an old and a new cache at once.  Rows whose window would
-    pass the capacity raise; grow the cache to the next capacity bucket
-    first.  ``lengths`` is read on the host (a list, numpy array or
-    tensor)."""
-    lens = [int(x) for x in torch.as_tensor(lengths).reshape(-1).tolist()]
+    Updates ``cache`` IN PLACE and returns it: this takes the place of
+    the JAX package's buffer donation, so a decode step never holds an
+    old and a new cache at once.  ``lengths`` as a tensor stays where it
+    is: one scatter at ``lengths[:, None] + arange(T)``, with the start
+    clamped into ``[0, C - T]`` as the JAX ``dynamic_update_slice``
+    clamps it, and no read back to the host (so a CUDA graph can hold
+    it); grow the cache to the next capacity bucket before a window
+    would pass it.  ``lengths`` given on the host (a list or a numpy
+    array) is checked first: a window past the capacity raises."""
     b, t, cap = cache.shape[0], new.shape[2], cache.shape[2]
-    if len(lens) != b:
-        raise MXNetError(f"cache_append: {len(lens)} lengths for {b} "
+    if not torch.is_tensor(lengths):
+        lens = [int(x) for x in np.asarray(lengths).reshape(-1)]
+        if len(lens) != b:
+            raise MXNetError(f"cache_append: {len(lens)} lengths for {b} "
+                             "cache rows")
+        if any(x < 0 or x + t > cap for x in lens):
+            raise MXNetError(f"cache_append: window of {t} at offsets "
+                             f"{lens} passes capacity {cap}; grow the cache "
+                             "first")
+        lengths = torch.tensor(lens, device=cache.device)
+    start = lengths.to(device=cache.device, dtype=torch.long).reshape(-1)
+    if start.shape[0] != b:
+        raise MXNetError(f"cache_append: {start.shape[0]} lengths for {b} "
                          "cache rows")
-    if any(x < 0 or x + t > cap for x in lens):
-        raise MXNetError(f"cache_append: window of {t} at offsets {lens} "
-                         f"passes capacity {cap}; grow the cache first")
-    new = new.to(cache.dtype)
-    if len(set(lens)) == 1:
-        cache[:, :, lens[0]:lens[0] + t] = new
-    else:
-        # one scatter for all rows: cache[r, :, lens[r] + i] = new[r, :, i]
-        pos = torch.tensor(lens, device=cache.device)[:, None] \
-            + torch.arange(t, device=cache.device)
-        rows = torch.arange(b, device=cache.device)[:, None]
-        cache[rows, :, pos] = new.transpose(1, 2)
+    start = start.clamp(0, max(cap - t, 0))
+    # one scatter for all rows: cache[r, :, start[r] + i] = new[r, :, i]
+    pos = start[:, None] + torch.arange(t, device=cache.device)
+    rows = torch.arange(b, device=cache.device)[:, None]
+    cache[rows, :, pos] = new.to(cache.dtype).transpose(1, 2)
     return cache
 
 
@@ -330,29 +337,40 @@ def dequantize_kv(q, scale, dtype=torch.float32):
 
 
 def cache_page_copy(dst, src, n_pages: int, *, src_start: int = 0,
-                    dst_start: int = 0, dst_row: int = 0):
+                    dst_start: int = 0, dst_row=0):
     """Copy ``n_pages`` consecutive capacity-axis rows of ``src``
     (B_s, H, C_s, dh), from ``src_start``, into ``dst`` (B_d, H, C_d, dh)
     at row ``dst_row`` and position ``dst_start``.
 
-    Updates ``dst`` IN PLACE (slice assignment) and returns it, in place
-    of the JAX package's donated ``dynamic_update_slice``.  A window that
-    does not fit either tensor raises."""
+    Updates ``dst`` IN PLACE and returns it, in place of the JAX
+    package's donated ``dynamic_update_slice``.  ``dst_row`` may be a
+    tensor on ``dst``'s device (the JAX op's traced slot): it is not read
+    back, and is clamped into ``[0, B_d - B_s]`` as the JAX op clamps it,
+    so one CUDA graph serves every slot.  A window that does not fit
+    either tensor raises."""
     if dst.ndim != 4 or src.ndim != 4:
         raise ValueError(
             f"cache_page_copy moves (B, H, C, dh) page layouts, got "
             f"dst.ndim={dst.ndim}, src.ndim={src.ndim}")
     n = int(n_pages)
     bs = src.shape[0]
+    row_ok = torch.is_tensor(dst_row) or \
+        (0 <= dst_row and dst_row + bs <= dst.shape[0])
     if (src_start < 0 or src_start + n > src.shape[2] or dst_start < 0
-            or dst_start + n > dst.shape[2] or dst_row < 0
-            or dst_row + bs > dst.shape[0]):
+            or dst_start + n > dst.shape[2] or bs > dst.shape[0]
+            or not row_ok):
         raise MXNetError(
             f"cache_page_copy window (rows {dst_row}+{bs}, pages {n} from "
             f"{src_start} to {dst_start}) does not fit src {tuple(src.shape)} "
             f"/ dst {tuple(dst.shape)}")
-    dst[dst_row:dst_row + bs, :, dst_start:dst_start + n] = \
-        src[:, :, src_start:src_start + n].to(dst.dtype)
+    pages = src[:, :, src_start:src_start + n].to(dst.dtype)
+    if not torch.is_tensor(dst_row):
+        dst[dst_row:dst_row + bs, :, dst_start:dst_start + n] = pages
+        return dst
+    row = dst_row.to(device=dst.device, dtype=torch.long).reshape(-1)[:1]
+    rows = row.clamp(0, dst.shape[0] - bs) + \
+        torch.arange(bs, device=dst.device)
+    dst[:, :, dst_start:dst_start + n].index_copy_(0, rows, pages)
     return dst
 
 

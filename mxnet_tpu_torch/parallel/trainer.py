@@ -101,6 +101,7 @@ from .. import random as _random
 from .. import telemetry as _tel
 from ..base import MXNetError, get_env
 from ..engine import BoundedInflight
+from ..gluon.block import eager_calls
 from ..kernels import opt_arena as _oa
 
 __all__ = ["ShardedTrainer", "all_finite"]
@@ -595,17 +596,22 @@ class ShardedTrainer:
         the net on copies of its floating parameters and buffers (and of
         the floating inputs) cast to ``compute_dtype``.  The buffers'
         copies are kept, with their version counters, for
-        :meth:`_carry_buffers`."""
-        if self.compute_dtype is None:
-            return self.net(*xs)
-        dt = self.compute_dtype
-        swap = {n: _cast(t, dt) for n, t in self.net.named_parameters()}
-        self._buffer_copies = []
-        for n, b in self.net.named_buffers():
-            swap[n] = _cast(b, dt)
-            if swap[n] is not b:
-                self._buffer_copies.append((b, swap[n], swap[n]._version))
-        return torch.func.functional_call(self.net, swap, _cast(xs, dt))
+        :meth:`_carry_buffers`.  A hybridized net runs eagerly here: the
+        step is a program of its own (the JAX trainer jits the whole
+        step), and the 16-bit copies are new tensors every step."""
+        with eager_calls():
+            if self.compute_dtype is None:
+                return self.net(*xs)
+            dt = self.compute_dtype
+            swap = {n: _cast(t, dt) for n, t in self.net.named_parameters()}
+            self._buffer_copies = []
+            for n, b in self.net.named_buffers():
+                swap[n] = _cast(b, dt)
+                if swap[n] is not b:
+                    self._buffer_copies.append((b, swap[n],
+                                                swap[n]._version))
+            return torch.func.functional_call(self.net, swap,
+                                              _cast(xs, dt))
 
     def _carry_buffers(self):
         """Write every buffer copy that the 16-bit forward wrote in place

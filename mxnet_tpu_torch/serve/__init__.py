@@ -60,11 +60,14 @@ def default_server() -> Server:
 
 
 def register(name: str, block, bucketer=None, sample=None,
-             warmup: bool = True, precision=None) -> ModelEntry:
-    """Register ``block`` under ``name`` in the default registry and warm
-    its bucket grid (see :meth:`Registry.register`)."""
+             warmup: bool = True, background: bool = False,
+             precision=None) -> ModelEntry:
+    """Register ``block`` under ``name`` in the default registry and
+    capture its bucket grid, on a thread of its own with
+    ``background=True`` (see :meth:`Registry.register`)."""
     return default_registry().register(name, block, bucketer=bucketer,
                                        sample=sample, warmup=warmup,
+                                       background=background,
                                        precision=precision)
 
 

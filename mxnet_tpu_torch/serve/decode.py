@@ -17,11 +17,13 @@ granularity over a fixed set of cache *slots*:
     never grows and never truncates a row.
 
 Prefill and every decode step run the model's attention through the
-hand-written decode kernel on the card (``ops.attention``).  The cache
-is updated in place, so a step never holds two copies of it.  Warmup
-runs one prefill per prompt bucket and one step per capacity bucket: it
-builds the kernel library and warms PyTorch's caching allocator (there
-is no compiled-executable grid to fill, as the JAX package has).
+hand-written decode kernel on the card (``ops.attention``).  The entry
+hybridizes the LM's forward with its cache donated, and a
+:class:`_CacheMover` and a :class:`_CacheGrower`, and its warmup captures
+the JAX package's grid (``DecodeEntry.warmup``): on the card each step,
+prefill, move and growth is then one CUDA-graph replay.  The lengths stay
+on the card, and the step graph reads and writes the entry's batch cache
+in place, so a step neither reads back nor copies the cache.
 
 Sampling runs on the host between steps: greedy (``temperature=0``) or
 temperature/top-k with one ``torch.Generator`` per request, deterministic
@@ -49,6 +51,7 @@ import torch
 
 from .. import telemetry as _tel
 from ..base import MXNetError, get_env
+from ..gluon.block import HybridBlock, _clone_tree
 from ..jit.bucketing import _Policy
 from ..ops import attention as _att
 from ..parallel import layout as _layout
@@ -79,32 +82,63 @@ def _quant_bytes_saved(cache) -> int:
                else -leaf.numel() * leaf.element_size() for leaf in leaves)
 
 
-def move_rows(batch_cache, row_cache, slot: int):
-    """Copy a one-row cache into row ``slot`` of the batch cache, in place:
-    a (B, H, C, dh) page leaf moves the page window that both capacities
-    hold (``parallel.layout.intersect_box`` on axis 2, through
-    ``ops.attention.cache_page_copy``); any other leaf (the LSTM's
-    (B, U) state) is spliced as a whole row."""
-    for b_layer, r_layer in zip(batch_cache, row_cache):
-        for b, r in zip(b_layer, r_layer):
-            if r.ndim == 4:
-                win = _layout.intersect_box(((0, r.shape[2]),),
-                                            ((0, b.shape[2]),))
-                _att.cache_page_copy(b, r, win[0][1] - win[0][0],
-                                     dst_row=slot)
-            else:
-                b[slot:slot + r.shape[0]] = r.to(b.dtype)
-    return batch_cache
+class _DecodeStep(HybridBlock):
+    """The LM's forward as a block of the entry's own, hybridized with
+    the cache donated (position 1): its graphs belong to this entry and
+    are keyed on this entry's buffers, so a second entry over the same
+    LM (a re-registration while the old server drains) captures its own
+    and leaves these alone."""
+
+    def __init__(self, lm):
+        super().__init__()
+        self.lm = lm
+
+    def forward(self, tokens, cache, cache_len, n_tokens):
+        return self.lm(tokens, cache, cache_len, n_tokens)
 
 
-def grow_cache(cache, capacity: int):
-    """Zero-extend every leaf's capacity axis (axis 2) to ``capacity``."""
-    def grow(leaf):
-        out = leaf.new_zeros(leaf.shape[:2] + (capacity,) + leaf.shape[3:])
-        out[:, :, :leaf.shape[2]] = leaf
-        return out
+class _CacheMover(HybridBlock):
+    """Copy a one-row cache into the batch cache at a slot given as a
+    tensor on the card (the JAX ``_CacheMover``'s traced slot), so one
+    captured graph serves every slot.  A (B, H, C, dh) page leaf moves
+    the page window both capacities hold
+    (``parallel.layout.intersect_box`` on axis 2, through
+    ``ops.attention.cache_page_copy``); any other leaf (the LSTM's (B, U)
+    state) is spliced as a whole row.  Hybridized with the batch cache
+    donated (position 0): it is updated in place and returned."""
 
-    return tuple(tuple(grow(leaf) for leaf in layer) for layer in cache)
+    def forward(self, batch_cache, row_cache, slot):
+        for b_layer, r_layer in zip(batch_cache, row_cache):
+            for b, r in zip(b_layer, r_layer):
+                if r.ndim == 4:
+                    win = _layout.intersect_box(((0, r.shape[2]),),
+                                                ((0, b.shape[2]),))
+                    _att.cache_page_copy(b, r, win[0][1] - win[0][0],
+                                         dst_row=slot)
+                else:
+                    row = slot.reshape(-1)[:1].long().clamp(
+                        0, b.shape[0] - r.shape[0])
+                    rows = row + torch.arange(r.shape[0], device=b.device)
+                    b.index_copy_(0, rows, r.to(b.dtype))
+        return batch_cache
+
+
+class _CacheGrower(HybridBlock):
+    """Zero-extend every cache leaf's capacity axis (axis 2): the cache
+    is copied into ``target``, a cache of the next capacity bucket, and
+    the rest of ``target`` is zeroed.  The JAX ``_CacheGrower`` returns a
+    new cache of the target's shape; here the target is the entry's
+    buffer of that capacity (donated, position 1), which the next decode
+    step's graph reads in place, so growth is the one copy of the batch
+    cache."""
+
+    def forward(self, cache, target):
+        for layer, t_layer in zip(cache, target):
+            for leaf, t in zip(layer, t_layer):
+                c = leaf.shape[2]
+                t[:, :, :c] = leaf
+                t[:, :, c:] = 0
+        return target
 
 
 class _DecodeRequest:
@@ -206,7 +240,8 @@ class DecodeFuture:
 
 
 class DecodeEntry:
-    """One registered decode model: the LM, its bucket grids and warmup.
+    """One registered decode model: the LM, its bucket grids, the cache
+    buffers and the captured grid.
 
     ``block`` follows the decode contract of
     ``gluon/model_zoo/decoder.py``: ``begin_cache(batch, capacity)`` and
@@ -215,7 +250,18 @@ class DecodeEntry:
     per-position scales.  :attr:`capacity_static` says whether the
     cache's shape ignores the capacity (found by probing
     ``begin_cache(1, 1)`` against ``begin_cache(1, 2)``, as the JAX
-    entry does)."""
+    entry does).
+
+    The entry hybridizes the LM's forward (:attr:`lm_step`, a
+    :class:`_DecodeStep` of its own) with its cache donated, and a
+    :class:`_CacheMover` and a :class:`_CacheGrower` beside it, as the
+    JAX entry hybridizes the LM and those two (``hybridize(False)`` on
+    :attr:`blocks` runs them eagerly, with ``warmup()`` after it).  It
+    keeps one batch cache for each capacity bucket and one row cache
+    for each (prompt bucket, capacity) pair: each is the donated buffer
+    of its graphs, so a decode loop that rebinds to what a step returns
+    passes the graph the same buffer and copies no cache; growth copies
+    it once, into the next capacity's buffer."""
 
     def __init__(self, name: str, block, *, slots: int = 4,
                  prompt_buckets: Sequence[int] = (8, 16, 32),
@@ -260,43 +306,132 @@ class DecodeEntry:
         shapes = [[tuple(leaf.shape) for layer in block.begin_cache(1, c)
                    for leaf in layer] for c in (1, 2)]
         self.capacity_static = shapes[0] == shapes[1]
+        self.device = getattr(block, "device", None) or \
+            next(block.parameters()).device
+        # the buffers are made at first use, by the warmup or by the
+        # server's worker, which may run beside a later warmup() call
+        self._batch: Dict[int, tuple] = {}
+        self._rows: Dict[tuple, tuple] = {}
+        self._buf_lock = threading.Lock()
+        self._ones = torch.ones(self.slots, dtype=torch.int64,
+                                device=self.device)
+        self._slot_ids = torch.arange(self.slots, dtype=torch.int64,
+                                      device=self.device)
+        self.lm_step = _DecodeStep(block)
+        self.mover = _CacheMover()
+        self.grower = _CacheGrower()
+        self.lm_step.hybridize(donate_args=(1,))
+        self.mover.hybridize(donate_args=(0,))
+        self.grower.hybridize(donate_args=(1,))
         if warmup:
             self.warmup()
 
+    @property
+    def blocks(self) -> tuple:
+        """The entry's three hybridized blocks: the LM's step, the mover
+        and the grower."""
+        return (self.lm_step, self.mover, self.grower)
+
+    # ---------------------------------------------------------- buffers
+    def batch_cache(self, capacity: int):
+        """The entry's batch cache of ``capacity`` (made at first use)."""
+        with self._buf_lock:
+            cache = self._batch.get(capacity)
+            if cache is None:
+                cache = self._batch[capacity] = \
+                    self.block.begin_cache(self.slots, capacity)
+        return cache
+
+    def row_cache(self, prompt_bucket: int, capacity: int):
+        """The entry's one-row cache for a prompt bucket at ``capacity``."""
+        key = (prompt_bucket, capacity)
+        with self._buf_lock:
+            cache = self._rows.get(key)
+            if cache is None:
+                cache = self._rows[key] = self.block.begin_cache(1, capacity)
+        return cache
+
+    @staticmethod
+    def zero_cache(cache):
+        with torch.no_grad():
+            torch._foreach_zero_([leaf for layer in cache for leaf in layer])
+        return cache
+
+    # ---------------------------------------------------------- warmup
     def warmup(self) -> int:
-        """One prefill per prompt bucket (at the smallest capacity that
-        holds it) and one full-batch step per capacity bucket (the first
-        only, for a capacity-static cache): builds the kernel library and
-        warms the allocator.  Returns the number of forwards run."""
-        n = 0
-        for tp in self.prompt_buckets:
-            cap = self.capacity_policy.bucket(tp)
-            self.prefill(np.zeros((1, tp), np.int64), tp, cap)
-            n += 1
+        """Capture the JAX entry's grid (``mxnet_tpu/serve/decode.py:
+        414-446``): a prefill for each (prompt bucket <= capacity) pair
+        and a step for each capacity (the first only, for a
+        capacity-static cache); a move for each (destination, source)
+        capacity pair; a growth for each consecutive pair.  Without
+        hybridization it runs each once eagerly (kernel builds, the
+        allocator).  It writes to none of the entry's buffers, so it may
+        run beside the entry's server.  Returns the number of new
+        captures (or forwards)."""
+        s = self.slots
         caps = self.capacity_buckets[:1] if self.capacity_static \
             else self.capacity_buckets
-        for cap in caps:
-            self.step(np.zeros(self.slots, np.int64),
-                      self.block.begin_cache(self.slots, cap),
-                      np.zeros(self.slots, np.int64))
-            n += 1
+        lm = []
+        for c in caps:
+            for tp in self.prompt_buckets:
+                if tp <= c:
+                    lm.append((np.zeros((1, tp), np.int64),
+                               self.row_cache(tp, c), np.zeros(1, np.int64),
+                               np.ones(1, np.int64)))
+            lm.append((np.zeros((s, 1), np.int64), self.batch_cache(c),
+                       np.zeros(s, np.int64), self._ones))
+        slot = self._slot_ids[:1]
+        movers = [(self.batch_cache(cd), self.block.begin_cache(1, cs), slot)
+                  for cd in caps for cs in caps]
+        growers = [(self.batch_cache(lo), self.batch_cache(hi))
+                   for lo, hi in zip(caps, caps[1:])]
+        n = 0
+        for blk, samples in zip(self.blocks, (lm, movers, growers)):
+            if not samples:
+                continue
+            if blk._active:
+                n += blk.warmup(samples)
+                continue
+            with torch.no_grad():
+                for sample in samples:
+                    # on copies: the buffers may be a running server's
+                    blk(*_clone_tree(sample))
+                    n += 1
         return n
 
+    # ------------------------------------------------------- execution
     def prefill(self, tokens: np.ndarray, true_len: int, capacity: int):
         """One-row prompt forward from an empty cache: ``(last_logits (V,)
-        numpy, row_cache)``; ``tokens`` is already padded to a bucket."""
-        cache = self.block.begin_cache(1, capacity)
+        numpy, row_cache)``; ``tokens`` is already padded to a bucket,
+        the row cache is the entry's for that (bucket, capacity)."""
+        cache = self.zero_cache(self.row_cache(tokens.shape[1], capacity))
         with torch.no_grad():           # serving keeps no autograd graph
-            logits, cache = self.block(tokens, cache, [0], [true_len])
+            logits, cache = self.lm_step(tokens, cache,
+                                         np.zeros(1, np.int64),
+                                         np.full(1, true_len, np.int64))
         return logits[0, true_len - 1].float().cpu().numpy(), cache
 
     def step(self, pending: np.ndarray, cache, lens: np.ndarray):
         """One decode step for the whole slot batch: ``(logits (S, V)
         numpy, cache)``."""
         with torch.no_grad():
-            logits, cache = self.block(pending.reshape(self.slots, 1), cache,
-                                       lens, np.ones(self.slots, np.int64))
+            logits, cache = self.lm_step(
+                pending.reshape(self.slots, 1).astype(np.int64), cache,
+                lens.astype(np.int64), self._ones)
         return logits[:, 0, :].float().cpu().numpy(), cache
+
+    def move(self, cache, row_cache, slot: int):
+        """Copy ``row_cache`` into batch ``slot``; returns the batch
+        cache."""
+        with torch.no_grad():
+            return self.mover(cache, row_cache,
+                              self._slot_ids[slot:slot + 1])
+
+    def grow(self, cache, capacity: int):
+        """The batch cache zero-extended into the entry's buffer of
+        ``capacity``."""
+        with torch.no_grad():
+            return self.grower(cache, self.batch_cache(capacity))
 
 
 class DecodeServer:
@@ -405,7 +540,7 @@ class DecodeServer:
 
     def _loop(self):
         e = self.entry
-        self._cache = e.block.begin_cache(e.slots, e.capacity_buckets[0])
+        self._cache = e.zero_cache(e.batch_cache(e.capacity_buckets[0]))
         _tel.set_gauge("serve.cache_quant_bytes_saved",
                        _quant_bytes_saved(self._cache))
         while True:
@@ -475,7 +610,7 @@ class DecodeServer:
                 or req.max_new_tokens <= 1:
             self._resolve(req)
             return
-        self._cache = move_rows(self._cache, row_cache, slot)
+        self._cache = e.move(self._cache, row_cache, slot)
         self._lens[slot] = t
         self._pending[slot] = first
         self._active[slot] = req
@@ -502,8 +637,7 @@ class DecodeServer:
 
     def _grow(self):
         e = self.entry
-        self._cache = grow_cache(self._cache,
-                                 e.capacity_buckets[self._cap_i + 1])
+        self._cache = e.grow(self._cache, e.capacity_buckets[self._cap_i + 1])
         self._cap_i += 1
         _tel.inc("serve.cache_grows")
         _tel.set_gauge("serve.cache_quant_bytes_saved",
@@ -541,8 +675,8 @@ class DecodeServer:
         self._lens[:] = 0
         self._pending[:] = 0
         self._cap_i = 0
-        self._cache = self.entry.block.begin_cache(
-            self.entry.slots, self.entry.capacity_buckets[0])
+        self._cache = self.entry.zero_cache(
+            self.entry.batch_cache(self.entry.capacity_buckets[0]))
         _tel.set_gauge("serve.decode_slots_active", 0)
 
     def _reap(self):

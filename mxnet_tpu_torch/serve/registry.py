@@ -1,12 +1,14 @@
 """Multi-model registry — the model half of the batch tier.
 
 The port of ``mxnet_tpu/serve/registry.py``.  A :class:`ModelEntry`
-binds one ``nn.Module`` to the :class:`~mxnet_tpu_torch.jit.ShapeBucketer`
-that bounds the batch shapes it sees, and warms the FULL bucket grid at
-registration (one forward per shape of ``bucketer.expand``), so the
-first real request pays no kernel build, cuBLAS set-up or allocator
-growth.  PyTorch runs eagerly, so there is no executable to compile: the
-warm forward is what stands in for the JAX package's AOT compile.
+binds one block to the :class:`~mxnet_tpu_torch.jit.ShapeBucketer` that
+bounds the batch shapes it sees, hybridizes it with that bucketer, and
+captures the FULL bucket grid at registration (``warm``: one CUDA graph
+per shape of ``bucketer.expand``; on the CPU the grid's signatures are
+recorded and each forward runs eagerly), so the first real request pays
+no capture, kernel build or cuBLAS set-up.  ``warm(background=True)``
+captures on a thread of its own while the dispatcher serves, as the JAX
+entry compiles; the dispatcher replays the graphs.
 
 The entry also owns the model-shaped halves of the data path: request
 normalization, batch -> device placement, the device -> host copy, and
@@ -116,35 +118,61 @@ class ModelEntry:
         self.device = getattr(block, "device", None) or \
             next(block.parameters()).device
         self.max_rows: Optional[int] = bucketer.axis_bound(0)
+        # the grid's new captures (shapes run, unhybridized): ``warmed``,
+        # and ``compiled`` as the JAX entry names it
         self.warmed: Optional[int] = None
+        self.compiled: Optional[int] = None
+        self.warmup_handle = None
+        # attach the bucketer at the hybridize seam unless it already is
+        # (a torch module that is no HybridBlock runs eagerly)
+        if hasattr(block, "hybridize") and (
+                not getattr(block, "_active", False) or
+                getattr(block, "_bucketer", None) is not bucketer):
+            block.hybridize(bucketer=bucketer)
 
     # -- warmup -----------------------------------------------------------
-    def warm(self) -> int:
-        """Run the model once on every shape of the bucket grid
-        (``bucketer.expand`` of the padded sample), on zeros of each
-        leaf's dtype, and wait for each.  Returns the number of shapes."""
+    def warm(self, background: bool = False):
+        """Capture the full bucket grid (inference mode; ``bucketer.expand``
+        of the padded sample).  Returns the number of new captures, or a
+        :class:`~mxnet_tpu_torch.gluon.block.WarmupHandle` when
+        ``background=True`` (kept on ``warmup_handle`` too).  A block
+        that is not hybridized runs once on every shape instead."""
         if self.sample is None:
             raise MXNetError(
                 f"serve.register({self.name!r}): warmup needs a sample "
                 "request (pass sample=..., or warmup=False)")
         batch, _mask, _slices = self.bucketer.pad_requests(
             [self.sample], with_mask=False)
-        leaves = batch if isinstance(batch, tuple) else (batch,)
-        ref = max(leaves, key=lambda l: l.ndim).shape
+        args = batch if isinstance(batch, tuple) else (batch,)
+        if getattr(self.block, "_active", False):
+            with torch.inference_mode():
+                res = self.block.warmup(tuple(args), train_mode=False,
+                                        background=background)
+            if background:
+                self.warmup_handle = res
+                return res
+            self.warmed = self.compiled = res
+            return res
+        ref = max(args, key=lambda l: l.ndim).shape
         n = 0
         for shape in self.bucketer.expand(ref):
-            args = []
-            for leaf in leaves:
+            grid = []
+            for leaf in args:
                 sh = list(leaf.shape)
                 for a in self.bucketer.spec:
                     if a < len(sh):
                         sh[a] = shape[a]
-                args.append(np.zeros(sh, leaf.dtype))
-            self.to_host(self(tuple(args) if isinstance(batch, tuple)
-                              else args[0]))
+                grid.append(np.zeros(sh, leaf.dtype))
+            self.to_host(self(tuple(grid) if isinstance(batch, tuple)
+                              else grid[0]))
             n += 1
-        self.warmed = n
+        self.warmed = self.compiled = n
         return n
+
+    def warmup_done(self) -> bool:
+        """True when no background warmup is still capturing (a
+        synchronous or skipped warmup counts as done)."""
+        return self.warmup_handle is None or self.warmup_handle.done()
 
     # -- data path --------------------------------------------------------
     def validate(self, req):
@@ -252,10 +280,13 @@ class Registry:
         self._entries: Dict[str, ModelEntry] = {}
 
     def register(self, name: str, block, bucketer=None, sample=None,
-                 warmup: bool = True, lint_budget=None,
-                 precision=None) -> ModelEntry:
+                 warmup: bool = True, background: bool = False,
+                 lint_budget=None, precision=None) -> ModelEntry:
         """Register (or replace) a model.  ``warmup=True`` (default)
-        runs the full bucket grid before the entry goes live.
+        captures the full bucket grid before the entry goes live;
+        ``background=True`` captures it on a thread of its own (call
+        ``entry.warmup_handle.wait()`` before traffic where the
+        no-capture guarantee matters).
         ``precision="int8"`` (post-training quantization) and
         ``lint_budget`` (the graph lint) are not ported yet and raise."""
         if precision is not None:
@@ -269,7 +300,7 @@ class Registry:
                 "lint of analysis/, not ported yet (ROADMAP A6)")
         entry = ModelEntry(name, block, bucketer, sample)
         if warmup:
-            entry.warm()
+            entry.warm(background=background)
         with self._lock:
             self._entries[name] = entry
             n = len(self._entries)

@@ -7,7 +7,12 @@ metric names — the decode tier ticks ``serve.tokens``,
 ``serve.ttft_seconds``, ``serve.decode_slots_active`` and friends; the
 batch tier ``serve.batches``, ``serve.rows``, ``serve.padded_rows``,
 ``serve.batch_occupancy``, ``serve.dispatch_seconds``,
-``serve.sync_seconds`` and ``serve.e2e_seconds``.
+``serve.sync_seconds`` and ``serve.e2e_seconds``; a hybridized block
+``hybridize.cache_hits``, ``hybridize.cache_misses``,
+``hybridize.compile_seconds`` (here the seconds of a warm run and a
+CUDA-graph capture), ``hybridize.warmup_compiles``,
+``hybridize.retrace_warnings``, ``hybridize.shape_churn_warnings``
+and ``jit.warmup_seconds``.
 Every call site guards on the module flag ``_ENABLED``
 (``MXNET_TELEMETRY=0`` disables).  Timer percentiles come from a
 bounded reservoir of the most recent samples.

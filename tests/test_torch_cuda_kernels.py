@@ -14,7 +14,12 @@ same code on the CPU; and so the detection slice's PyTorch code (``-k
 (masks, classes, indices and NMS fill equal; floats within 1e-6 x
 max|ref|), every loss with its gradients (within 1e-5 x max|ref|), the
 tiny SSD's forward, targets, detections and gradients and
-``ssd_512_resnet50_v1`` built with no device (within 1e-4).
+``ssd_512_resnet50_v1`` built with no device (within 1e-4).  And
+``hybridize()`` (``-k hybridize``): captured CUDA graphs against the eager
+blocks (every zoo model the serving tiers and the verify drive run, SSD
+and its detections; outputs and gradients within 1e-6), launch counts on
+replay, the raise on a host read, a background warmup racing a
+dispatcher, the batch-norm workspace made by the warm run.
 
 These tests need a CUDA device and ``nvcc``; they carry the ``cuda``
 marker and skip without a card.  On the card::
@@ -1755,3 +1760,547 @@ def test_ssd_512_builds_on_the_card_by_default(dev):
         got, want = card(x.to(dev)), cpu(x)
     for i, (g, w) in enumerate(zip(got, want)):
         _scaled_close(g.cpu(), w, TOL, f"output {i}")
+
+
+# ------------------------------- hybridize(): CUDA-graph capture and replay
+def _hyb_seq(dev, dropout=0.0, seed=0):
+    from mxnet_tpu_torch.gluon import nn
+
+    net = nn.HybridSequential().add(
+        nn.Dense(32, activation="relu", in_units=16, device=dev),
+        nn.BatchNorm(in_channels=32, device=dev), nn.Dropout(dropout),
+        nn.Dense(8, in_units=32, device=dev))
+    return xavier_init(net, seed)
+
+
+def _twin_hyb(make, dev):
+    """An eager block and a hybridized one with the same state."""
+    eager, hyb = make(dev), make(dev)
+    hyb.load_state_dict(eager.state_dict())
+    hyb.hybridize()
+    return eager, hyb
+
+
+def _hyb_grads(net, x, record):
+    from mxnet_tpu_torch import autograd
+
+    if not record:
+        with torch.no_grad():
+            return [net(x)]
+    with autograd.record():
+        out = net(x)
+        loss = (out * out).sum()
+    autograd.backward(loss)
+    return [out.detach()] + [p.grad.clone() for p in net.parameters()]
+
+
+@pytest.mark.parametrize("record", [False, True], ids=["infer", "record"])
+def test_hybridize_seq_captures_and_matches_eager(dev, record):
+    """HybridSequential(Dense, BatchNorm, Dropout, Dense): inference and
+    autograd.record() replays against the eager block, the BatchNorm
+    running statistics moved inside the graph, misses == signatures."""
+    from mxnet_tpu_torch import telemetry as tel
+
+    eager, hyb = _twin_hyb(_hyb_seq, dev)
+    x = torch.rand(64, 16, generator=torch.Generator().manual_seed(1)).to(dev)
+    tel.set_enabled(True)
+    tel.reset()
+    for step in range(4):                 # the first call runs eagerly
+        want = _hyb_grads(eager, x + step, record)
+        got = _hyb_grads(hyb, x + step, record)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+        eager.zero_grad()
+        hyb.zero_grad()
+    for a, b in zip(eager.buffers(), hyb.buffers()):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+    snap = tel.snapshot()
+    assert snap["hybridize.cache_misses"]["value"] == 1
+    assert snap["hybridize.cache_hits"]["value"] == 2
+    assert len(hyb._cached_op._traced) == 1
+
+
+def _hyb_bert(dev):
+    from mxnet_tpu_torch.gluon.model_zoo import get_bert
+
+    return xavier_init(get_bert(num_layers=2, units=64, hidden_size=128,
+                                num_heads=4, vocab_size=97, max_length=64,
+                                dropout=0.0, device=dev), 3)
+
+
+def test_hybridize_launch_counts_on_replay_equal_eager(dev):
+    eager, hyb = _twin_hyb(_hyb_bert, dev)
+    rs = np.random.RandomState(2)
+    args = (torch.as_tensor(rs.randint(0, 97, (4, 32)), device=dev),
+            torch.zeros(4, 32, dtype=torch.int32, device=dev),
+            torch.as_tensor([32, 17, 5, 30], dtype=torch.int32, device=dev))
+    with torch.no_grad():
+        hyb(*args)
+        hyb(*args)                          # eager first call, then capture
+        counts = []
+        for net in (eager, hyb):
+            registry.reset_launches()
+            for _ in range(3):
+                out = net(*args)
+            counts.append({k: v for k, v in registry.launches().items() if v})
+            torch.testing.assert_close(out[0], eager(*args)[0], atol=1e-6,
+                                       rtol=1e-6)
+    assert counts[0] == counts[1] == {"flash_attention": 6}
+
+
+def test_hybridize_host_read_raises_and_leaves_capture_clean(dev):
+    from mxnet_tpu_torch import MXNetError
+    from mxnet_tpu_torch.gluon import HybridBlock
+
+    class Reads(HybridBlock):
+        def forward(self, x):
+            return x * float(x.sum().item())
+
+    net = Reads()
+    net.hybridize()
+    x = torch.ones(4, device=dev)
+    net(x)                                   # eager: fine
+    for _ in range(2):                       # no fallback, every call
+        with pytest.raises(MXNetError, match="cannot be captured"):
+            net(x)
+    assert not torch.cuda.is_current_stream_capturing()
+    eager, hyb = _twin_hyb(_hyb_seq, dev)    # the next capture works
+    y = torch.rand(8, 16, device=dev)
+    with torch.no_grad():
+        hyb(y)
+        torch.testing.assert_close(hyb(y), eager(y), atol=1e-6, rtol=1e-6)
+
+
+def test_hybridize_dropout_masks_differ_between_replays(dev):
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import nn
+
+    net = xavier_init(nn.HybridSequential().add(
+        nn.Dense(32, in_units=16, device=dev), nn.Dropout(0.5)), 0)
+    net.hybridize()
+    x = torch.ones(64, 16, device=dev)
+    masks = []
+    for _ in range(4):                     # eager, capture, two replays
+        with autograd.record():
+            out = net(x)
+        masks.append((out == 0).clone())
+    assert not torch.equal(masks[2], masks[3])
+    assert 0.4 < float(masks[3].float().mean()) < 0.6
+
+
+def test_hybridize_cast_and_load_cast_dtype_recapture(dev, tmp_path):
+    from mxnet_tpu_torch import telemetry as tel
+
+    eager, hyb = _twin_hyb(_hyb_seq, dev)
+    x = torch.rand(8, 16, device=dev)
+    path = str(tmp_path / "seq.params")
+    eager.cast("float16").save_parameters(path)
+    eager.cast("float32")
+    tel.set_enabled(True)
+    with torch.no_grad():
+        hyb(x)
+        hyb(x)
+        tel.reset()
+        hyb.load_parameters(path, cast_dtype=True)   # rebinds storage
+        got = hyb(x.half())
+        eager.load_parameters(path, cast_dtype=True)
+        want = eager(x.half())
+    assert tel.snapshot()["hybridize.cache_misses"]["value"] == 1
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
+def test_hybridize_sees_storage_rebound_without_a_call_of_the_port(dev):
+    """``p.data = ...`` (as ``amp.convert_hybrid_block`` and the
+    multi-tensor trainer rebind) and a buffer replaced in its module are
+    seen on the next call: one new capture each, outputs equal the eager
+    block's after the same change, the old graphs dropped."""
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch import telemetry as tel
+
+    eager, hyb = _twin_hyb(_hyb_seq, dev)
+    x = torch.rand(8, 16, device=dev)
+    tel.set_enabled(True)
+    with torch.no_grad():
+        hyb(x)
+        hyb(x)
+        tel.reset()
+        for net in (eager, hyb):
+            w = net[0].weight
+            w.data = w.data * 2                  # new storage, same spec
+        torch.testing.assert_close(hyb(x), eager(x), atol=1e-6, rtol=1e-6)
+        for net in (eager, hyb):
+            bn = net[1]
+            bn._buffers["running_mean"] = bn.running_mean + 0.5
+        torch.testing.assert_close(hyb(x), eager(x), atol=1e-6, rtol=1e-6)
+        for net in (eager, hyb):
+            amp.convert_hybrid_block(net, "bfloat16")
+        xb = x.to(torch.bfloat16)
+        torch.testing.assert_close(hyb(xb).float(), eager(xb).float(),
+                                   atol=0, rtol=0)
+        hyb(xb)
+    assert tel.snapshot()["hybridize.cache_misses"]["value"] == 3
+    assert tel.snapshot()["hybridize.cache_hits"]["value"] == 1
+    assert len(hyb._cached_op._graphs) == 1
+
+
+def test_hybridize_cast_of_another_block_leaves_this_ones_graphs(dev):
+    """Each block's signature reads its own tensors: casting (or
+    loading into) another block makes no capture here."""
+    from mxnet_tpu_torch import telemetry as tel
+
+    _, a = _twin_hyb(_hyb_seq, dev)
+    _, b = _twin_hyb(_hyb_seq, dev)
+    x = torch.rand(8, 16, device=dev)
+    tel.set_enabled(True)
+    with torch.no_grad():
+        a(x)
+        a(x)
+        tel.reset()
+        b.cast(torch.bfloat16)
+        a(x)
+    assert tel.snapshot().get("hybridize.cache_misses",
+                              {}).get("value", 0) == 0
+
+
+def test_hybridize_sharded_trainer_bf16_matches_the_unhybridized_net(dev):
+    """A hybridized net under ``ShardedTrainer(compute_dtype=bf16)``
+    trains as the same net unhybridized: the trainer's step runs the
+    forward on its own 16-bit copies, eagerly (losses and weights equal
+    bit for bit over 4 steps)."""
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    def ce(pred, y):
+        return torch.nn.functional.cross_entropy(pred.float(), y)
+
+    eager, hyb = _twin_hyb(lambda d: _hyb_seq(d, dropout=0.0), dev)
+    x = torch.rand(32, 16, generator=torch.Generator().manual_seed(2))
+    y = torch.randint(0, 8, (32,), generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        hyb(x.to(dev))
+        hyb(x.to(dev))                          # a graph captured before
+    runs = []
+    for net in (eager, hyb):
+        tr = ShardedTrainer(net, ce, optimizer="sgd", learning_rate=0.1,
+                            compute_dtype=torch.bfloat16)
+        losses = [float(tr.step(x, y, block=True)) for _ in range(4)]
+        runs.append((losses, [p.detach().clone() for p in net.parameters()]))
+    (le, we), (lh, wh) = runs
+    assert le == lh
+    for a, b in zip(we, wh):
+        assert torch.equal(a, b)
+
+
+def _decode_lm(dev):
+    from mxnet_tpu_torch.gluon.model_zoo import transformer_lm
+
+    return xavier_init(transformer_lm(vocab_size=64, units=64, num_heads=4,
+                                      num_layers=2, max_length=96,
+                                      device=dev), 5)
+
+
+_DECODE_CFG = dict(slots=2, prompt_buckets=(8, 16), capacity_buckets=(32, 64),
+                   max_new_tokens=24)
+
+
+def _decode_prompts(n, seed):
+    rs = np.random.RandomState(seed)
+    return [rs.randint(1, 64, size=k).tolist()
+            for k in rs.randint(3, 17, size=n)]
+
+
+def test_hybridize_donated_buffers_are_keyed_by_address(dev):
+    """Two caches passed alternately to one hybridized LM: each is a
+    signature of its own, neither is copied into the other, and each
+    decodes as the eager LM does on its own cache."""
+    lm = _decode_lm(dev)
+    gen = torch.Generator().manual_seed(6)
+    prompts = [torch.randint(1, 64, (2, 5), generator=gen).to(dev)
+               for _ in range(2)]
+    lens = torch.zeros(2, dtype=torch.int64, device=dev)
+    n = torch.full((2,), 5, dtype=torch.int64, device=dev)
+
+    def run(hybrid):
+        lm.hybridize(hybrid, donate_args=(1,) if hybrid else None)
+        caches = [lm.begin_cache(2, 32), lm.begin_cache(2, 32)]
+        outs = []
+        with torch.no_grad():
+            for step in range(4):
+                for i in (0, 1):
+                    logits, caches[i] = lm(prompts[i], caches[i],
+                                           lens + 5 * step, n)
+                    outs.append(logits.clone())
+        return outs, caches
+
+    want, wc = run(False)
+    got, gc_ = run(True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+    for g, w in zip(_leaves(gc_), _leaves(wc)):
+        torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+    assert len(lm._cached_op._graphs) == 2
+
+
+def _submit_all(srv, prompts, **kw):
+    """Every prompt queued before the worker admits any, so admission
+    and growth do not depend on timing."""
+    with srv._cv:
+        return [srv.submit(p, **kw) for p in prompts]
+
+
+def _serve_alone(dev, prompts):
+    from mxnet_tpu_torch import serve
+
+    entry = serve.DecodeEntry("alone", _decode_lm(dev), **_DECODE_CFG)
+    srv = serve.DecodeServer(entry)
+    try:
+        return [f.result(300.0) for f in _submit_all(srv, prompts)]
+    finally:
+        srv.close(60.0)
+
+
+def test_hybridize_reregistered_decode_model_keeps_the_old_answers(dev):
+    """``serve.register_decode`` of a name whose server still decodes:
+    the new entry captures its own grid over its own buffers while the
+    old server drains, and the old requests' tokens equal those of a
+    server that ran alone; so do the new server's."""
+    from mxnet_tpu_torch import serve
+
+    old_p, new_p = _decode_prompts(8, 11), _decode_prompts(4, 12)
+    want_old, want_new = _serve_alone(dev, old_p), _serve_alone(dev, new_p)
+    lm = _decode_lm(dev)
+    serve.register_decode("re", lm, **_DECODE_CFG)
+    old = _submit_all(serve.decode_server("re"), old_p)
+    serve.register_decode("re", lm, **_DECODE_CFG)
+    new = _submit_all(serve.decode_server("re"), new_p)
+    try:
+        assert [f.result(300.0) for f in old] == want_old
+        assert [f.result(300.0) for f in new] == want_new
+    finally:
+        serve.shutdown_decode(60.0)
+
+
+def test_hybridize_decode_warmup_beside_its_server(dev):
+    """``DecodeEntry.warmup()`` called while the entry's server decodes
+    (here from a request's token sink, on the worker, between a prefill
+    and its move) writes to none of the live caches: every answer
+    equals that of a server that ran alone."""
+    from mxnet_tpu_torch import serve
+
+    prompts = _decode_prompts(4, 13)
+    want = _serve_alone(dev, prompts)
+    entry = serve.DecodeEntry("beside", _decode_lm(dev), **_DECODE_CFG)
+    srv = serve.DecodeServer(entry)
+    fired = []
+
+    def sink(tok):
+        if not fired:
+            fired.append(entry.warmup())
+
+    try:
+        with srv._cv:
+            futs = [srv.submit(p, on_token=sink if i == 1 else None)
+                    for i, p in enumerate(prompts)]
+        got = [f.result(300.0) for f in futs]
+    finally:
+        srv.close(60.0)
+    assert fired == [0] and got == want
+
+
+def _zoo(name, dev):
+    from mxnet_tpu_torch.gluon.model_zoo import get_model, lstm_lm
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+
+    if name == "lenet":
+        return xavier_init(get_model("lenet", device=dev), 0), \
+            (torch.rand(16, 1, 28, 28, device=dev),)
+    if name == "resnet50_nhwc":
+        net = get_resnet(1, 50, layout="NHWC", device=dev)
+        return xavier_init(net, 0), (torch.rand(4, 64, 64, 3, device=dev),)
+    if name == "bert":
+        return _hyb_bert(dev), (
+            torch.randint(0, 97, (2, 32), device=dev),
+            torch.zeros(2, 32, dtype=torch.int32, device=dev),
+            torch.as_tensor([32, 9], dtype=torch.int32, device=dev))
+    if name == "lstm_lm":
+        lm = xavier_init(lstm_lm(vocab_size=50, units=32, num_layers=2,
+                                 device=dev), 0)
+        return lm, (torch.randint(0, 50, (3, 5), device=dev),
+                    lm.begin_cache(3), torch.zeros(3, device=dev),
+                    torch.as_tensor([5, 2, 4], device=dev))
+    from mxnet_tpu_torch.gluon.model_zoo import transformer_lm
+
+    cache_dtype = "int8" if name.endswith("int8") else None
+    dt = {"transformer_lm_bf16": torch.bfloat16,
+          "transformer_lm_f16": torch.float16}.get(name, torch.float32)
+    lm = xavier_init(transformer_lm(vocab_size=64, units=64, num_heads=4,
+                                    num_layers=2, max_length=64,
+                                    cache_dtype=cache_dtype, dtype=dt,
+                                    device=dev), 0)
+    return lm, (torch.randint(0, 64, (2, 7), device=dev),
+                lm.begin_cache(2, 32),
+                torch.as_tensor([0, 3], device=dev),
+                torch.full((2,), 7, device=dev))
+
+
+def _clone_tree(o):
+    if torch.is_tensor(o):
+        return o.clone()
+    if isinstance(o, (tuple, list)):
+        return type(o)(_clone_tree(v) for v in o)
+    return o
+
+
+def _leaves(o):
+    if torch.is_tensor(o):
+        return [o]
+    if isinstance(o, (tuple, list)):
+        return [x for v in o for x in _leaves(v)]
+    return []
+
+
+@pytest.mark.parametrize("name", [
+    "lenet", "resnet50_nhwc", "bert", "lstm_lm", "transformer_lm",
+    "transformer_lm_bf16", "transformer_lm_f16", "transformer_lm_int8"])
+def test_hybridize_zoo_models_capture_and_match_eager(dev, name):
+    """Every zoo model the serving tiers and the verify drive run, captured
+    (the decode LMs with their cache donated) against the eager model on
+    the same inputs: outputs within 1e-6 of max|ref| (bit for bit
+    expected; cuBLAS may choose another algorithm on the capture stream),
+    kernel launches on replay equal the eager ones."""
+    net, args = _zoo(name, dev)
+    decode = name.endswith("lm") or "_lm_" in name
+    # a donated cache is one buffer, given the same values before each
+    # call: its address is part of the signature
+    buf = _clone_tree(args[1]) if decode else None
+
+    def call():
+        if not decode:
+            return net(*_clone_tree(args))
+        for b, a in zip(_leaves(buf), _leaves(args[1])):
+            b.copy_(a)
+        return net(args[0], buf, *args[2:])
+
+    with torch.no_grad():
+        runs = []
+        for hybrid in (False, True):
+            if hybrid:
+                net.hybridize(donate_args=(1,) if decode else None)
+                call()                              # the eager first call
+                call()                              # warm run + capture
+            registry.reset_launches()
+            outs = [call() for _ in range(2)]
+            runs.append((_leaves(outs[-1]), registry.launches()))
+    (want, n_e), (got, n_h) = runs
+    assert n_e == n_h
+    for g, w in zip(got, want):
+        scale = float(w.float().abs().max()) or 1.0
+        assert float((g.float() - w.float()).abs().max()) <= 1e-6 * scale
+    assert len(net._cached_op._traced) == 1
+
+
+def test_hybridize_background_warmup_races_a_dispatcher(dev):
+    """serve.register(background=True): the grid captures on its own
+    thread while the dispatcher already replays (or captures) requests;
+    every answer equals the eager block's."""
+    from mxnet_tpu_torch import serve
+
+    eager, hyb = _twin_hyb(_hyb_bert, dev)
+    hyb.hybridize(False)
+    # buckets that no output width (64) equals: slice_out would cut it
+    buckets = {0: [1, 2, 4, 8], 1: ("pow2", 16, 32)}
+    entry = serve.register("race", hyb, bucketer=buckets, background=True,
+                           sample=(np.zeros(16, np.int32),
+                                   np.zeros(16, np.int32),
+                                   np.asarray(16, np.int32)))
+    rs = np.random.RandomState(4)
+    reqs = []
+    for n in rs.randint(3, 33, size=24):
+        reqs.append((rs.randint(0, 97, n).astype(np.int32),
+                     np.zeros(n, np.int32), np.asarray(n, np.int32)))
+    try:
+        futs = [serve.submit("race", *r) for r in reqs]
+        outs = [f.result(300.0) for f in futs]
+        entry.warmup_handle.wait(300)
+    finally:
+        serve.shutdown()
+        serve.unregister("race")
+    assert entry.warmup_done()
+    for (tok, seg, vl), (seq, pooled) in zip(reqs, outs):
+        with torch.no_grad():
+            ref = eager(torch.as_tensor(tok[None], device=dev),
+                        torch.as_tensor(seg[None], device=dev),
+                        torch.as_tensor(vl[None], device=dev))
+        np.testing.assert_allclose(seq, ref[0][0].cpu().numpy(),
+                                   atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(pooled, ref[1][0].cpu().numpy(),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_hybridize_ssd_records_what_capture_does(dev):
+    """SSD's forward captures (its anchors are made at construction), and
+    so does its ``detections``: NMS's loop runs to ``min(n, topk)``, a
+    bound known from shapes, and reads nothing back.  Both equal eager."""
+    from mxnet_tpu_torch.gluon import HybridBlock
+    from mxnet_tpu_torch.gluon.model_zoo.ssd import detections
+
+    eager = xavier_init(_tiny_ssd(dev), 3)
+    hyb = _tiny_ssd(dev)
+    hyb.load_state_dict(eager.state_dict())
+    hyb.hybridize()
+    x = torch.rand(2, 3, 64, 64, device=dev)
+    with torch.no_grad():
+        hyb(x)
+        got = hyb(x)
+        want = eager(x)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+
+    class Detect(HybridBlock):
+        def forward(self, c, b, a):
+            return detections(c, b, a)
+
+    det = Detect()
+    det.hybridize()
+    with torch.no_grad():
+        det(*want)
+        got = det(*want)
+        ref = detections(*want)
+    assert len(det._cached_op._traced) == 1
+    assert torch.equal(got[..., 0], ref[..., 0])      # classes and fill
+    torch.testing.assert_close(got, ref, atol=1e-6, rtol=1e-6)
+
+
+def test_hybridize_bn_act_workspace_made_by_the_warm_run(dev):
+    """A fused BatchNormReLU (channel-last, training) captured under
+    record(): its statistics kernel's workspace, kept per (device,
+    stream), is made by the warm run on the block's capture stream
+    (never inside the graph), and the replays launch the kernels as
+    often as the eager block, with the same outputs and gradients."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.kernels import bn_act
+
+    def make(where):
+        return xavier_init(nn.BatchNormReLU(axis=-1, in_channels=64,
+                                            device=where), 0)
+
+    eager, hyb = _twin_hyb(make, dev)
+    x = torch.rand(8, 14, 14, 64, device=dev)
+    runs = []
+    for net in (eager, hyb):
+        for _ in range(3):
+            registry.reset_launches()
+            with autograd.record():
+                out = net(x)
+                loss = (out * out).sum()
+            loss.backward()
+        runs.append(([out.detach()] + [p.grad.clone() for p in
+                                       net.parameters()],
+                     {k: v for k, v in registry.launches().items() if v}))
+    (want, n_e), (got, n_h) = runs
+    assert n_e == n_h == {"bn_act_stats": 1, "bn_act_apply": 1}
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+    streams = {cs.cuda_stream for cs in hyb._cached_op._streams.values()}
+    assert streams and all((dev.index, st) in bn_act._WORKSPACE
+                           for st in streams)

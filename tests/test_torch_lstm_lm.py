@@ -34,7 +34,7 @@ from mxnet_tpu_torch.gluon import rnn as trnn
 from mxnet_tpu_torch.gluon.model_zoo import (LSTMLM, TransformerLM,
                                              get_model, lstm_lm)
 from mxnet_tpu_torch.parallel import ShardedTrainer
-from mxnet_tpu_torch.serve.decode import move_rows
+from mxnet_tpu_torch.serve.decode import _CacheMover
 from torch_parity import jax_forward, seeded_params
 
 TINY = dict(vocab_size=48, units=16, num_layers=2)
@@ -144,7 +144,8 @@ def test_capacity_static_warmup_steps_the_first_bucket_only():
     entry = serve.DecodeEntry("x", tlm, slots=2, prompt_buckets=(4, 8),
                               capacity_buckets=(16, 32, 64), warmup=False)
     assert entry.capacity_static
-    assert entry.warmup() == 2 + 1
+    # two prefills and one step at the first capacity, one move there
+    assert entry.warmup() == 2 + 1 + 1
     tf = TransformerLM(vocab_size=16, units=8, num_heads=2, num_layers=1,
                        max_length=32, device="cpu")
     assert not serve.DecodeEntry("t", tf, prompt_buckets=(4,),
@@ -156,6 +157,12 @@ def test_int8_precision_refuses_the_lstm_carrier():
     _, tlm = twin_lstm_lms(seed=6)
     with pytest.raises(MXNetError, match="LSTM carrier"):
         serve.DecodeEntry("x", tlm, precision="int8")
+
+
+def move_rows(batch, row, slot):
+    """The decode entry's move: one eager ``_CacheMover`` forward at a
+    slot given as a tensor."""
+    return _CacheMover().forward(batch, row, torch.tensor([slot]))
 
 
 def test_move_rows_splices_state_rows_and_windows_pages():

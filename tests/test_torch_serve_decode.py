@@ -219,9 +219,14 @@ def test_entry_validation():
     with pytest.raises(MXNetError):
         serve.DecodeEntry("x", object())
     entry = serve.DecodeEntry("x", tlm, prompt_buckets=(4,),
-                              capacity_buckets=(8, 16), precision="int8")
+                              capacity_buckets=(8, 16), precision="int8",
+                              warmup=False)
     assert entry.block.begin_cache(1, 8)[0][0].dtype.is_floating_point is False
-    assert entry.warmup() == 3
+    # the JAX grid: a prefill and a step at each capacity (4), a move for
+    # each (destination, source) capacity pair (4), one growth (1); a
+    # second warmup captures nothing new
+    assert entry.warmup() == 4 + 4 + 1
+    assert entry.warmup() == 0
 
 
 def test_failing_step_fails_resident_requests_and_keeps_serving(

@@ -15,9 +15,9 @@ with TF32 off as ``chip_smoke.py`` sets it; every phase named must take
 ``(dev, card)`` in both checkouts, and a phase that registers operators
 (``ext_drive``) runs once a process.  The turns run in the order
 ``--turns`` gives (``P`` the parent, ``C`` this checkout).  The last
-lines list every rate a phase returns (each number under a key ending in
-``_per_s``) by turn, print the card as ``nvidia-smi`` names it and one
-JSON line.
+lines list every rate and time a phase returns (each number under a key
+ending in ``_per_s`` or ``_ms``) by turn, print the card as
+``nvidia-smi`` names it and one JSON line.
 """
 from __future__ import annotations
 
@@ -45,14 +45,16 @@ print("TURN " + json.dumps(out))
 """
 
 
-def rates(result, prefix=""):
-    """Every number under a key ending in ``_per_s``, by dotted path."""
+def readings(result, prefix=""):
+    """Every number under a key ending in ``_per_s`` or ``_ms``, by
+    dotted path."""
     out = {}
     for k, v in result.items():
         path = f"{prefix}{k}"
         if isinstance(v, dict):
-            out.update(rates(v, path + "."))
-        elif k.endswith("_per_s") and isinstance(v, (int, float)):
+            out.update(readings(v, path + "."))
+        elif k.endswith(("_per_s", "_ms")) and isinstance(v, (int, float)) \
+                and not isinstance(v, bool):
             out[path] = float(v)
     return out
 
@@ -84,10 +86,10 @@ def main() -> int:
             return 1
         res = json.loads(got[0][5:])
         table.append(dict(turn=i + 1, checkout=who,
-                          rates={p: rates(r) for p, r in res.items()}))
+                          rates={p: readings(r) for p, r in res.items()}))
     for row in table:
         print(f"turn {row['turn']} {row['checkout']}: "
-              + "; ".join(f"{p}.{k} {v:.1f}" for p, r in row["rates"].items()
+              + "; ".join(f"{p}.{k} {v:.3f}" for p, r in row["rates"].items()
                           for k, v in r.items()))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
