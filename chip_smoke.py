@@ -463,6 +463,35 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     both from one numpy seed (the shuffle's) and with cuDNN's
     deterministic algorithms: losses within 1e-6 over the 120 steps;
     img/s, step p50 and busy share of both.
+55. A hybridized channel-last ``BatchNormReLU`` (its training forward
+    runs ``bn_act_stats``) captured under ``autograd.record()`` at B = 2,
+    16 (the statistics workspace grows) and 8, other work on its capture
+    stream, then the B = 2 graph replayed on new values: outputs,
+    gradients and running statistics within 1e-6 x max|eager| of an eager
+    twin's.
+56. GPT-2 small (``SERVE_CFG``, 48 new tokens) behind
+    ``serve.register_decode`` three ways, each warmed: unified
+    (``prefill_workers=0``), a pool of 2 prefill workers with no prefix
+    cache, and the pool with its default prefix cache; 64 greedy
+    requests of one shared 192-token prefix (drawn once from a seed)
+    plus 8-56 unique tokens, all queued at once (8 fill the slots, the
+    batch grows 256 -> 512, cross-capacity moves), in f32, then 16 with
+    the bf16 cache and 16 with ``precision="int8"``.  Checks: every pool
+    and prefix answer equals the unified server's, or leaves it only
+    where the top two logits at the first differing token lie within
+    1e-4 x max|logit| (2^-6 for the bf16 model's bf16 logits; printed);
+    the prefix run's prefills count only the trie's misses and its
+    prefix fills the hits (>= n - 8); no capture after warmup; the
+    decode kernel launched >= 12 times a step, prefill and prefix fill;
+    a hit's last-token logits within 2^-6 x max|logit| of a cold
+    prefill's (eager, 4 prompts; printed).  Printed: TTFT p50 / p99 and tokens/s of each
+    server, the hit rate and the trie's bytes.  Then the decode kernel at
+    a hit's shapes (one row, Tq 32 / 64 from cache_len 192, C 256 / 512;
+    f32, bf16 and int8 caches) against its plain version, and its device
+    time beside the plain version's, SDPA's and the bound.
+57. ``LSTMLM`` at phase 42's widths through ``prefill_workers=1`` beside
+    the unified server: 64 of phase 42's prompts at once, answers equal
+    (or at a near tie); ``prefix_cache=True`` refused.
 
 It prints a ``{"kernels": [...]}`` line, the card line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -6023,6 +6052,346 @@ def phase_hybrid_lenet(dev, card):
                    for k, r in (("eager", eager), ("captured", hyb))})
 
 
+# ------------------------- the prefill pool and the prefix cache (A4)
+POOL_CFG = dict(SERVE_CFG, max_new_tokens=48)
+POOL_PREFIX = 192                # tokens every request shares
+POOL_UNIQUE = (8, 56)            # unique tokens after it, uniform
+POOL_REQUESTS = dict(f32=64, bf16=16, int8=16)
+# an answer may leave the unified server's only where the top two logits
+# lie within this x max|logit|: phase 42's rule where the logits are f32;
+# a bf16 model's logits resolve 2^-8 of their value, so there 2^-6 (2-4
+# of their ulps at the top)
+POOL_TIE = dict(f32=1e-4, int8=1e-4, bf16=2.0 ** -6)
+POOL_MODES = ("unified", "pool", "prefix")
+HIT_SHAPES = [(tq, c) for c in (256, 512) for tq in (32, 64)]
+HIT_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+             (torch.float32, torch.int8)]
+
+
+def phase_bn_workspace(dev, card):
+    """Phase 55: a hybridized channel-last ``BatchNormReLU`` captured
+    under ``autograd.record()`` at B = 2, 16 (the statistics workspace
+    grows) and 8, other work on its capture stream, then the B = 2 graph
+    replayed on new values: outputs, gradients and running statistics
+    against an eager twin's (C14)."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.kernels import bn_act
+
+    def make():
+        return xavier_init(nn.BatchNormReLU(axis=-1, in_channels=64,
+                                            device=dev), 0)
+
+    eager, hyb = make(), make()
+    hyb.load_state_dict(eager.state_dict())
+    hyb.hybridize()
+    gen = torch.Generator().manual_seed(14)
+    xs = {b: (torch.rand(int(b), 14, 14, 64, generator=gen) - 0.3).to(dev)
+          for b in (2, 16, 8, "2")}    # "2": new values for the last replay
+
+    def step(net, b):
+        with autograd.record():
+            out = net(xs[b])
+            loss = (out * out).sum()
+        loss.backward()
+        return [out.detach().clone()] + \
+            [p.grad.clone() for p in net.parameters()] + \
+            [t.clone() for t in net.buffers()]
+
+    runs = {}
+    for name, net in (("eager", eager), ("hyb", hyb)):
+        runs[name] = [step(net, b) for b in (2, 2, 16, 16, 8, 8)]
+        if name == "hyb":
+            (cs,) = hyb._cached_op._streams.values()
+            with torch.cuda.stream(cs):
+                junk = [torch.full((64 * (i % 16 + 1),), 7, device=dev,
+                                   dtype=torch.int32) for i in range(512)]
+            cs.synchronize()
+            del junk
+        runs[name].append(step(net, "2"))
+    graphs = len(hyb._cached_op._graphs)
+    check(graphs == 3, f"phase 55: {graphs} signatures captured, not 3")
+    worst = max((g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+                for got, want in zip(runs["hyb"], runs["eager"])
+                for g, w in zip(got, want))
+    check(worst <= 1e-6, f"phase 55: the B = 2 replay after the workspace "
+          f"grew leaves eager by {worst:.3e} x max|eager| > 1e-6")
+    print(f"phase 55 bn_act workspace growth under captured graphs (C14): "
+          f"BatchNormReLU captured at B = 2, 16, 8 under record(), "
+          f"{len(bn_act._RETIRED)} workspace(s) retired and kept, the B = 2 "
+          f"graph replayed after other work on its stream: outputs, "
+          f"gradients and running statistics within {worst:.3e} x max|eager|"
+          f" [{card}]")
+    return dict(max_rel_err=worst, graphs=graphs,
+                retired=len(bn_act._RETIRED))
+
+
+def pool_traffic(n, seed=56):
+    """Phase 56's requests: one shared ``POOL_PREFIX``-token prefix drawn
+    once from the seed, then 8-56 unique tokens each (uniform)."""
+    rs = np.random.RandomState(seed)
+    vocab = GPT2_SMALL["vocab_size"]
+    head = rs.randint(0, vocab, size=POOL_PREFIX).tolist()
+    return [head + rs.randint(0, vocab, size=int(k)).tolist()
+            for k in rs.randint(POOL_UNIQUE[0], POOL_UNIQUE[1] + 1, size=n)]
+
+
+def pool_serve(lm, name, prompts, kernel, precision=None, **srv_kw):
+    """Register ``lm`` (warmup included), queue every prompt at once, and
+    read the answers, telemetry, captures while serving and the decode
+    kernel's launches."""
+    from mxnet_tpu_torch import serve, telemetry
+    from mxnet_tpu_torch.kernels import registry
+
+    telemetry.set_enabled(True)
+    t0 = time.perf_counter()
+    serve.register_decode(name, lm, precision=precision, **POOL_CFG,
+                          **srv_kw)
+    warm = time.perf_counter() - t0
+    srv = serve.decode_server(name)
+    torch.cuda.synchronize()
+    telemetry.reset()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    with srv._cv:
+        futs = [srv.submit(p) for p in prompts]
+    results = [f.result(600.0) for f in futs]
+    wall = time.perf_counter() - t0
+    launches = registry.launches().get(kernel, 0)
+    snap = telemetry.snapshot()
+    stats = srv.prefix.stats() if srv.prefix is not None else None
+    serve.shutdown_decode(120.0)
+
+    def count(key, field="count"):
+        return snap.get(key, {}).get(field, 0)
+
+    def p50_ms(key):
+        return snap[key]["p50"] * 1e3 if key in snap else None
+
+    tokens = sum(len(r) for r in results)
+    steps = count("serve.decode_step_seconds")
+    return dict(results=results, wall_s=wall, warm_s=warm,
+                tokens_per_s=tokens / wall, tokens=tokens,
+                ttft_p50_ms=snap["serve.ttft_seconds"]["p50"] * 1e3,
+                ttft_p99_ms=snap["serve.ttft_seconds"]["p99"] * 1e3,
+                step_p50_ms=p50_ms("serve.decode_step_seconds"),
+                prefill_p50_ms=p50_ms("serve.prefill_seconds"),
+                prefix_fill_p50_ms=p50_ms("serve.prefix_fill_seconds"),
+                move_p50_ms=p50_ms("serve.cache_move_seconds"),
+                rows_per_step=(tokens - len(prompts)) / max(steps, 1),
+                steps=count("serve.decode_step_seconds"),
+                prefills=count("serve.prefill_seconds"),
+                prefix_fills=count("serve.prefix_fill_seconds"),
+                moves=count("serve.cache_move_seconds"),
+                grows=count("serve.cache_grows", "value"),
+                misses=count("hybridize.cache_misses", "value"),
+                launches=launches, prefix=stats)
+
+
+def _ms(v):
+    return "-" if v is None else f"{v:.3f}"
+
+
+def pool_ties(lm, prompts, want, got, label, rel=1e-4):
+    """Hold every answer to the unified server's by the near-tie rule at
+    ``rel`` x max|logit|; returns the answers that leave it (all at near
+    ties)."""
+    from mxnet_tpu_torch.test_utils import near_tie
+
+    ties = []
+    for i, (p, w, g) in enumerate(zip(prompts, want, got)):
+        if w == g:
+            continue
+        k, gap, scale, tie = near_tie(lm, p, w, g, rel)
+        check(tie, f"{label}: request {i} leaves the unified server's "
+              f"answer at token {k} by {gap:.3e} of logit, not a near tie "
+              f"(bar {rel} x {scale:.3e})")
+        ties.append((i, k, gap / scale))
+    return ties
+
+
+def hit_logit_gap(lm, prompt):
+    """The last prompt token's logits from a cold forward of ``prompt``
+    against the prefix-hit route (the shared prefix's forward, then the
+    rest from ``cache_len`` = ``POOL_PREFIX``), as max|difference| over
+    max|logit|: the two routes compute one function, so only rounding
+    (GEMMs of another M) tells them apart."""
+    with torch.no_grad():
+        cold, _ = lm(np.asarray([prompt]), lm.begin_cache(1, 256), [0],
+                     [len(prompt)])
+        cache = lm.begin_cache(1, 256)
+        lm(np.asarray([prompt[:POOL_PREFIX]]), cache, [0], [POOL_PREFIX])
+        hit, _ = lm(np.asarray([prompt[POOL_PREFIX:]]), cache, [POOL_PREFIX],
+                    [len(prompt) - POOL_PREFIX])
+    a, b = cold[0, -1].float(), hit[0, -1].float()
+    return (a - b).abs().max().item() / a.abs().max().item()
+
+
+def hit_kernel_rows(dev):
+    """The decode kernel at a prefix hit's shapes (one row, Tq 32 / 64
+    from cache_len = 192, C 256 / 512) against its plain version, and its
+    device time beside the plain version's, SDPA's and the bound (the f32
+    query pairs' chunk path on 3xTF32 tensor cores)."""
+    from mxnet_tpu_torch.ops import attention as att
+
+    rows = {}
+    for q_dt, kv_dt in HIT_PAIRS:
+        name = att.decode_kernel_name(q_dt, kv_dt)
+        for tq, c in HIT_SHAPES:
+            row = time_decode16(q_dt, kv_dt, 1, tq, c, [POOL_PREFIX], dev)
+            if q_dt == torch.float32:
+                bnds, nbytes, _ = bound(1, H, tq, c, D, [POOL_PREFIX],
+                                        kv_dt == torch.int8)
+                row["bound_ms"], row["bound_by"] = bnds["tf32x3"]
+                row["nbytes"] = nbytes
+            rows.setdefault(name, []).append(row)
+    return rows
+
+
+def phase_pool_serve(dev, card):
+    """Phase 56: GPT-2 small through the prefill pool and the prefix
+    cache beside the unified server (module docstring)."""
+    from mxnet_tpu_torch.gluon.model_zoo import transformer_lm
+    from mxnet_tpu_torch.ops import attention as att
+
+    n_layers = GPT2_SMALL["num_layers"]
+    out = {}
+    for variant, n in POOL_REQUESTS.items():
+        dt = torch.bfloat16 if variant == "bf16" else torch.float32
+        lm = xavier_init(transformer_lm(device=dev, dtype=dt, **GPT2_SMALL), 0)
+        if variant == "bf16":
+            lm.cast(dt)
+        prec = "int8" if variant == "int8" else None
+        kernel = att.decode_kernel_name(
+            dt, torch.int8 if prec else dt)
+        prompts = pool_traffic(n)
+        runs = {mode: pool_serve(lm, f"p56_{mode}_{variant}", prompts, kernel,
+                                 precision=prec, **kw)
+                for mode, kw in (("unified", dict(prefill_workers=0)),
+                                 ("pool", dict(prefill_workers=2,
+                                               prefix_cache=False)),
+                                 ("prefix", dict(prefill_workers=2)))}
+        want = runs["unified"]["results"]
+        check(all(len(r) == POOL_CFG["max_new_tokens"] for r in want),
+              f"phase 56 {variant}: an answer resolved short")
+        for mode, r in runs.items():
+            label = f"phase 56 {variant} {mode}"
+            check(r["misses"] == 0, f"{label}: {r['misses']} captures after "
+                  "warmup")
+            forwards = r["steps"] + r["prefills"] + r["prefix_fills"]
+            check(r["launches"] >= n_layers * forwards, f"{label}: {kernel} "
+                  f"launched {r['launches']} < {n_layers} x {forwards} "
+                  "(steps + prefills + prefix fills)")
+            check(r["grows"] >= 1, f"{label}: the batch never grew")
+            if mode != "unified":
+                check(r["moves"] == n, f"{label}: {r['moves']} moves for "
+                      f"{n} requests")
+                r["ties"] = pool_ties(lm, prompts, want, r["results"], label,
+                                      POOL_TIE[variant])
+        pre = runs["prefix"]
+        st = pre["prefix"]
+        check(pre["prefix_fills"] == st["hits"] >= n - 8 and
+              pre["prefills"] == st["misses"] == n - st["hits"],
+              f"phase 56 {variant} prefix: {pre['prefills']} prefills, "
+              f"{pre['prefix_fills']} prefix fills for {st}")
+        check(runs["pool"]["prefix_fills"] == 0 and
+              runs["pool"]["prefills"] == n == runs["unified"]["prefills"],
+              f"phase 56 {variant}: prefill counts {runs['pool']['prefills']}"
+              f" / {runs['unified']['prefills']} for {n} requests")
+        gap = max(hit_logit_gap(lm, p) for p in prompts[:4])
+        check(gap <= 2.0 ** -6, f"phase 56 {variant}: a hit's logits leave "
+              f"a cold prefill's by {gap:.3e} x max|logit| > 2^-6")
+        out_gap = gap
+        for mode, r in runs.items():
+            print(f"  {variant} {mode}: {r['tokens']} tokens in "
+                  f"{r['wall_s']:.3f} s = {r['tokens_per_s']:.1f} tokens/s, "
+                  f"TTFT p50 {r['ttft_p50_ms']:.2f} ms p99 "
+                  f"{r['ttft_p99_ms']:.2f} ms, {r['steps']} steps "
+                  f"({r['rows_per_step']:.2f} rows each, p50 "
+                  f"{r['step_p50_ms']:.3f} ms), prefill / prefix fill / "
+                  f"move p50 {_ms(r['prefill_p50_ms'])} / "
+                  f"{_ms(r['prefix_fill_p50_ms'])} / {_ms(r['move_p50_ms'])} "
+                  "ms, "
+                  f"{r['prefills']} prefills, {r['prefix_fills']} prefix "
+                  f"fills, {r['moves']} moves, growths {r['grows']}, "
+                  f"{r['launches']} {kernel} launches, warmup "
+                  f"{r['warm_s']:.2f} s, answers leaving the unified "
+                  f"server's at near ties: {r.get('ties', [])}")
+        print(f"  {variant} trie: {st['hits']} hits / {st['misses']} misses "
+              f"(hit rate {st['hit_rate']:.4f}), {st['nodes']} nodes, "
+              f"{st['bytes']} bytes of pages on the card, {st['evictions']} "
+              f"evictions; a hit's last-token logits against a cold "
+              f"prefill's (4 prompts, eager): {out_gap:.3e} x max|logit|")
+        out[variant] = {m: {k: v for k, v in r.items() if k != "results"}
+                        for m, r in runs.items()}
+        out[variant]["hit_vs_cold_logits"] = out_gap
+        del lm
+        torch.cuda.empty_cache()
+    hits = hit_kernel_rows(dev)
+    print(f"phase 56 GPT-2 small through the prefill pool and the prefix "
+          f"cache ({POOL_REQUESTS['f32']} requests of a shared "
+          f"{POOL_PREFIX}-token prefix + {POOL_UNIQUE[0]}-{POOL_UNIQUE[1]} "
+          f"unique tokens, {POOL_CFG['max_new_tokens']} new each, all at "
+          f"once; bf16 and int8 caches at {POOL_REQUESTS['bf16']}): every "
+          "pool and prefix answer "
+          "equals the unified server's or leaves it at a near tie ("
+          + ", ".join(f"{v} {len(r['pool']['ties'])} + "
+                      f"{len(r['prefix']['ties'])}" for v, r in out.items())
+          + "), hits add no prefill, no capture after warmup; tokens/s "
+          "unified / pool / prefix " + ", ".join(
+              f"{v} " + " / ".join(f"{r[m]['tokens_per_s']:.1f}"
+                                   for m in ("unified", "pool", "prefix"))
+              for v, r in out.items()) + f" [{card}]")
+    out["hit_shapes"] = hits
+    return out
+
+
+def phase_pool_lstm(dev, card):
+    """Phase 57: ``LSTMLM`` at ``LSTM_SERVE`` widths through a prefill
+    pool (``prefill_workers=1``) beside the unified server; an explicit
+    prefix cache refused."""
+    from mxnet_tpu_torch import serve
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.gluon.model_zoo import LSTMLM
+
+    lm = xavier_init(LSTMLM(vocab_size=LSTM_LM["vocab"],
+                            units=LSTM_LM["hidden"],
+                            num_layers=LSTM_LM["layers"]), 0)
+    try:
+        serve.register_decode("p57_refused", lm, prefill_workers=1,
+                              prefix_cache=True, warmup=False, **LSTM_SERVE)
+        refused = ""
+    except MXNetError as err:
+        refused = str(err)
+    check("capacity-independent" in refused, "phase 57: prefix_cache=True "
+          f"was not refused for LSTMLM: {refused!r}")
+    prompts, _ = lstm_traffic(np.random.RandomState(57))
+    prompts = prompts[:64]
+    runs = {}
+    for mode, workers in (("unified", 0), ("pool", 1)):
+        entry = serve.register_decode(f"p57_{mode}", lm,
+                                      prefill_workers=workers, **LSTM_SERVE)
+        srv = serve.decode_server(f"p57_{mode}")
+        check(srv.prefix is None, f"phase 57 {mode}: a prefix cache was made")
+        t0 = time.perf_counter()
+        with srv._cv:
+            futs = [srv.submit(p) for p in prompts]
+        runs[mode] = [f.result(600.0) for f in futs]
+        wall = time.perf_counter() - t0
+        serve.shutdown_decode(120.0)
+        tokens = sum(len(r) for r in runs[mode])
+        print(f"  LSTMLM {mode}: {tokens} tokens in {wall:.3f} s = "
+              f"{tokens / wall:.1f} tokens/s (capacity-static: "
+              f"{entry.capacity_static})")
+    ties = pool_ties(lm, prompts, runs["unified"], runs["pool"],
+                     "phase 57 LSTMLM pool", LSTM_TIE)
+    print(f"phase 57 LSTMLM through a prefill pool: {len(prompts)} answers, "
+          f"{len(prompts) - len(ties)} equal the unified server's, "
+          f"{len(ties)} leave it at a near tie {ties}; prefix_cache=True "
+          f"refused [{card}]")
+    return dict(requests=len(prompts), near_ties=ties)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -6098,6 +6467,9 @@ def main() -> int:
     hyb_lstm = phase_hybrid_lstm(dev, card)
     hyb_batch = phase_hybrid_batch(dev, card)
     hyb_lenet = phase_hybrid_lenet(dev, card)
+    bn_workspace = phase_bn_workspace(dev, card)
+    pool = phase_pool_serve(dev, card)
+    pool_lstm = phase_pool_lstm(dev, card)
     launches = {"flash_attention_decode": f32["launches"],
                 "flash_attention_decode_int8": i8["launches"]}
     kernels = []
@@ -6121,6 +6493,9 @@ def main() -> int:
             library_device_ms=dec["library_device_ms"],
             library="scaled_dot_product_attention with the boolean decode "
                     "mask" if variant == "f32" else None,
+            launches_phase56={m: pool[variant][m]["launches"]
+                              for m in POOL_MODES},
+            hit_shapes=pool["hit_shapes"][name],
             splits=dec["splits"], split_len=dec["split_len"],
             launches_per_call=dec["launches_per_call"],
             shape=dec["shape"], prefill=times[name]["prefill"],
@@ -6306,7 +6681,11 @@ def main() -> int:
                      "the boolean decode mask, device time"
                      if dec["library_ms"] is not None else None),
             shape=dec["shape"], splits=dec["splits"],
-            split_len=dec["split_len"], prefill=row.get("prefill")))
+            split_len=dec["split_len"], prefill=row.get("prefill"),
+            **({"launches_phase56": {m: pool["bf16"][m]["launches"]
+                                     for m in POOL_MODES},
+                "hit_shapes": pool["hit_shapes"][name]}
+               if name in pool["hit_shapes"] else {})))
     print(f"end to end: f32 {f32['tokens_per_s']:.1f} tokens/s, int8 "
           f"{i8['tokens_per_s']:.1f} tokens/s, BERT-base "
           f"{bert['requests_per_s']:.1f} requests/s, BERT-base training "
@@ -6333,7 +6712,11 @@ def main() -> int:
           f"training and {lstm_serve['tokens_per_s']:.1f} tokens/s served, "
           f"SSD-ResNet50 "
           f"{ssd_train['ssd_resnet50_train_imgs_per_sec_per_chip']:.2f} "
-          f"img/s training in bf16 at 512x512; whole run "
+          f"img/s training in bf16 at 512x512, GPT-2 small through the "
+          f"prefill pool {pool['f32']['pool']['tokens_per_s']:.1f} and with "
+          f"the prefix cache {pool['f32']['prefix']['tokens_per_s']:.1f} "
+          f"tokens/s (unified {pool['f32']['unified']['tokens_per_s']:.1f});"
+          f" whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels,
                       "serve": {"f32": f32, "int8": i8, "bert": bert,
@@ -6366,6 +6749,9 @@ def main() -> int:
                                     "lstm_lm": hyb_lstm,
                                     "batch": hyb_batch,
                                     "lenet_drive": hyb_lenet},
+                      "prefill_pool": {"gpt2_small": pool,
+                                       "lstm_lm": pool_lstm,
+                                       "bn_workspace": bn_workspace},
                       "detections": ssd_dets, "box_ops_card_vs_cpu": boxes,
                       "losses_card_vs_cpu": losses,
                       "rnn_ops_card_vs_cpu": rnn_ops,

@@ -211,8 +211,12 @@ def _check_dev(op: str, x2d):
 # are zeroed once, and each launch leaves them at 0.  A hybridized block
 # captures on a stream of its own, and its warm run there makes that
 # stream's workspace before the capture, so no allocation or memset lands
-# inside a graph; graphs of one block share it and replay in turn.
+# inside a graph; graphs of one block share it and replay in turn.  A
+# larger shape replaces the workspace, and graphs captured over the old
+# one still read and write its addresses: a replaced workspace is kept in
+# _RETIRED for the life of the process, never freed.
 _WORKSPACE = {}
+_RETIRED = []
 
 
 def _workspace(device, stream: int, col_blocks: int, nparts: int):
@@ -220,6 +224,8 @@ def _workspace(device, stream: int, col_blocks: int, nparts: int):
     ws = _WORKSPACE.get(key)
     if ws is None or ws[0].numel() < col_blocks or ws[1].numel() < nparts:
         old = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        if ws is not None:
+            _RETIRED.append(ws)
         ws = (torch.zeros(max(col_blocks, old[0]), dtype=torch.int32,
                           device=device),
               torch.empty(max(nparts, old[1]), dtype=torch.float64,

@@ -18,26 +18,54 @@ granularity over a fixed set of cache *slots*:
 
 Prefill and every decode step run the model's attention through the
 hand-written decode kernel on the card (``ops.attention``).  The entry
-hybridizes the LM's forward with its cache donated, and a
-:class:`_CacheMover` and a :class:`_CacheGrower`, and its warmup captures
+hybridizes the LM's forward twice: as the decode step with its cache
+donated, and as the prefill with its cache NOT donated; and a
+:class:`_CacheMover` and a :class:`_CacheGrower`.  Its warmup captures
 the JAX package's grid (``DecodeEntry.warmup``): on the card each step,
 prefill, move and growth is then one CUDA-graph replay.  The lengths stay
 on the card, and the step graph reads and writes the entry's batch cache
-in place, so a step neither reads back nor copies the cache.
+in place, so a step neither reads back nor copies the cache.  A prefill
+graph copies the row cache it is given into its own input and returns a
+copy of its output, as a JAX executable returns a fresh buffer: every
+prefill owns the row cache it returns, so a finished prefill can wait in
+a queue while another prefill of the same bucket runs.
 
 Sampling runs on the host between steps: greedy (``temperature=0``) or
 temperature/top-k with one ``torch.Generator`` per request, deterministic
 under a fixed ``seed``.
 
-Not in this slice: the prefill worker pool (``prefill_workers > 0``) and
-the prefix cache; asking for either raises :class:`MXNetError`.
+**Disaggregated prefill** (``prefill_workers > 0`` or
+``MXNET_PREFILL_WORKERS``): prompt forwards move off the decode loop
+onto a pool of ``mx-prefill-<model>-<i>`` threads.  A worker runs the
+prompt bucket at its own capacity bucket, samples the first token, and
+ships a :class:`_Ready` (the finished row cache and its length) back to
+the loop, which claims a slot and moves the cache across with
+:class:`_CacheMover`: the worker's capacity bucket and the batch's may
+differ, so only the intersecting page window is copied
+(``parallel.layout.intersect_box``, ``ops.attention.cache_page_copy``).
+The shipment crosses the ``serve.prefill_transfer`` fault seam
+(``resilience.chaos``) BEFORE touching the batch cache: an injected
+fault fails only that request's future and the loop keeps serving.  The
+workers keep the default stream, so the order in which the host submits
+a prefill, its copy into the trie and its move is the order on the card.
+
+**Prefix cache** (:class:`~mxnet_tpu_torch.serve.prefix.PrefixCache`,
+on by default with the pool for page-layout models): workers look shared
+prompt prefixes up in a block-aligned trie, materialize the retained
+pages into a row cache, and forward only the remainder, from
+``cache_len`` = the matched length; a hit adds no
+``serve.prefill_seconds`` observation, its remainder runs under
+``serve.prefix_fill_seconds``.
 
 Telemetry (the JAX package's names): ``serve.tokens``,
 ``serve.decode_step_seconds``, ``serve.prefill_seconds``,
-``serve.ttft_seconds``, ``serve.decode_slots_active``,
+``serve.prefix_fill_seconds``, ``serve.ttft_seconds``,
+``serve.cache_move_seconds``, ``serve.decode_slots_active``,
 ``serve.decode_requests``, ``serve.decode_submitted``,
 ``serve.cache_grows``, ``serve.rejected``, ``serve.deadline_exceeded``,
-``serve.cancelled``, ``serve.cache_quant_bytes_saved``.
+``serve.cancelled``, ``serve.cache_quant_bytes_saved``, and the trie's
+``serve.cache_*`` set.  The JAX package's trace spans and TTFT objective
+are not ported (no ``trace`` or ``obs`` package in the port yet).
 """
 from __future__ import annotations
 
@@ -55,15 +83,13 @@ from ..gluon.block import HybridBlock, _clone_tree
 from ..jit.bucketing import _Policy
 from ..ops import attention as _att
 from ..parallel import layout as _layout
+from ..resilience import chaos as _chaos
 from .coalescer import ClosedError, DeadlineError, RejectedError
+from .prefix import PrefixCache
 
 __all__ = ["DecodeEntry", "DecodeServer", "DecodeFuture", "TokenRangeError",
            "register_decode", "decode_server", "decode_submit", "generate",
            "shutdown_decode"]
-
-_LATER_SLICE = ("the prefill worker pool and the prefix cache are not "
-                "ported yet (a later slice of the PyTorch port)")
-
 
 class TokenRangeError(MXNetError):
     """A prompt token id outside ``[0, vocab_size)``, refused at submit
@@ -83,11 +109,14 @@ def _quant_bytes_saved(cache) -> int:
 
 
 class _DecodeStep(HybridBlock):
-    """The LM's forward as a block of the entry's own, hybridized with
-    the cache donated (position 1): its graphs belong to this entry and
-    are keyed on this entry's buffers, so a second entry over the same
-    LM (a re-registration while the old server drains) captures its own
-    and leaves these alone."""
+    """The LM's forward as a block of the entry's own: its graphs belong
+    to this entry, so a second entry over the same LM (a re-registration
+    while the old server drains) captures its own and leaves these
+    alone.  The entry hybridizes one for the decode step, with the cache
+    donated (position 1; its graphs are keyed on the entry's batch
+    buffers), and one for the prefill, with nothing donated (its graphs
+    are keyed on shapes alone, and each call returns a cache of its
+    own)."""
 
     def __init__(self, lm):
         super().__init__()
@@ -195,6 +224,23 @@ def _fail(req: _DecodeRequest, err: BaseException):
     _emit(req, None)
 
 
+class _Ready:
+    """A pool-prefilled request in flight from prefill to decode: the
+    finished one-row cache, which it owns until the loop's move, plus the
+    geometry the decode loop needs to redistribute it into a slot
+    (``src_cap`` = the worker's capacity bucket, ``min_capacity`` = the
+    prompt bucket the batch must reach before the valid pages fit)."""
+
+    __slots__ = ("req", "row_cache", "cache_len", "src_cap", "min_capacity")
+
+    def __init__(self, req, row_cache, cache_len, src_cap, min_capacity):
+        self.req = req
+        self.row_cache = row_cache
+        self.cache_len = cache_len
+        self.src_cap = src_cap
+        self.min_capacity = min_capacity
+
+
 class DecodeFuture:
     """Handle returned by ``submit()``; ``result()`` blocks for the
     generated token ids."""
@@ -252,16 +298,19 @@ class DecodeEntry:
     ``begin_cache(1, 1)`` against ``begin_cache(1, 2)``, as the JAX
     entry does).
 
-    The entry hybridizes the LM's forward (:attr:`lm_step`, a
-    :class:`_DecodeStep` of its own) with its cache donated, and a
-    :class:`_CacheMover` and a :class:`_CacheGrower` beside it, as the
-    JAX entry hybridizes the LM and those two (``hybridize(False)`` on
-    :attr:`blocks` runs them eagerly, with ``warmup()`` after it).  It
-    keeps one batch cache for each capacity bucket and one row cache
-    for each (prompt bucket, capacity) pair: each is the donated buffer
-    of its graphs, so a decode loop that rebinds to what a step returns
-    passes the graph the same buffer and copies no cache; growth copies
-    it once, into the next capacity's buffer."""
+    The entry hybridizes the LM's forward twice (:attr:`lm_step` with
+    its cache donated, :attr:`prefill_step` with nothing donated; each a
+    :class:`_DecodeStep` of its own), and a :class:`_CacheMover` and a
+    :class:`_CacheGrower` beside them, as the JAX entry hybridizes the
+    LM and those two (``hybridize(False)`` on :attr:`blocks` runs them
+    eagerly, with ``warmup()`` after it).  It keeps one batch cache for
+    each capacity bucket, the donated buffer of its step graph, so a
+    decode loop that rebinds to what a step returns passes the graph the
+    same buffer and copies no cache; growth copies it once, into the
+    next capacity's buffer.  A prefill starts from a new zeroed row
+    cache (or a prefix hit's) and returns a row cache of its own: on the
+    card the graph copies it in and out, two row-cache copies a prefill,
+    so a row cache is never shared between two prefills in flight."""
 
     def __init__(self, name: str, block, *, slots: int = 4,
                  prompt_buckets: Sequence[int] = (8, 16, 32),
@@ -311,16 +360,17 @@ class DecodeEntry:
         # the buffers are made at first use, by the warmup or by the
         # server's worker, which may run beside a later warmup() call
         self._batch: Dict[int, tuple] = {}
-        self._rows: Dict[tuple, tuple] = {}
         self._buf_lock = threading.Lock()
         self._ones = torch.ones(self.slots, dtype=torch.int64,
                                 device=self.device)
         self._slot_ids = torch.arange(self.slots, dtype=torch.int64,
                                       device=self.device)
         self.lm_step = _DecodeStep(block)
+        self.prefill_step = _DecodeStep(block)
         self.mover = _CacheMover()
         self.grower = _CacheGrower()
         self.lm_step.hybridize(donate_args=(1,))
+        self.prefill_step.hybridize()
         self.mover.hybridize(donate_args=(0,))
         self.grower.hybridize(donate_args=(1,))
         if warmup:
@@ -328,9 +378,9 @@ class DecodeEntry:
 
     @property
     def blocks(self) -> tuple:
-        """The entry's three hybridized blocks: the LM's step, the mover
-        and the grower."""
-        return (self.lm_step, self.mover, self.grower)
+        """The entry's four hybridized blocks: the LM's step, its
+        prefill, the mover and the grower."""
+        return (self.lm_step, self.prefill_step, self.mover, self.grower)
 
     # ---------------------------------------------------------- buffers
     def batch_cache(self, capacity: int):
@@ -340,15 +390,6 @@ class DecodeEntry:
             if cache is None:
                 cache = self._batch[capacity] = \
                     self.block.begin_cache(self.slots, capacity)
-        return cache
-
-    def row_cache(self, prompt_bucket: int, capacity: int):
-        """The entry's one-row cache for a prompt bucket at ``capacity``."""
-        key = (prompt_bucket, capacity)
-        with self._buf_lock:
-            cache = self._rows.get(key)
-            if cache is None:
-                cache = self._rows[key] = self.block.begin_cache(1, capacity)
         return cache
 
     @staticmethod
@@ -371,22 +412,19 @@ class DecodeEntry:
         s = self.slots
         caps = self.capacity_buckets[:1] if self.capacity_static \
             else self.capacity_buckets
-        lm = []
-        for c in caps:
-            for tp in self.prompt_buckets:
-                if tp <= c:
-                    lm.append((np.zeros((1, tp), np.int64),
-                               self.row_cache(tp, c), np.zeros(1, np.int64),
-                               np.ones(1, np.int64)))
-            lm.append((np.zeros((s, 1), np.int64), self.batch_cache(c),
-                       np.zeros(s, np.int64), self._ones))
+        steps = [(np.zeros((s, 1), np.int64), self.batch_cache(c),
+                  np.zeros(s, np.int64), self._ones) for c in caps]
+        prefills = [(np.zeros((1, tp), np.int64), self.block.begin_cache(1, c),
+                     np.zeros(1, np.int64), np.ones(1, np.int64))
+                    for c in caps for tp in self.prompt_buckets if tp <= c]
         slot = self._slot_ids[:1]
         movers = [(self.batch_cache(cd), self.block.begin_cache(1, cs), slot)
                   for cd in caps for cs in caps]
         growers = [(self.batch_cache(lo), self.batch_cache(hi))
                    for lo, hi in zip(caps, caps[1:])]
         n = 0
-        for blk, samples in zip(self.blocks, (lm, movers, growers)):
+        for blk, samples in zip(self.blocks,
+                                (steps, prefills, movers, growers)):
             if not samples:
                 continue
             if blk._active:
@@ -403,13 +441,23 @@ class DecodeEntry:
     def prefill(self, tokens: np.ndarray, true_len: int, capacity: int):
         """One-row prompt forward from an empty cache: ``(last_logits (V,)
         numpy, row_cache)``; ``tokens`` is already padded to a bucket,
-        the row cache is the entry's for that (bucket, capacity)."""
-        cache = self.zero_cache(self.row_cache(tokens.shape[1], capacity))
+        the row cache is the caller's own."""
+        return self.prefill_window(tokens, self.block.begin_cache(1, capacity),
+                                   0, true_len)
+
+    def prefill_window(self, tokens: np.ndarray, cache, cache_len: int,
+                       n_new: int):
+        """Forward ``n_new`` real tokens (padded window ``tokens`` (1, Tp))
+        against a row cache whose first ``cache_len`` positions are
+        already valid — the prefix-hit remainder path: ``(last_logits
+        (V,) numpy, row_cache)``.  It replays the prefill's graphs
+        (``cache_len`` and ``n_tokens`` are inputs, not part of the
+        signature), so a hit needs no warmup of its own."""
         with torch.no_grad():           # serving keeps no autograd graph
-            logits, cache = self.lm_step(tokens, cache,
-                                         np.zeros(1, np.int64),
-                                         np.full(1, true_len, np.int64))
-        return logits[0, true_len - 1].float().cpu().numpy(), cache
+            logits, cache = self.prefill_step(
+                tokens, cache, np.full(1, cache_len, np.int64),
+                np.full(1, n_new, np.int64))
+        return logits[0, n_new - 1].float().cpu().numpy(), cache
 
     def step(self, pending: np.ndarray, cache, lens: np.ndarray):
         """One decode step for the whole slot batch: ``(logits (S, V)
@@ -436,22 +484,49 @@ class DecodeEntry:
 
 class DecodeServer:
     """The token-level scheduler: one worker thread
-    (``mx-decode-worker-<name>``) owns the slot batch and all device
-    state; ``submit`` only enqueues under the condition variable.
-    ``close()`` drains accepted requests before joining."""
+    (``mx-decode-worker-<name>``) owns the slot batch and the batch
+    cache; ``submit`` only enqueues under the condition variable.
+
+    With ``prefill_workers > 0`` (default ``MXNET_PREFILL_WORKERS``, 0 =
+    unified) the server is disaggregated: submits land on the prefill
+    queue, ``mx-prefill-<model>-<i>`` threads run prompt forwards to
+    completion (consulting ``prefix_cache`` — a :class:`PrefixCache`;
+    ``None`` creates one for page-layout models when there is a pool,
+    ``True`` always, ``False`` never), and finished shipments re-enter
+    the decode queue as :class:`_Ready` items.  One condition variable
+    guards both queues and the in-flight prefill count, so ``close()``
+    drains exactly: the loop exits only when closed, both queues are
+    empty, no prefill is in flight and every slot has resolved."""
 
     def __init__(self, entry: DecodeEntry, queue_max: Optional[int] = None,
                  prefill_workers: Optional[int] = None, prefix_cache=None):
-        workers = int(prefill_workers if prefill_workers is not None
-                      else get_env("MXNET_PREFILL_WORKERS", 0, int))
-        if workers != 0 or prefix_cache not in (None, False):
-            raise MXNetError(
-                f"decode model {entry.name!r}: prefill_workers={workers}, "
-                f"prefix_cache={prefix_cache!r} — {_LATER_SLICE}")
         self.entry = entry
         self._queue_max = queue_max if queue_max is not None \
             else get_env("MXNET_SERVE_QUEUE_MAX", 1024, int)
+        self._prefill_workers = int(
+            prefill_workers if prefill_workers is not None
+            else get_env("MXNET_PREFILL_WORKERS", 0, int))
+        if self._prefill_workers < 0:
+            raise MXNetError(
+                f"prefill_workers must be >= 0, got {self._prefill_workers}")
+        if prefix_cache is None:
+            self.prefix = PrefixCache(name=entry.name) \
+                if self._prefill_workers > 0 and not entry.capacity_static \
+                else None
+        elif prefix_cache is True:
+            self.prefix = PrefixCache(name=entry.name)
+        elif prefix_cache is False:
+            self.prefix = None
+        else:
+            self.prefix = prefix_cache
+        if self.prefix is not None and entry.capacity_static:
+            raise MXNetError(
+                f"decode model {entry.name!r} has a capacity-independent "
+                "cache (no per-position pages) — the prefix cache cannot "
+                "slice it; pass prefix_cache=False")
         self._q: deque = deque()
+        self._pq: deque = deque()
+        self._prefill_busy = 0
         self._cv = threading.Condition()
         self._closed = False
         self._seq = 0
@@ -466,6 +541,12 @@ class DecodeServer:
             target=self._loop, name=f"mx-decode-worker-{entry.name}",
             daemon=True)
         self._thread.start()
+        self._prefill_threads = [
+            threading.Thread(target=self._prefill_loop,
+                             name=f"mx-prefill-{entry.name}-{i}", daemon=True)
+            for i in range(self._prefill_workers)]
+        for t in self._prefill_threads:
+            t.start()
 
     # ------------------------------------------------------------- API
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
@@ -496,7 +577,7 @@ class DecodeServer:
             if self._closed:
                 raise ClosedError(
                     f"decode server {self.entry.name!r} is closed")
-            if len(self._q) >= self._queue_max:
+            if len(self._q) + len(self._pq) >= self._queue_max:
                 _tel.inc("serve.rejected")
                 raise RejectedError(
                     f"decode queue full ({self._queue_max}); shed load "
@@ -509,7 +590,7 @@ class DecodeServer:
                 temperature, top_k, seed, on_token=on_token,
                 deadline=None if deadline is None
                 else time.monotonic() + deadline)
-            self._q.append(req)
+            (self._pq if self._prefill_workers else self._q).append(req)
             self._cv.notify_all()
         _tel.inc("serve.decode_submitted")
         return DecodeFuture(req)
@@ -523,8 +604,12 @@ class DecodeServer:
         with self._cv:
             self._closed = True
             self._cv.notify_all()
-        self._thread.join(timeout)
-        if self._thread.is_alive():
+        deadline = time.monotonic() + timeout
+        for t in self._prefill_threads:
+            t.join(max(0.0, deadline - time.monotonic()))
+        self._thread.join(max(0.0, deadline - time.monotonic()))
+        if self._thread.is_alive() \
+                or any(t.is_alive() for t in self._prefill_threads):
             raise MXNetError(
                 f"decode server {self.entry.name!r} failed to drain within "
                 f"{timeout}s")
@@ -546,18 +631,25 @@ class DecodeServer:
         while True:
             with self._cv:
                 while not self._q and self._occupancy() == 0 \
-                        and not self._closed:
+                        and not (self._closed and not self._pq
+                                 and self._prefill_busy == 0):
                     self._cv.wait(0.1)
-                if self._closed and not self._q and self._occupancy() == 0:
+                if self._closed and not self._q and not self._pq \
+                        and self._prefill_busy == 0 \
+                        and self._occupancy() == 0:
                     return
                 free = self._active.count(None)
                 admitted = [self._q.popleft()
                             for _ in range(min(free, len(self._q)))]
-            for req in admitted:
+            for item in admitted:
+                ready = isinstance(item, _Ready)
                 try:
-                    self._admit(req)
+                    if ready:
+                        self._admit_ready(item)
+                    else:
+                        self._admit(item)
                 except Exception as err:  # noqa: BLE001 — to its future
-                    _fail(req, err)
+                    _fail(item.req if ready else item, err)
             self._reap()
             if self._occupancy() == 0:
                 continue
@@ -615,6 +707,112 @@ class DecodeServer:
         self._pending[slot] = first
         self._active[slot] = req
         _tel.set_gauge("serve.decode_slots_active", self._occupancy())
+
+    def _admit_ready(self, ready: _Ready):
+        """Claim a slot for a pool-prefilled request and redistribute its
+        row cache into the batch.  The ``serve.prefill_transfer`` fault
+        seam fires BEFORE the move, so an injected transfer fault leaves
+        the batch cache untouched: only this request's future fails, the
+        slot stays free, and the loop keeps serving."""
+        e = self.entry
+        req = ready.req
+        if self._dead_on_arrival(req):
+            return
+        caps = e.capacity_buckets
+        slot = self._active.index(None)
+        while not e.capacity_static and caps[self._cap_i] < ready.min_capacity:
+            self._grow()
+        if _chaos.active():
+            kind = _chaos.draw("serve.prefill_transfer")
+            if kind == "delay":
+                time.sleep(get_env("MXNET_FAULT_DELAY", 0.05, float))
+            elif kind is not None:
+                raise _chaos.ChaosError(
+                    "injected fault at 'serve.prefill_transfer' "
+                    f"(request {req.id})")
+        t0 = time.perf_counter()
+        self._cache = e.move(self._cache, ready.row_cache, slot)
+        _tel.observe("serve.cache_move_seconds", time.perf_counter() - t0)
+        ready.row_cache = None
+        self._lens[slot] = ready.cache_len
+        self._pending[slot] = req.tokens[-1]
+        self._active[slot] = req
+        _tel.set_gauge("serve.decode_slots_active", self._occupancy())
+
+    # ---------------------------------------------------- prefill pool
+    def _prefill_loop(self):
+        while True:
+            with self._cv:
+                while not self._closed and not self._pq:
+                    self._cv.wait(0.1)
+                if not self._pq:            # closed and drained
+                    return
+                req = self._pq.popleft()
+                self._prefill_busy += 1
+            ready = None
+            try:
+                ready = self._run_prefill(req)
+            except Exception as err:  # noqa: BLE001 — to its future
+                _fail(req, err)
+            with self._cv:
+                self._prefill_busy -= 1
+                if ready is not None:
+                    self._q.append(ready)
+                self._cv.notify_all()
+
+    def _run_prefill(self, req: _DecodeRequest) -> Optional[_Ready]:
+        """One request's prompt forward on the pool: prefix-trie lookup,
+        cold prefill or prefix-remainder forward, trie retention, first
+        token.  Returns the shipment for the decode loop, or None when
+        generation already finished (EOS / one-token budget)."""
+        if self._dead_on_arrival(req):
+            return None
+        e = self.entry
+        caps = e.capacity_buckets
+        t = len(req.prompt)
+        tp = e.prompt_policy.bucket(t)      # raises on over-long prompts
+        matched, chain = 0, []
+        if self.prefix is not None:
+            matched, chain = self.prefix.lookup(req.prompt)
+        if e.capacity_static:
+            src_cap = caps[0]
+        elif matched:
+            # the remainder window appends at `matched`, so the row needs
+            # matched + bucket(remainder) pages, which can exceed the cold
+            # bucket; an unfittable hit degrades to a miss
+            rem_bucket = e.prompt_policy.bucket(t - matched)
+            need = max(tp, matched + rem_bucket)
+            src_cap = next((c for c in caps if c >= need), None)
+            if src_cap is None:
+                matched, chain = 0, []
+        if not matched and not e.capacity_static:
+            src_cap = next(c for c in caps if c >= tp)
+        t0 = time.perf_counter()
+        if matched:
+            rem = t - matched
+            toks = np.zeros((1, rem_bucket), np.int64)
+            toks[0, :rem] = req.prompt[matched:]
+            last_logits, row_cache = e.prefill_window(
+                toks, self.prefix.materialize(chain, src_cap), matched, rem)
+            _tel.observe("serve.prefix_fill_seconds",
+                         time.perf_counter() - t0)
+        else:
+            toks = np.zeros((1, tp), np.int64)
+            toks[0, :t] = req.prompt
+            last_logits, row_cache = e.prefill(toks, t, src_cap)
+            _tel.observe("serve.prefill_seconds", time.perf_counter() - t0)
+        if self.prefix is not None:
+            self.prefix.insert(req.prompt, row_cache, t)
+        first = self._sample(req, last_logits)
+        req.tokens.append(first)
+        _emit(req, first)
+        _tel.inc("serve.tokens")
+        _tel.observe("serve.ttft_seconds", time.perf_counter() - req.t0)
+        if (e.eos_id is not None and first == e.eos_id) \
+                or req.max_new_tokens <= 1:
+            self._resolve(req)
+            return None
+        return _Ready(req, row_cache, t, src_cap, tp)
 
     def _ensure_capacity(self):
         """Grow the batch before a step whose append would overflow; at

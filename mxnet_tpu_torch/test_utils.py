@@ -18,7 +18,8 @@ import torch
 __all__ = ["attention_large_ds_inputs", "attention_split_probe_inputs",
            "attention_p_ds", "DECODE_PAIRS", "decode_case", "decode_bar",
            "xavier_init", "LOSS_CASES", "loss_inputs", "loss_run",
-           "box_op_runs", "box_exact_parts", "COLLIDING_TARGETS"]
+           "box_op_runs", "box_exact_parts", "COLLIDING_TARGETS",
+           "near_tie"]
 
 
 def xavier_init(block, seed: int):
@@ -28,6 +29,32 @@ def xavier_init(block, seed: int):
 
     random.seed(seed)
     return block.initialize(initializer.Xavier())
+
+
+def near_tie(lm, prompt, want, got, rel: float = 1e-4):
+    """Hold a served greedy answer ``got`` to a reference answer ``want``
+    of the same ``prompt`` by the near-tie rule: None where they are
+    equal, else ``(k, gap, scale, tie)`` at the first token ``k`` where
+    they differ.  One eager forward of ``prompt + want[:k]`` through
+    ``lm`` (a decode LM: ``lm(tokens, cache, cache_len, n_tokens)``)
+    gives the logits there: ``gap`` is the reference token's logit minus
+    the served one's, ``scale`` max|logit|, and ``tie`` whether both
+    tokens lie within ``rel * scale`` of the top logit (an answer may
+    leave the reference only there).  A length mismatch is no tie."""
+    k = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+    if k is None:
+        return None if len(want) == len(got) else \
+            (min(len(want), len(got)), float("inf"), 0.0, False)
+    seq = list(prompt) + list(want[:k])
+    with torch.no_grad():
+        logits, _ = lm(np.asarray([seq]), lm.begin_cache(1, len(seq)), [0],
+                       [len(seq)])
+    row = logits[0, -1].float()
+    scale = float(row.abs().max())
+    top = float(row.max())
+    low = min(float(row[want[k]]), float(row[got[k]]))
+    return (k, float(row[want[k]] - row[got[k]]), scale,
+            top - low <= rel * scale)
 
 
 def attention_large_ds_inputs(b, h, tk, d, tq=96):

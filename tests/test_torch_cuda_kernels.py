@@ -2304,3 +2304,131 @@ def test_hybridize_bn_act_workspace_made_by_the_warm_run(dev):
     streams = {cs.cuda_stream for cs in hyb._cached_op._streams.values()}
     assert streams and all((dev.index, st) in bn_act._WORKSPACE
                            for st in streams)
+
+
+def test_hybridize_bn_workspace_outlives_its_growth(dev):
+    """A hybridized channel-last ``BatchNormReLU`` (its training forward
+    runs ``bn_act_stats``) captured under ``autograd.record()`` at B = 2,
+    then at B = 16 (the statistics workspace of the capture stream grows),
+    then at B = 8; other work on that stream then takes what memory is
+    free there, and the B = 2 graph replays on new values: its outputs,
+    gradients and running statistics equal an eager twin's.  The B = 2 graph still
+    reads and writes the workspace it was captured over, so that
+    workspace must never be freed."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.kernels import bn_act
+
+    def make(where):
+        return xavier_init(nn.BatchNormReLU(axis=-1, in_channels=64,
+                                            device=where), 0)
+
+    eager, hyb = _twin_hyb(make, dev)
+    gen = torch.Generator().manual_seed(14)
+    # "2": new values at B = 2 for the last replay, so stale statistics
+    # from the graph's earlier replays cannot pass for right ones
+    xs = {b: (torch.rand(int(b), 14, 14, 64, generator=gen) - 0.3).to(dev)
+          for b in (2, 16, 8, "2")}
+    runs = {}
+
+    def step(net, b):
+        with autograd.record():
+            out = net(xs[b])
+            loss = (out * out).sum()
+        loss.backward()
+        return [out.detach().clone()] + \
+            [p.grad.clone() for p in net.parameters()] + \
+            [t.clone() for t in net.buffers()]
+
+    order = [2, 2, 16, 16, 8, 8]
+    for name, net in (("eager", eager), ("hyb", hyb)):
+        runs[name] = [step(net, b) for b in order]
+        if name == "hyb":
+            (cs,) = hyb._cached_op._streams.values()
+            key = (dev.index, cs.cuda_stream)
+            grown = bn_act._WORKSPACE[key]
+            # later work on the capture stream: small blocks, nonzero
+            with torch.cuda.stream(cs):
+                junk = [torch.full((256 * (i % 8 + 1),), 7, dtype=torch.int32,
+                                   device=dev) for i in range(512)]
+            cs.synchronize()
+            del junk
+        runs[name].append(step(net, "2"))
+    assert len(hyb._cached_op._graphs) == 3
+    assert grown[1].numel() >= bn_act.plan(
+        16 * 14 * 14, 64, torch.cuda.get_device_properties(dev)
+        .multi_processor_count, bn_act.STATS_COLS).splits * 2 * 64
+    for i, (got, want) in enumerate(zip(runs["hyb"], runs["eager"])):
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6,
+                                       msg=lambda m: f"call {i}: {m}")
+
+
+def test_prefill_pool_answers_ownership_and_hits(dev):
+    """The disaggregated server on the card: 2 prefill workers and 32
+    requests of one prompt bucket sharing an 8-token prefix, all queued
+    at once into 2 slots (prefills run ahead of free slots, the batch
+    grows, cross-capacity moves).  Every answer equals the unified
+    server's, or leaves it only at a near tie (top two logits within
+    1e-4 x max|logit|); each shipment's row cache is as its prefill left
+    it when the loop takes it; no capture happens after warmup; and the
+    prefix hits run the remainder at cache_len > 0."""
+    from mxnet_tpu_torch import serve, telemetry
+    from mxnet_tpu_torch.test_utils import near_tie
+
+    rs = np.random.RandomState(20)
+    head = rs.randint(1, 64, size=8).tolist()
+    prompts = [head + rs.randint(1, 64, size=int(k)).tolist()
+               for k in rs.randint(1, 9, size=32)]
+    lm = _decode_lm(dev)
+    uni = serve.DecodeServer(serve.DecodeEntry("uni", lm, **_DECODE_CFG))
+    try:
+        want = [f.result(300.0) for f in _submit_all(uni, prompts)]
+    finally:
+        uni.close(60.0)
+    entry = serve.DecodeEntry("pool", lm, **_DECODE_CFG)
+    srv = serve.DecodeServer(entry, prefill_workers=2)
+    shipped, intact, windows = {}, [], []
+    run_prefill, admit, window = (srv._run_prefill, srv._admit_ready,
+                                  entry.prefill_window)
+
+    def spy_prefill(req):
+        ready = run_prefill(req)
+        if ready is not None:
+            shipped[req.id] = [x.clone() for x in _leaves(ready.row_cache)]
+        return ready
+
+    def spy_admit(ready):
+        intact.append(all(torch.equal(a, b) for a, b in zip(
+            _leaves(ready.row_cache), shipped[ready.req.id])))
+        return admit(ready)
+
+    def spy_window(tokens, cache, cache_len, n_new):
+        windows.append(cache_len)
+        return window(tokens, cache, cache_len, n_new)
+
+    srv._run_prefill, srv._admit_ready = spy_prefill, spy_admit
+    entry.prefill_window = spy_window
+    telemetry.set_enabled(True)
+    telemetry.reset()
+    registry.reset_launches()
+    try:
+        got = [f.result(300.0) for f in _submit_all(srv, prompts)]
+        stats = srv.prefix.stats()
+    finally:
+        srv.close(60.0)
+    snap = telemetry.snapshot()
+    assert snap.get("hybridize.cache_misses", {}).get("value", 0) == 0
+    assert len(intact) == len(prompts) and all(intact)
+    hits = [c for c in windows if c > 0]
+    assert stats["hits"] == len(hits) >= 1 and all(c == 8 for c in hits)
+    assert snap["serve.prefix_fill_seconds"]["count"] == len(hits)
+    assert snap["serve.prefill_seconds"]["count"] == len(prompts) - len(hits)
+    assert snap["serve.cache_grows"]["value"] >= 1
+    steps = snap["serve.decode_step_seconds"]["count"]
+    assert registry.launches()["flash_attention_decode"] >= \
+        2 * (steps + len(prompts))
+    ties = [(i, near_tie(lm, p, w, g)) for i, (p, w, g) in
+            enumerate(zip(prompts, want, got)) if w != g]
+    assert all(t[1][3] for t in ties), ties
+    assert len(ties) <= 2, ties

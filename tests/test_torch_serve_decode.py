@@ -194,17 +194,36 @@ def test_worker_thread_named_and_joined():
     assert not srv._thread.is_alive()
 
 
-@pytest.mark.parametrize("kw", [{"prefill_workers": 2},
-                                {"prefix_cache": True}])
+@pytest.mark.parametrize("kw", [{"prefill_workers": -1},
+                                {"prefill_workers": 1, "prefix_cache": True}])
 def test_later_slice_options_raise(kw):
-    _, tlm, _ = twin_lms(seed=29)
-    entry = serve.DecodeEntry("tlm", tlm, slots=1, prompt_buckets=(4,),
-                              capacity_buckets=(8,), warmup=False)
-    with pytest.raises(MXNetError, match="later slice"):
-        serve.DecodeServer(entry, **kw)
-    with pytest.raises(MXNetError, match="later slice"):
-        serve.register_decode("later", tlm, slots=1, prompt_buckets=(4,),
-                              capacity_buckets=(8,), warmup=False, **kw)
+    """The refusals of the JAX server that remain once the prefill pool
+    and the prefix cache are ported: a negative pool size, and a prefix
+    cache asked for on a capacity-static (LSTM) model.  Both packages
+    refuse, through ``DecodeServer`` and through ``register_decode``."""
+    from mxnet_tpu import serve as jserve
+    from mxnet_tpu.base import MXNetError as JaxMXNetError
+    from mxnet_tpu.gluon.model_zoo import lstm_lm as jax_lstm_lm
+    from mxnet_tpu_torch.gluon.model_zoo import lstm_lm
+
+    if "prefix_cache" in kw:
+        jlm = jax_lstm_lm(vocab_size=32, units=8, num_layers=1)
+        tlm = lstm_lm(vocab_size=32, units=8, num_layers=1, device="cpu")
+        match = "capacity-independent"
+    else:
+        jlm, tlm, _ = twin_lms(seed=29)
+        match = "prefill_workers must be >= 0"
+    cfg = dict(slots=1, prompt_buckets=(4,), capacity_buckets=(8,),
+               warmup=False)
+    for srv_mod, lm, err in ((jserve, jlm, JaxMXNetError),
+                             (serve, tlm, MXNetError)):
+        entry = srv_mod.DecodeEntry("tlm", lm, **cfg)
+        with pytest.raises(err, match=match):
+            srv_mod.DecodeServer(entry, **kw)
+    with pytest.raises(MXNetError, match=match):
+        serve.register_decode("later", tlm, **cfg, **kw)
+    with pytest.raises(MXNetError):
+        serve.decode_server("later")
 
 
 def test_entry_validation():
