@@ -561,6 +561,30 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     Ring attention on ``{"sp": 2}`` (T 8192) and (d) experts on
     ``{"ep": 2}`` (E 8, 2048 tokens a rank) against their one-rank
     references and the references' gradients.  Held to 150 s.
+65. Gluon's layers and deferred shapes (A6c) with Inception v3: (a)
+    ``get_model("inceptionv3", layout="NHWC")`` with every width
+    deferred, Xavier, one call on a (2, 299, 299, 3) batch that finishes
+    the deferred init, then scored as ``bench.py`` ``_infer_child(
+    "inceptionv3_b32")`` runs it: B=32 on 299^2 in f32 and, after
+    ``cast(bf16)``, in bf16, each eager and captured (``hybridize()``,
+    the captured scores within 1e-6 x max of the eager ones); no kernel
+    of the port launched, every parameter and running statistic bf16,
+    and bf16 B=2 scores on the card against the CPU at phase 38's bar.
+    (b) A fresh deferred Inception v3 refused by ``ShardedTrainer`` with
+    ``DeferredInitializationError``, then run once and trained for 5
+    steps at B=32 in bf16 (sgd, momentum 0.9): ``opt_arena`` in its
+    momentum mode once a step and no other kernel, and step 1 at B=2 on
+    the card against the CPU at phase 30's rule (dropout's rate 0 in
+    those nets: each device draws its own masks); the arena at Inception
+    v3's parameter count beside its plain version and
+    ``torch._fused_sgd_``.  (c) A Gluon user's net of A6c's layers
+    with every width but PReLU's deferred (``Sequential``,
+    ``HybridConcatenate``, ``Conv2D``, ``GroupNorm``, ``InstanceNorm``,
+    ``PReLU``, ``AvgPool2D(ceil_mode=True)``, ``Conv2DTranspose``,
+    ``ReflectionPad2D``, ``PixelShuffle2D``, ``Dense``; widths 64-256),
+    trained eagerly for 3 steps through ``gluon.Trainer`` built before
+    the first call, then hybridized: captured scores within 1e-6 x max
+    of the eager ones.  Held to 90 s.
 
 It prints a ``{"kernels": [...]}`` line, the card line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -8968,6 +8992,418 @@ def phase_mesh_axes(dev, card):
             "moe_ep": moe, "world_seconds": world_s, "seconds": secs}
 
 
+# -- phase 65: Gluon's layers and deferred shapes (A6c), Inception v3 --------
+# bench.py's inceptionv3_b32 (bench.py:694): B=32 on 299^2, 1000 classes;
+# the tail's AvgPool2D(8) fixes the image size (bench.py:713-714)
+INCEPTION = dict(batch=32, image=299, classes=1000, steps=5, check_batch=2)
+INC_SECS = 90.0               # the phase's budget (all three parts)
+# part (c): a user's net of A6c's layers, channel-first (GroupNorm,
+# InstanceNorm, ReflectionPad2D and PixelShuffle2D are), on 32 x 32 images
+DEFERRED_NET = dict(batch=16, image=32, classes=10, steps=3)
+
+
+def inception_deferred(dev, seed=0, dropout=None):
+    """``get_model("inceptionv3", layout="NHWC")`` on ``dev`` with every
+    width deferred, initialized as ``bench.py`` does (``mx.random.seed``
+    then Xavier), and one call on a (2, 299, 299, 3) batch, which infers
+    the widths and draws the values (``bench.py:723``).  ``dropout``
+    sets the rate of its one dropout layer."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    from mxnet_tpu_torch.gluon.parameter import is_deferred
+
+    c = INCEPTION
+    net = xavier_init(get_model("inceptionv3", layout="NHWC",
+                                classes=c["classes"], device=dev), seed)
+    late = sum(is_deferred(p) for p in net.parameters())
+    check(late == len(list(net.parameters())) - 1,
+          f"Inception v3: {late} deferred parameters before the first call")
+    if dropout is not None:
+        net.features[19]._rate = dropout
+    with torch.no_grad():
+        net(torch.zeros(2, c["image"], c["image"], 3, device=dev))
+    check(not any(is_deferred(t) for t in net.state_dict().values()),
+          "a width of Inception v3 is still deferred after its first call")
+    return net
+
+
+def phase_inception_scoring(dev, card):
+    """Phase 65 (a), as ``bench.py`` ``_infer_child("inceptionv3_b32")``
+    scores: f32, then ``cast(bf16)`` with a bf16 input, each eager and
+    captured (``score_run``: 3 warm and ``INFER_STEPS`` timed batches);
+    then bf16 B=2 scores on the card against the CPU (phase 38's bar)."""
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch.kernels import registry
+
+    bf16, c = torch.bfloat16, INCEPTION
+    net = inception_deferred(dev)
+    x32 = torch.from_numpy(np.random.RandomState(0).rand(
+        c["batch"], c["image"], c["image"], 3).astype(np.float32)).to(dev)
+    rows = {}
+    registry.reset_launches()
+    for label in ("f32", "bf16"):
+        if label == "bf16":
+            net.cast(bf16)
+        x = x32 if label == "f32" else x32.to(bf16)
+        for mode in ("eager", "captured"):
+            net.hybridize(mode == "captured")
+            rows[f"{label}_{mode}"] = r = score_run(net, x)
+            print(f"  Inception v3 {label} {mode} B={c['batch']}: "
+                  f"{r['img_per_s']:.1f} img/s, {r['ms_per_batch']:.3f} ms "
+                  f"a batch, peak {r['peak_gib']:.2f} GiB")
+        with torch.inference_mode():
+            captured = net(x).float()
+            net.hybridize(False)
+            eager = net(x).float()
+        dist = hyb_dist([captured], [eager])
+        check(dist <= HYB_BAR, f"Inception v3 {label}: captured vs eager "
+              f"{dist:.3e} x max|eager|")
+        rows[f"{label}_captured_vs_eager"] = dist
+    launched = {k: v for k, v in registry.launches().items() if v}
+    check(not launched, f"scoring launched the port's kernels: {launched}")
+    check(all(p.dtype == bf16 for p in net.parameters()) and
+          all(b_.dtype == bf16 for b_ in net.buffers()),
+          "the cast left a parameter or running statistic in f32")
+    del x32, x
+    # bf16 B=2 on the card against the CPU (phase 38's bar)
+    xs = np.random.RandomState(1).rand(c["check_batch"], c["image"],
+                                       c["image"], 3).astype(np.float32)
+    cpu32 = convert.load_into(
+        get_inception_cpu(), {k: v.float().cpu().numpy()
+                              for k, v in net.state_dict().items()})
+    with torch.inference_mode():
+        got = net(torch.from_numpy(xs).to(dev).to(bf16)).float().cpu()
+        ref32 = cpu32(torch.from_numpy(xs))
+        ref16 = cpu32.cast(bf16)(torch.from_numpy(xs).to(bf16)).float()
+    own = (ref16 - ref32).abs().max().item()
+    delta = (got - ref16).abs().max().item()
+    bar = max(2.0 ** -4 * ref16.abs().max().item(), 3 * own)
+    check(bool(torch.isfinite(got).all()) and delta <= bar,
+          f"Inception v3 bf16 scores card vs CPU {delta:.3e} > {bar:.3e}")
+    print(f"  B=2 299x299 card vs CPU bf16 scores: {delta:.3e} (bar "
+          f"{bar:.3e}: the larger of 2^-4 x max|cpu| and 3 x the CPU's own "
+          f"bf16-f32 distance {own:.3e})")
+    rows["card_vs_cpu"] = dict(delta=delta, bar=bar, cpu_bf16_vs_f32=own)
+    del net, cpu32
+    torch.cuda.empty_cache()
+    return rows
+
+
+def get_inception_cpu(dropout=None):
+    """Inception v3 on the CPU with its widths deferred (to be loaded by
+    ``convert.load_into``)."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+
+    net = get_model("inceptionv3", layout="NHWC",
+                    classes=INCEPTION["classes"], device="cpu")
+    if dropout is not None:
+        net.features[19]._rate = dropout
+    return net
+
+
+def inception_step1(dev):
+    """Step 1 of phase 65 (b)'s trainer at B=2 in bf16 on the card and on
+    the CPU, and in f32 on the CPU (phase 30's rule), on the card net's
+    values, with the dropout layer's rate at 0."""
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    c = INCEPTION
+    card_net = inception_deferred(dev, seed=1, dropout=0.0)
+    values = {k: v.detach().cpu().clone().numpy()
+              for k, v in card_net.state_dict().items()}
+    out = []
+    for where, dt in ((dev, torch.bfloat16), ("cpu", torch.bfloat16),
+                      ("cpu", None)):
+        net = card_net if where == dev else convert.load_into(
+            get_inception_cpu(dropout=0.0), values)
+        x, y = resnet_batch(c["check_batch"], c["image"], c["classes"],
+                            seed=1, dev=where)
+        tr = ShardedTrainer(net, resnet_ce, optimizer="sgd",
+                            learning_rate=0.05, momentum=0.9,
+                            compute_dtype=dt)
+        loss = tr.step(x, y, block=True)
+        grads = {n: p.grad.detach().cpu().clone()
+                 for n, p in zip(tr.train_names, tr.params)}
+        stats = {n: b.detach().cpu().clone() for n, b in net.named_buffers()}
+        out.append((loss, grads, stats))
+        del tr, net
+    del card_net
+    (gl, gg, gs), (cl, cg, cs), (_, fg, fs) = out
+    rel = abs(gl - cl) / abs(cl)
+    check(rel <= HALF_LOSS_RTOL, f"Inception v3 bf16 step-1 loss card {gl} "
+          f"vs CPU {cl}: rel {rel:.3e} over {HALF_LOSS_RTOL}")
+    worst = {}
+    for kind, got, want, f32 in (("grad", gg, cg, fg), ("stat", gs, cs, fs)):
+        top_rel, top_noise, top_bar = ("", 0.0), ("", 0.0), ("", 0.0)
+        for name, w in want.items():
+            top = w.abs().max().item()
+            err = (got[name] - w).abs().max().item()
+            noise = (w - f32[name]).abs().max().item()
+            bar = max(HALF_GRAD_TOL * top, HALF_NOISE_BARS * noise)
+            check(err <= bar, f"Inception v3 bf16 {kind} {name}: card vs CPU "
+                  f"{err:.3e} > max({HALF_GRAD_TOL} x {top:.3e}, "
+                  f"{HALF_NOISE_BARS} x the CPU's bf16 vs f32 {noise:.3e})")
+            if top > 0 and err / top > top_rel[1]:
+                top_rel = (name, err / top)
+            if noise > 0 and err / noise > top_noise[1]:
+                top_noise = (name, err / noise)
+            if err / bar > top_bar[1]:
+                top_bar = (name, err / bar)
+        worst[kind] = dict(rel=top_rel, to_noise=top_noise, to_bar=top_bar)
+    print(f"  step 1 at B=2 card vs CPU in bf16: loss {gl:.6f} vs {cl:.6f} "
+          f"(rel {rel:.3e}, bar {HALF_LOSS_RTOL}); worst gradient "
+          f"{worst['grad']['rel'][1]:.3e} x max|g| "
+          f"({worst['grad']['rel'][0]}), worst running statistic "
+          f"{worst['stat']['rel'][1]:.3e} x max ({worst['stat']['rel'][0]});"
+          f" against the CPU's bf16-to-f32 distance at most "
+          f"{worst['grad']['to_noise'][1]:.3f}x and "
+          f"{worst['stat']['to_noise'][1]:.3f}x; bar max({HALF_GRAD_TOL} x "
+          f"max, {HALF_NOISE_BARS} x that distance), reached at most "
+          f"{worst['grad']['to_bar'][1]:.3f} ({worst['grad']['to_bar'][0]})"
+          f" and {worst['stat']['to_bar'][1]:.3f} "
+          f"({worst['stat']['to_bar'][0]})")
+    return dict(loss_rel_err=rel, grad_rel_err=worst["grad"]["rel"][1],
+                worst_grad=worst["grad"]["rel"][0],
+                grad_to_noise=worst["grad"]["to_noise"][1],
+                stat_rel_err=worst["stat"]["rel"][1],
+                worst_stat=worst["stat"]["rel"][0],
+                stat_to_noise=worst["stat"]["to_noise"][1],
+                grad_to_bar=worst["grad"]["to_bar"][1],
+                stat_to_bar=worst["stat"]["to_bar"][1])
+
+
+def inception_arena_row(dev, shapes):
+    """The arena kernel in its momentum mode over an arena of Inception
+    v3's parameters (``build_layout`` of their shapes), as phase 49 times
+    it: device time, the plain version's by events,
+    ``torch._fused_sgd_``'s device time and the bytes bound (g and m
+    read, m and delta written, 4 bytes each)."""
+    from mxnet_tpu_torch.kernels import opt_arena as oa
+
+    lay = oa.build_layout(shapes)
+    g, st = arena_inputs(lay, oa.VARIANT_STATES["momentum"], seed=65,
+                         dev=dev)
+    ref = [s_.clone() for s_ in st]
+    kw = dict(momentum=0.9)
+    d, _ = oa.arena_update("momentum", g, st, 0.05, 3, **kw)
+    d_ref, _ = oa.arena_update_reference("momentum", g, ref, 0.05, 3, **kw)
+    err = (d - d_ref).abs().max().item()
+    check(err <= 1e-6 * d_ref.abs().max().item(),
+          f"arena momentum at Inception v3's arena: {err:.3e}")
+    ms = device_ms_per_call(lambda i: oa.arena_update(
+        "momentum", g, st, 0.05, 3, **kw), 1, calls=10)
+    plain = cuda_time_ms(lambda i: oa.arena_update_reference(
+        "momentum", g, st, 0.05, 3, **kw), 1, iters=5, reps=3)
+    lib = None
+    if hasattr(torch, "_fused_sgd_"):
+        p, buf = torch.zeros_like(g), [torch.zeros_like(g)]
+        lib = device_ms_per_call(lambda i: torch._fused_sgd_(
+            [p], [g], buf, weight_decay=0.0, momentum=0.9, lr=0.05,
+            dampening=0.0, nesterov=False, maximize=False,
+            is_first_step=False), 1, calls=10)
+    nbytes = 4 * lay.padded * 4
+    bnd = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  arena momentum over Inception v3's {lay.total} parameters "
+          f"({lay.padded} padded): kernel {ms:.4f} ms device time, bound "
+          f"{bnd:.4f} ms ({nbytes} B / 3.35e12 B/s; {bnd / ms:.2f} of it), "
+          f"plain {plain:.4f} ms (events), torch._fused_sgd_ "
+          f"{'n/a' if lib is None else f'{lib:.4f} ms'} device time")
+    return dict(elements=lay.padded, parameters=lay.total, ms=ms,
+                plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                bound_by="bytes", max_abs_err=err)
+
+
+def phase_inception_train(dev, card):
+    """Phase 65 (b): ``ShardedTrainer`` refuses the deferred net, then
+    trains it after one call: 5 bf16 steps at B=32 on 299^2 (sgd,
+    momentum 0.9), the launch counts set to 0 just before them; step 1
+    against the CPU; the arena at Inception v3's size."""
+    from mxnet_tpu_torch.base import DeferredInitializationError
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    from mxnet_tpu_torch.kernels import registry
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    c = INCEPTION
+    kw = dict(optimizer="sgd", learning_rate=0.05, momentum=0.9,
+              compute_dtype=torch.bfloat16)
+    late = xavier_init(get_model("inceptionv3", layout="NHWC",
+                                 classes=c["classes"], device=dev), 0)
+    try:
+        ShardedTrainer(late, resnet_ce, **kw)
+        refused = ""
+    except DeferredInitializationError as e:
+        refused = str(e)
+    check("features.0.0.weight" in refused and "run the block once" in
+          refused, f"ShardedTrainer took a deferred net: {refused!r}")
+    del late
+    net = inception_deferred(dev)
+    tr = ShardedTrainer(net, resnet_ce, **kw)
+    check(tr.uses_arena, "the trainer did not pick the arena adapter")
+    shapes = [tuple(p.shape) for p in tr.params]
+    x, y = resnet_batch(c["batch"], c["image"], c["classes"], seed=0,
+                        dev=dev)
+    stat = net.features[0][1].running_mean
+    stat0 = stat.clone()
+    steps = c["steps"]
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(steps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    registry.reset_launches()
+    losses = []
+    for i in range(steps):
+        starts[i].record()
+        losses.append(tr.step(x, y))
+        ends[i].record()
+    tr.drain()
+    torch.cuda.synchronize()
+    launches = registry.launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = [s_.elapsed_time(e) for s_, e in zip(starts, ends)]
+    vals = [float(v) for v in losses]
+    check(launches.get("opt_arena", 0) == steps,
+          f"opt_arena launched {launches.get('opt_arena', 0)} times in "
+          f"{steps} steps")
+    check(all(v == 0 for k, v in launches.items() if k != "opt_arena"),
+          f"other kernels launched: {launches}")
+    check(all(math.isfinite(v) for v in vals), f"non-finite loss: {vals}")
+    check(vals[-1] < vals[0], f"loss did not fall: {vals}")
+    check(all(p.dtype == torch.float32 for p in net.parameters()),
+          "a master parameter left f32")
+    check(not torch.equal(stat, stat0), "the running statistics never moved")
+    sps = c["batch"] * (steps - 1) * 1e3 / sum(step_ms[1:])
+    del tr, net, x, y
+    torch.cuda.empty_cache()
+    out = dict(samples_per_s=sps, step_ms=step_ms,
+               step_p50_ms=statistics.median(step_ms[1:]),
+               peak_mem_bytes=peak, steps=steps, batch=c["batch"],
+               losses=vals, launches={k: v for k, v in launches.items()
+                                      if v})
+    print(f"  Inception v3 bf16 training B={c['batch']} 299x299: loss by "
+          f"step {' '.join(f'{v:.4f}' for v in vals)}; {sps:.2f} samples/s "
+          f"over steps 2-{steps} (CUDA events; step 1 {step_ms[0]:.1f} ms), "
+          f"peak {peak / 2**30:.2f} GiB; launches {out['launches']} "
+          f"[{card}]")
+    out["card_vs_cpu"] = inception_step1(dev)
+    out["arena"] = inception_arena_row(dev, shapes)
+    return out
+
+
+def deferred_gluon_net(dev):
+    """Phase 65 (c)'s net: every width but PReLU's (which never infers)
+    left to the first call; ``AvgPool2D(ceil_mode=True)`` gives its
+    branch the 16 x 16 map the other branch has (the valid convention
+    would give 15, and the concatenation would refuse it)."""
+    from mxnet_tpu_torch.gluon import nn
+
+    kw = dict(device=dev)
+    stem = nn.HybridSequential().add(
+        nn.ReflectionPad2D(1), nn.Conv2D(64, 3, in_channels=0, **kw),
+        nn.GroupNorm(4, **kw), nn.PReLU(**kw))
+    branches = nn.HybridConcatenate(axis=1).add(
+        nn.Conv2D(64, 1, strides=2, **kw),
+        nn.HybridSequential().add(nn.AvgPool2D(3, 2, ceil_mode=True),
+                                  nn.Conv2D(128, 1, **kw)))
+    head = nn.HybridSequential().add(
+        nn.InstanceNorm(**kw), nn.Conv2D(256, 3, padding=1, **kw),
+        nn.PixelShuffle2D(2), nn.Conv2D(128, 3, strides=2, padding=1, **kw),
+        nn.Activation("relu"),
+        nn.Conv2DTranspose(64, 4, strides=2, padding=1, **kw),
+        nn.AvgPool2D(4), nn.Dense(256, activation="relu", in_units=0, **kw),
+        nn.Dense(DEFERRED_NET["classes"], **kw))
+    return nn.Sequential().add(stem, branches, head)
+
+
+def phase_deferred_gluon(dev, card):
+    """Phase 65 (c): the net above, ``gluon.Trainer`` built before its
+    first call, 3 eager steps (record, loss, backward, step), then
+    ``hybridize()``: each hybrid child captured, scores within
+    ``HYB_BAR`` of the eager ones."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.parameter import is_deferred
+    from mxnet_tpu_torch.kernels import registry
+
+    c = DEFERRED_NET
+    net = xavier_init(deferred_gluon_net(dev), 65)
+    params = net.collect_params()
+    late = sorted(n for n, p in params.items() if is_deferred(p))
+    check(len(late) == 12, f"deferred before the first call: {late}")
+    trainer = gluon.Trainer(params, "sgd", {"learning_rate": 0.05,
+                                            "momentum": 0.9})
+    rs = np.random.RandomState(65)
+    x = torch.from_numpy(rs.rand(c["batch"], 3, c["image"], c["image"])
+                         .astype(np.float32)).to(dev)
+    y = torch.from_numpy(rs.randint(0, c["classes"], size=(c["batch"],))
+                         .astype(np.int64)).to(dev)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    losses, before = [], None
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(c["steps"]):
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        autograd.backward(loss)
+        if i == 0:
+            before = {n: p.detach().clone() for n, p in params.items()}
+        trainer.step(c["batch"])
+        losses.append(float(loss.detach().mean()))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launched = {k: v for k, v in registry.launches().items() if v}
+    check(not any(is_deferred(t) for t in net.state_dict().values()),
+          "a width is still deferred after the first step")
+    check(net.collect_params().keys() == params.keys() and all(
+        net.collect_params()[n] is p for n, p in params.items()),
+        "materializing replaced a parameter object")
+    moved = [n for n, p in params.items() if not torch.equal(p, before[n])]
+    check(len(moved) == len(params), f"parameters the trainer never moved: "
+          f"{sorted(set(params) - set(moved))}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+    widths = {n: tuple(params[n].shape) for n in late}
+    with torch.no_grad():
+        eager = net(x)
+        net.hybridize()
+        net(x)                                  # the eager first call
+        net(x)                                  # warm run + capture
+        captured = net(x)
+    dist = hyb_dist([captured], [eager])
+    check(dist <= HYB_BAR, f"deferred net: captured vs eager {dist:.3e}")
+    traced = [len(b._cached_op._traced) for b in net
+              if b._cached_op is not None]
+    check(traced == [1, 1, 1], f"captured signatures by child: {traced}")
+    print(f"  a Gluon user's net of A6c's layers (widths 64-256, B="
+          f"{c['batch']} {c['image']}x{c['image']}): {len(late)} deferred "
+          f"tensors inferred at the first step ({widths}); loss "
+          f"{' '.join(f'{v:.4f}' for v in losses)} through gluon.Trainer in "
+          f"{train_s:.2f} s; captured vs eager {dist:.3e} x max; kernels "
+          f"launched {launched or 'none'} [{card}]")
+    return dict(deferred=len(late), widths={n: list(w) for n, w in
+                                            widths.items()},
+                losses=losses, train_s=train_s, captured_vs_eager=dist,
+                launches=launched)
+
+
+def phase_inception(dev, card):
+    """Phase 65: (a) scoring, (b) training, (c) the deferred Gluon net."""
+    t0 = time.perf_counter()
+    scoring = phase_inception_scoring(dev, card)
+    train = phase_inception_train(dev, card)
+    gluon_net = phase_deferred_gluon(dev, card)
+    secs = time.perf_counter() - t0
+    print(f"phase 65 Gluon's layers and deferred shapes: Inception v3 "
+          f"scoring bf16 {scoring['bf16_eager']['img_per_s']:.1f} img/s eager"
+          f" and {scoring['bf16_captured']['img_per_s']:.1f} captured at "
+          f"B=32 (f32 {scoring['f32_eager']['img_per_s']:.1f} and "
+          f"{scoring['f32_captured']['img_per_s']:.1f}), training bf16 "
+          f"{train['samples_per_s']:.2f} samples/s, opt_arena "
+          f"{train['launches'].get('opt_arena', 0)} launches in "
+          f"{train['steps']} steps; phase {secs:.1f} s [{card}]")
+    check(secs <= INC_SECS, f"phase 65 took {secs:.1f} s")
+    return dict(scoring=scoring, train=train, deferred_gluon=gluon_net,
+                seconds=secs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -9060,6 +9496,8 @@ def main() -> int:
     dp_pair = dp["two_ranks_gloo"]
     axes = phase_mesh_axes(dev, card)
     ma_bert_runs = axes["bert"]
+    inception = phase_inception(dev, card)
+    inc_train = inception["train"]
 
     def ma_launches(name, runs):
         """Phase 64's launches of kernel ``name``, by run and rank."""
@@ -9161,11 +9599,15 @@ def main() -> int:
         source=f"mxnet_tpu_torch/csrc/{src}", replaces=replaces,
         launches=train_launches["opt_arena"]
         + lstm_train["launches"]["opt_arena"]
-        + ssd_train["launches"]["opt_arena"],
+        + ssd_train["launches"]["opt_arena"]
+        + inc_train["launches"]["opt_arena"],
         launches_by_variant={
             "adam": train_launches["opt_arena"],
             "sgd": lstm_train["launches"]["opt_arena"],
-            "momentum": ssd_train["launches"]["opt_arena"]},
+            "momentum": ssd_train["launches"]["opt_arena"]
+            + inc_train["launches"]["opt_arena"]},
+        launches_phase65=inc_train["launches"]["opt_arena"],
+        inceptionv3_momentum=inc_train["arena"],
         launches_schedule_accum=sched_accum["launches_opt_arena"],
         launches_phase62=bucketed["runs"]["prefetch"]["launches"].get(
             "opt_arena", 0),
@@ -9386,13 +9828,19 @@ def main() -> int:
           f"{dp['one_rank_nccl']['bert']['samples_per_s_per_device']:.2f} "
           f"samples/s a device under zero1 on one NCCL rank, "
           f"{dp['seconds']:.1f} s; the other mesh axes (phase 64) "
-          f"{axes['seconds']:.1f} s; whole run "
+          f"{axes['seconds']:.1f} s; Inception v3 (phase 65) bf16 "
+          f"scoring {inception['scoring']['bf16_captured']['img_per_s']:.1f}"
+          f" img/s captured at B=32, training "
+          f"{inc_train['samples_per_s']:.2f} samples/s, "
+          f"{inception['seconds']:.1f} s; whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels,
                       "serve": {"f32": f32, "int8": i8, "bert": bert,
                                 "bf16": serve_bf16, "bert_bf16": bert_bf16,
                                 "resnet50_scoring": resnet_infer,
-                                "lstm_lm": lstm_serve},
+                                "lstm_lm": lstm_serve,
+                                "inceptionv3_scoring":
+                                    inception["scoring"]},
                       "train": {"bert_base": train, "card_vs_cpu": train_cpu,
                                 "resnet50": resnet,
                                 "resnet_card_vs_cpu": resnet_cpu,
@@ -9413,7 +9861,10 @@ def main() -> int:
                                 "lstm_lm": lstm_train,
                                 "ssd_resnet50": ssd_train,
                                 "ssd_card_vs_cpu": ssd_cpu,
-                                "ssd_drive": ssd_drive},
+                                "ssd_drive": ssd_drive,
+                                "inceptionv3": inc_train,
+                                "deferred_gluon":
+                                    inception["deferred_gluon"]},
                       "hybridize": {"block": hyb_block,
                                     "decode": hyb_decode,
                                     "lstm_lm": hyb_lstm,

@@ -10,8 +10,8 @@ from __future__ import annotations
 import os
 from typing import Any, Callable, Dict, Generic, Iterator, Optional, TypeVar
 
-__all__ = ["MXNetError", "set_error_hook", "get_env", "data_dir",
-           "Registry"]
+__all__ = ["MXNetError", "DeferredInitializationError", "set_error_hook",
+           "get_env", "data_dir", "Registry"]
 
 # Observer called with every constructed MXNetError (the trace flight
 # recorder arms this to dump its span rings at the failure point, even
@@ -40,6 +40,17 @@ class MXNetError(RuntimeError):
                 hook(self)
             except Exception:
                 pass
+
+
+class DeferredInitializationError(MXNetError):
+    """A tensor whose shape waits for the first forward was used before
+    it (``mxnet_tpu/base.py:56``); ``Block.__call__`` catches it, infers
+    the layer's widths from the input and runs the forward again.  The
+    error hook is not called: the first forward of every deferred layer
+    raises one, and that is no failure."""
+
+    def __init__(self, *args):
+        RuntimeError.__init__(self, *args)
 
 
 _TRUE = {"1", "true", "yes", "on"}

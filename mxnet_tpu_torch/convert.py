@@ -108,8 +108,11 @@ def load_into(module: torch.nn.Module,
               named_numpy: Mapping[str, np.ndarray]) -> torch.nn.Module:
     """Copy the JAX package's parameter values into ``module``'s
     parameters and buffers (on its own device) and mark them
-    initialized; raises when names or shapes do not match one to one."""
-    from .gluon.parameter import mark_initialized
+    initialized; raises when names or shapes do not match one to one.  A
+    tensor whose width waits for the first forward takes the JAX
+    array's shape (loading finishes a deferred init, as the JAX
+    ``Parameter.set_data`` does)."""
+    from .gluon.parameter import is_deferred, mark_initialized, materialize
 
     state = params_from_jax(named_numpy)
     own = dict(module.named_parameters())
@@ -121,6 +124,9 @@ def load_into(module: torch.nn.Module,
                          f"unexpected {extra}")
     for name, p in own.items():
         src = state[name]
+        if is_deferred(p):
+            p.__dict__.pop("_mx_deferred", None)
+            materialize(p, src.shape)
         if tuple(src.shape) != tuple(p.shape):
             raise MXNetError(f"{name}: shape {tuple(src.shape)} from JAX, "
                              f"{tuple(p.shape)} in the port")

@@ -72,20 +72,73 @@ from .. import initializer as _init
 from .. import random as _random
 from .. import telemetry as _tel
 from ..analysis import retrace as _retrace
-from ..base import MXNetError
+from ..base import DeferredInitializationError, MXNetError
 from ..context import resolve_device
 from ..jit.bucketing import ShapeBucketer
 from ..kernels import registry as _kreg
 from ..trace import recorder as _tr
 from .parameter import (GradReqHooks, carry_marks, initialized,
-                        mark_initialized, recorded_init, rehook,
-                        set_grad_req)
+                        is_deferred, mark_initialized, materialize,
+                        recorded_init, rehook, retype, set_grad_req)
 
 __all__ = ["Block", "HybridBlock", "WarmupHandle", "trace_guard",
            "pipeline_atoms"]
 
 class Block(nn.Module):
     """Base block (module docstring)."""
+
+    def __call__(self, *args, **kwargs):
+        try:
+            return super().__call__(*args, **kwargs)
+        except DeferredInitializationError:
+            # a width of this block's own tensors waits for its input
+            # (``gluon.parameter``): infer it, materialize, run again, as
+            # the JAX ``Block.__call__`` does; each child handles its own
+            if not self._own_deferred():
+                raise
+            self._deferred_infer_and_init(*args, **kwargs)
+            return super().__call__(*args, **kwargs)
+
+    def _own_deferred(self) -> List[Tuple[str, torch.Tensor]]:
+        return [(n, t) for d in (self._parameters, self._buffers)
+                for n, t in d.items() if t is not None and is_deferred(t)]
+
+    @torch.no_grad()
+    def _deferred_infer_and_init(self, *args, **kwargs):
+        """``infer_shape`` from the first input, then each deferred
+        tensor of this block materialized and drawn from the initializer
+        that ``initialize`` recorded for it (``Parameter.
+        _finish_deferred_init``)."""
+        own = self._own_deferred()
+        for name, t in own:
+            if "_mx_deferred" not in t.__dict__:
+                raise MXNetError(
+                    f"Parameter '{name}' of {type(self).__name__} has not "
+                    "been initialized. You should initialize parameters "
+                    "with Block.initialize().")
+        self.infer_shape(*args, **kwargs)
+        for name, t in own:
+            ini, full = t.__dict__.pop("_mx_deferred")
+            materialize(t)
+            ini(_init.InitDesc(full), t)
+            mark_initialized(t)
+
+    def infer_shape(self, *args, **kwargs):
+        """Set the shapes of this block's deferred tensors from its
+        inputs (``gluon.parameter.set_shape``); the layers that infer a
+        width override it (the JAX ``HybridBlock.infer_shape``)."""
+        raise MXNetError(
+            f"{type(self).__name__} has deferred-init parameters but does "
+            "not implement infer_shape")
+
+    def register_child(self, block, name: Optional[str] = None):
+        """Add ``block`` as a child named ``name`` (its index among the
+        children when None), as the JAX ``Block.register_child`` does;
+        the child is a torch submodule, so its parameters take the name
+        as their prefix."""
+        self.add_module(name if name is not None else str(len(self._modules)),
+                        block)
+        return block
 
     def collect_params(self, select: Optional[str] = None
                        ) -> Dict[str, nn.Parameter]:
@@ -130,13 +183,17 @@ class Block(nn.Module):
             where = where[0] if where else None
         if where is not None:
             self._move(resolve_device(where))
-        for name, t in self._saved().items():
+        for name, t in self._saved(deferred=True).items():
             if initialized(t) and not force_reinit:
                 continue
             ini = recorded_init(t)
             ini = default if ini is None else ini
             if isinstance(ini, str):
                 ini = _init.create(ini)
+            if is_deferred(t):
+                # drawn when the first forward gives it a shape
+                t._mx_deferred = (ini, name)
+                continue
             ini(_init.InitDesc(name), t)
             mark_initialized(t)
         return self
@@ -144,14 +201,18 @@ class Block(nn.Module):
     def _move(self, dev: torch.device):
         for mod in self.modules():
             for p in mod.parameters(recurse=False):
-                if p.device != dev:
+                if is_deferred(p):
+                    retype(p, device=dev)
+                elif p.device != dev:
                     grad, p.grad = p.grad, None
                     p.data = p.data.to(dev)
                     rehook(p)
                     if grad is not None:
                         p.grad = grad.to(dev)
             for name, b in list(mod.named_buffers(recurse=False)):
-                if b is not None and b.device != dev:
+                if b is not None and is_deferred(b):
+                    retype(b, device=dev)
+                elif b is not None and b.device != dev:
                     mod._buffers[name] = carry_marks(b, b.to(dev))
 
     @torch.no_grad()
@@ -162,6 +223,7 @@ class Block(nn.Module):
         ``Block.cast`` (``mxnet_tpu/gluon/block.py:173``) casts every
         ``collect_params()`` entry, BatchNorm's running statistics among
         them; here those are buffers, so buffers are cast too.  A
+        deferred tensor takes ``dtype`` for when it materializes.  A
         parameter stays the same tensor (its ``grad_req`` and "write" hook
         stay attached); one that had a gradient gets a zero gradient of
         the new type, as ``Parameter.cast`` re-attaches it.  The model's
@@ -170,7 +232,10 @@ class Block(nn.Module):
         dt = _torch_dtype(dtype)
         for mod in self.modules():
             for p in mod.parameters(recurse=False):
-                if p.is_floating_point() and p.dtype != dt:
+                if is_deferred(p):
+                    if p.is_floating_point():
+                        retype(p, dtype=dt)
+                elif p.is_floating_point() and p.dtype != dt:
                     had_grad = p.grad is not None
                     p.grad = None
                     # torch drops a leaf's gradient accumulator when its
@@ -180,21 +245,56 @@ class Block(nn.Module):
                     if had_grad:
                         p.grad = torch.zeros_like(p)
             for name, b in list(mod.named_buffers(recurse=False)):
-                if b is not None and b.is_floating_point() and b.dtype != dt:
+                if b is not None and is_deferred(b):
+                    if b.is_floating_point():
+                        retype(b, dtype=dt)
+                elif b is not None and b.is_floating_point() and \
+                        b.dtype != dt:
                     mod._buffers[name] = carry_marks(b, b.to(dt))
         return self
+
+    def _apply(self, fn, recurse=True):
+        """torch's conversions (``to``, ``cuda``, ``float``, ...): a
+        deferred tensor takes the device and type ``fn`` gives an empty
+        tensor of its own, for when it materializes, as :meth:`cast` and
+        ``initialize(device=)`` do; the others convert as torch converts
+        them."""
+
+        def convert(t):
+            if not is_deferred(t):
+                return fn(t)
+            probe = fn(torch.empty(0, device=t.device, dtype=t.dtype))
+            retype(t, device=probe.device, dtype=probe.dtype)
+            return t
+
+        return super()._apply(convert, recurse)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        """``load_state_dict`` into a deferred tensor materializes it at
+        the loaded shape first, as :meth:`load_parameters` does (a block's
+        ``state_dict()`` raises while a tensor of it is deferred: there is
+        no value to save)."""
+        for name, t in self._own_deferred():
+            if prefix + name in state_dict:
+                t.__dict__.pop("_mx_deferred", None)
+                materialize(t, state_dict[prefix + name].shape)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def zero_grad(self, set_to_none: bool = False):
         """Zero every parameter's gradient in place (MXNet's rule;
         ``set_to_none=True`` drops them, torch's)."""
         super().zero_grad(set_to_none=set_to_none)
 
-    def _saved(self) -> Dict[str, torch.Tensor]:
+    def _saved(self, deferred: bool = False) -> Dict[str, torch.Tensor]:
         """``{structured name: tensor}``: the parameters and persistent
-        buffers, each once."""
+        buffers, each once; deferred ones only when ``deferred`` (a
+        file holds no tensor without a shape, as the JAX package writes
+        only a parameter's data)."""
         keep = set(self.state_dict(keep_vars=True))
         out = dict(self.named_parameters())
         out.update((n, b) for n, b in self.named_buffers() if n in keep)
+        if not deferred:
+            out = {n: t for n, t in out.items() if not is_deferred(t)}
         return out
 
     def save_parameters(self, filename: str, deduplicate: bool = False):
@@ -219,7 +319,7 @@ class Block(nn.Module):
         from ..ndarray import load
 
         loaded = load(filename)
-        own = self._saved()
+        own = self._saved(deferred=True)
         if not allow_missing:
             for name in own:
                 if name not in loaded:
@@ -236,6 +336,11 @@ class Block(nn.Module):
                         "ignore_extra=True to ignore.")
                 continue
             t = own[name]
+            if is_deferred(t):
+                # loading finishes a deferred init at the loaded shape,
+                # as the JAX ``Parameter.set_data`` does
+                t.__dict__.pop("_mx_deferred", None)
+                materialize(t, value.shape)
             if tuple(value.shape) != tuple(t.shape):
                 raise MXNetError(f"{name}: shape {tuple(value.shape)} in "
                                  f"'{filename}', {tuple(t.shape)} in the "

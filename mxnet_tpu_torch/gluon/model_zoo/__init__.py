@@ -1,6 +1,7 @@
 """Model zoo of the port: the decode-path LMs (transformer and LSTM),
 the BERT encoder family of the batch-serving and pretraining paths, the
-SSD detectors and the vision zoo (LeNet-5, the ResNet v1 family)."""
+SSD detectors and the vision zoo (LeNet-5, the ResNet v1 family,
+Inception v3)."""
 from . import bert, decoder, ssd, vision
 from .bert import (BERTForPretrain, BERTModel, bert_12_768_12,
                    bert_24_1024_16, get_bert)

@@ -11,10 +11,11 @@ names (``i2h_weight``, ``h2h_weight``, ``i2h_bias``, ``h2h_bias``;
 ``LSTMPCell`` also ``h2r_weight``).
 
 The port builds a cell's parameters at construction on ``device`` (None
-is ``cuda:0``), so ``input_size`` must be given, and a state built by
-``begin_state`` lands on the cell's device.  The convolutional cells
-(``Conv{1,2,3}D{RNN,LSTM,GRU}Cell``) are not ported (ROADMAP A6): the
-port has only 2-D convolution.
+is ``cuda:0``); ``input_size=0`` (the default) defers ``i2h_weight``
+until the first step's input gives its width, as the JAX cell infers
+it.  A state built by ``begin_state`` lands on the cell's device.  The
+convolutional cells (``Conv{1,2,3}D{RNN,LSTM,GRU}Cell``) are not ported
+(ROADMAP A6): the port has only 2-D convolution.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from ...ops import nn as _ops
 from ...ops.rnn import _reverse_seq
 from ..block import HybridBlock
 from ..nn.basic_layers import _empty
+from ..parameter import set_shape
 
 __all__ = ["RecurrentCell", "HybridRecurrentCell", "RNNCell", "LSTMCell",
            "GRUCell", "SequentialRNNCell", "DropoutCell", "ResidualCell",
@@ -142,11 +144,6 @@ class _GatedCell(RecurrentCell):
                  i2h_bias_initializer="zeros", h2h_bias_initializer="zeros",
                  dtype=torch.float32, device=None):
         super().__init__()
-        if int(input_size) <= 0:
-            raise MXNetError(
-                f"{type(self).__name__}({hidden_size}): input_size must be "
-                "given; the port builds parameters at construction "
-                "(deferred shape inference is ROADMAP A6)")
         self._hidden_size = hidden_size
         self._input_size = int(input_size)
         dev = resolve_device(device)
@@ -159,6 +156,10 @@ class _GatedCell(RecurrentCell):
                                i2h_bias_initializer)
         self.h2h_bias = _empty((ng * hidden_size,), dev, dtype,
                                h2h_bias_initializer)
+
+    def infer_shape(self, x, *args):
+        set_shape(self.i2h_weight,
+                  (self._num_gates * self._hidden_size, x.shape[-1]))
 
     def _proj(self, inputs, states):
         i2h = _ops.fully_connected(inputs, self.i2h_weight, self.i2h_bias)

@@ -11,8 +11,9 @@ the per-layer tensors to ``npx.rnn`` as they are: the JAX layer packs
 them into the flat cuDNN vector first, which gives the same numbers.
 
 The port builds its parameters at construction on ``device`` (None is
-``cuda:0``), so ``input_size`` must be given: ``input_size=0`` (the
-reference infers it at the first forward) raises.
+``cuda:0``); ``input_size=0`` (the default) defers the first layer's
+``i2h_weight`` until the first input gives its width (its last axis),
+as the JAX layer infers it.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from ...context import resolve_device
 from ...ops.rnn import gates_of
 from ..block import HybridBlock
 from ..nn.basic_layers import _empty
+from ..parameter import set_shape
 
 __all__ = ["RNN", "LSTM", "GRU"]
 
@@ -38,11 +40,6 @@ class _RNNLayer(HybridBlock):
         super().__init__()
         if layout not in ("TNC", "NTC"):
             raise MXNetError(f"Invalid layout '{layout}'; must be TNC or NTC")
-        if int(input_size) <= 0:
-            raise MXNetError(
-                f"{type(self).__name__}({hidden_size}): input_size must be "
-                "given; the port builds parameters at construction "
-                "(deferred shape inference is ROADMAP A6)")
         self._mode = mode
         self._hidden_size = hidden_size
         self._num_layers = num_layers
@@ -66,6 +63,12 @@ class _RNNLayer(HybridBlock):
                         ("h2h_bias", (ng * nh,), h2h_bias_initializer)):
                     setattr(self, f"{d}{l}_{name}",
                             _empty(shape, dev, dtype, init))
+
+    def infer_shape(self, x, *args, **kwargs):
+        in_sz = x.shape[2] if self._layout == "TNC" else x.shape[-1]
+        for d in ("l", "r")[:self._dir]:
+            set_shape(getattr(self, f"{d}0_i2h_weight"),
+                      (self._gates * self._hidden_size, in_sz))
 
     # -- state ---------------------------------------------------------------
     def state_info(self, batch_size=0):

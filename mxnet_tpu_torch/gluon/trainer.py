@@ -12,7 +12,9 @@ The port of ``mxnet_tpu/gluon/trainer.py`` on one device::
 Parameters are indexed in ``sorted(params)`` order, as the JAX trainer
 indexes them, so optimizer states and per-index multipliers line up.
 ``step(batch_size)`` sets ``rescale_grad = 1 / batch_size`` and updates
-every parameter whose ``grad_req`` is not "null" in place, through the
+every parameter whose ``grad_req`` is not "null" in place (one whose
+shape still waits for the first forward is skipped, as the JAX trainer
+skips a parameter without data), through the
 optimizer's per-parameter ``update`` (an ``optimizer.Updater``); a
 parameter that never received a gradient updates with zeros, as the
 JAX trainer's zero-filled gradient buffer does.  The trainer holds the
@@ -49,7 +51,7 @@ from .. import optimizer as opt_mod
 from ..base import MXNetError
 from ..engine import BoundedInflight
 from ..trace import recorder as _tr
-from .parameter import GradReqHooks, grad_req
+from .parameter import GradReqHooks, grad_req, is_deferred
 
 __all__ = ["Trainer"]
 
@@ -158,7 +160,7 @@ class Trainer:
         if kv is None or kv.num_workers <= 1:
             return
         pending = [(i, p) for i, p in enumerate(self._params)
-                   if grad_req(p) != "null"]
+                   if grad_req(p) != "null" and not is_deferred(p)]
         for _, p in pending:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -189,7 +191,7 @@ class Trainer:
             self._init_kvstore()
         self._optimizer.rescale_grad = self._rescale(batch_size)
         for i, p in enumerate(self._params):
-            if grad_req(p) == "null":
+            if grad_req(p) == "null" or is_deferred(p):
                 continue
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             self._updater(i, g, p)

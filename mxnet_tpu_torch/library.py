@@ -46,7 +46,7 @@ def loaded_ops() -> Dict[str, Callable]:
 def _register_npx(name: str, fn: Callable):
     from . import numpy_extension as npx
 
-    if hasattr(npx, name):
+    if name in vars(npx):  # not __getattr__'s not-ported names
         raise MXNetError(f"op '{name}' already exists in npx")
     setattr(npx, name, fn)
     _LOADED[name] = fn

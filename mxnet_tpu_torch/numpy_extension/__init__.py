@@ -3,11 +3,13 @@ activation, dropout, fused-RNN, CTC and bounding-box operators of the
 port, on tensors.
 
 The port of ``flash_attention``, ``multi_head_attention``,
-``convolution``, ``pooling``, ``batch_norm``, ``batch_norm_with_relu``,
-``activation``, ``dropout``, ``rnn``, ``ctc_loss``, ``box_iou``,
-``box_nms``, ``roi_align``, ``box_encode``, ``box_decode`` and
-``bipartite_matching`` from ``mxnet_tpu/numpy_extension/__init__.py``
-(the last seven over ``ops.ctc`` and ``ops.boxes``).  They take and return
+``convolution``, ``deconvolution``, ``pooling``, ``batch_norm``,
+``batch_norm_with_relu``, ``layer_norm``, ``group_norm``,
+``instance_norm``, ``activation``, ``leaky_relu``, ``dropout``, ``rnn``,
+``ctc_loss``, ``box_iou``, ``box_nms``, ``roi_align``, ``box_encode``,
+``box_decode`` and ``bipartite_matching`` from
+``mxnet_tpu/numpy_extension/__init__.py`` (the last seven over
+``ops.ctc`` and ``ops.boxes``).  They take and return
 torch tensors (the JAX package wraps NDArrays).  The attention is
 ``ops.attention.flash_attention``, so CUDA tensors go through the
 hand-written flash kernel and CPU tensors through its plain version;
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import _not_ported
 from .. import autograd as _ag
 from .. import random as _random
 from ..base import MXNetError
@@ -35,9 +38,10 @@ from ..ops import nn as _nn
 from ..ops import rnn as _rnn
 
 __all__ = ["flash_attention", "multi_head_attention", "convolution",
-           "pooling", "batch_norm", "batch_norm_with_relu", "activation",
-           "dropout", "rnn", "ctc_loss", "box_iou", "box_nms", "roi_align",
-           "box_encode", "box_decode", "bipartite_matching"]
+           "deconvolution", "pooling", "batch_norm", "batch_norm_with_relu",
+           "layer_norm", "group_norm", "instance_norm", "activation",
+           "leaky_relu", "dropout", "rnn", "ctc_loss", "box_iou", "box_nms",
+           "roi_align", "box_encode", "box_decode", "bipartite_matching"]
 
 
 def flash_attention(query, key, value, mask=None, valid_length=None,
@@ -77,6 +81,45 @@ def convolution(data, weight, bias=None, stride=1, dilate=1, pad=0,
     return _nn.convolution(data, weight, bias, stride=stride, dilate=dilate,
                            pad=pad, num_group=num_group, no_bias=no_bias,
                            layout=layout)
+
+
+def deconvolution(data, weight, bias=None, kernel=None, stride=1, dilate=1,
+                  pad=0, adj=0, num_filter=None, num_group=1, no_bias=False,
+                  target_shape=None, layout=None):
+    """2-D transposed convolution (``ops.nn.deconvolution``); the kernel
+    size and filter count are ``weight``'s."""
+    return _nn.deconvolution(data, weight, bias, stride=stride,
+                             dilate=dilate, pad=pad, adj=adj,
+                             num_group=num_group, no_bias=no_bias,
+                             layout=layout)
+
+
+def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
+    """Layer normalization over ``axis`` (``ops.nn.layer_norm``)."""
+    return _nn.layer_norm(x, gamma, beta, eps, axis=axis)
+
+
+def group_norm(x, gamma, beta, num_groups=1, eps=1e-5):
+    """Group normalization of channel-first ``x`` (``ops.nn.group_norm``)."""
+    return _nn.group_norm(x, gamma, beta, num_groups, eps)
+
+
+def instance_norm(x, gamma, beta, eps=1e-5):
+    """Instance normalization of channel-first ``x``
+    (``ops.nn.instance_norm``)."""
+    return _nn.instance_norm(x, gamma, beta, eps)
+
+
+def leaky_relu(data, gamma=None, act_type: str = "leaky", slope: float = 0.25,
+               lower_bound: float = 0.125, upper_bound: float = 0.334, **kw):
+    """The leaky family (``ops.nn.leaky_relu``: leaky, prelu, elu, selu,
+    gelu, rrelu); rrelu draws its slopes in training
+    (``autograd.is_training()``) from the port's seeded generator of
+    ``data``'s device, as the JAX op draws them from its key."""
+    gen = _random.generator(data.device) if act_type == "rrelu" and \
+        _ag.is_training() else None
+    return _nn.leaky_relu(data, gamma, act_type, slope, lower_bound,
+                          upper_bound, generator=gen)
 
 
 def pooling(data, kernel=1, pool_type="max", stride=None, pad=0,
@@ -233,3 +276,7 @@ def bipartite_matching(score, threshold=1e-12, is_ascend=False, topk=-1,
                        **kw):
     """Greedy bipartite matching (``ops.boxes.bipartite_matching``)."""
     return _bx.bipartite_matching(score, threshold, is_ascend, topk)
+
+
+# a JAX npx name not yet ported raises naming its ROADMAP item
+__getattr__ = _not_ported.module_getattr(__name__, "mx.npx", _not_ported.NPX)

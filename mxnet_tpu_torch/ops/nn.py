@@ -37,10 +37,11 @@ import torch.nn.functional as F
 from .. import random as _random
 from ..base import MXNetError
 
-__all__ = ["fully_connected", "layer_norm", "erf_gelu", "tanh_gelu", "mish",
-           "soft_sign", "activation", "dropout",
-           "convolution", "pooling", "batch_norm_train", "batch_norm_infer",
-           "batch_norm_act_train", "is_channel_last", "batch_stats_group"]
+__all__ = ["fully_connected", "layer_norm", "group_norm", "instance_norm",
+           "erf_gelu", "tanh_gelu", "mish", "soft_sign", "activation",
+           "leaky_relu", "dropout", "convolution", "deconvolution", "pooling",
+           "batch_norm_train", "batch_norm_infer", "batch_norm_act_train",
+           "is_channel_last", "batch_stats_group"]
 
 _SYNC = threading.local()
 
@@ -73,9 +74,10 @@ def fully_connected(x, weight, bias=None, flatten: bool = True):
     return y if bias is None else y + bias
 
 
-def layer_norm(x, gamma, beta, eps: float = 1e-5):
-    """Normalize over the last axis: ``(x - mean) / sqrt(var + eps)``
-    (biased variance), then ``* gamma + beta``.
+def layer_norm(x, gamma, beta, eps: float = 1e-5, axis: int = -1):
+    """Normalize over ``axis`` (the last by default): ``(x - mean) /
+    sqrt(var + eps)`` (biased variance), then ``* gamma + beta`` along
+    that axis.  Another axis is moved last and back.
 
     f32 runs one fused ``F.layer_norm``.  Other types follow the JAX
     op's dtypes (``mxnet_tpu/ops/nn.py`` ``layer_norm``): the statistics
@@ -89,6 +91,10 @@ def layer_norm(x, gamma, beta, eps: float = 1e-5):
     rows take the JAX op's roundings exactly: mean and variance in f32
     rounded to x's type, ``x - mean`` and the correctly rounded ``rsqrt``
     and their product in x's type."""
+    axis = axis % x.ndim
+    if axis != x.ndim - 1:
+        return layer_norm(x.movedim(axis, -1), gamma, beta, eps).movedim(
+            -1, axis)
     n = (x.shape[-1],)
     if x.dtype == gamma.dtype == beta.dtype == torch.float32:
         return F.layer_norm(x, n, gamma, beta, eps)
@@ -99,6 +105,73 @@ def layer_norm(x, gamma, beta, eps: float = 1e-5):
     var = (xf - mean).square().mean(-1, keepdim=True).to(x.dtype)
     inv = torch.rsqrt((var + eps).double()).to(x.dtype)
     return (x - mean.to(x.dtype)) * inv * gamma + beta
+
+
+def _normalize(x, axes, eps: float):
+    """``(x - mean) * rsqrt(var + eps)`` over ``axes`` (biased variance),
+    as the JAX ops compute it."""
+    mean = x.mean(dim=axes, keepdim=True)
+    var = (x - mean).square().mean(dim=axes, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps)
+
+
+def _per_channel(t, x):
+    return t.reshape((1, -1) + (1,) * (x.ndim - 2))
+
+
+def group_norm(x, gamma, beta, num_groups: int = 1, eps: float = 1e-5):
+    """Group normalization of channel-first ``x`` (N, C, ...): the
+    channels split into ``num_groups`` groups, each normalized over its
+    channels and the spatial axes, then ``* gamma + beta`` per channel
+    (``mxnet_tpu/ops/nn.py:391``)."""
+    n, c = x.shape[:2]
+    if c % num_groups:
+        raise MXNetError(f"group_norm: {c} channels do not split into "
+                         f"{num_groups} groups")
+    g = x.reshape((n, num_groups, c // num_groups) + tuple(x.shape[2:]))
+    y = _normalize(g, tuple(range(2, g.ndim)), eps).reshape(x.shape)
+    return y * _per_channel(gamma, x) + _per_channel(beta, x)
+
+
+def instance_norm(x, gamma, beta, eps: float = 1e-5):
+    """Instance normalization of channel-first ``x``: each (sample,
+    channel) over the spatial axes, then ``* gamma + beta`` per channel
+    (``mxnet_tpu/ops/nn.py:406``)."""
+    y = _normalize(x, tuple(range(2, x.ndim)), eps)
+    return y * _per_channel(gamma, x) + _per_channel(beta, x)
+
+
+def leaky_relu(x, gamma=None, act_type: str = "leaky", slope: float = 0.25,
+               lower_bound: float = 0.125, upper_bound: float = 0.334,
+               generator=None):
+    """The leaky family of ``mxnet_tpu/ops/nn.py`` ``leaky_relu``:
+    ``"leaky"`` (``slope * x`` below 0), ``"prelu"`` (``gamma * x`` below
+    0, ``gamma`` per channel on axis 1), ``"elu"`` (``slope * (exp(x) -
+    1)`` below 0), ``"selu"``, ``"gelu"`` (the erf form) and ``"rrelu"``
+    (a slope a value drawn uniform in ``[lower_bound, upper_bound)``
+    from ``generator``, or their mean without one, as the JAX op takes
+    its mean without a key)."""
+    if act_type == "leaky":
+        return torch.where(x > 0, x, slope * x)
+    if act_type == "prelu":
+        g = gamma
+        if g.ndim < x.ndim and x.ndim > 1:
+            g = _per_channel(g, x)
+        return torch.where(x > 0, x, g * x)
+    if act_type == "elu":
+        return torch.where(x > 0, x, slope * (torch.exp(x) - 1))
+    if act_type == "selu":
+        return torch.selu(x)
+    if act_type == "gelu":
+        return erf_gelu(x)
+    if act_type == "rrelu":
+        if generator is None:
+            s = (lower_bound + upper_bound) / 2.0
+        else:
+            s = (torch.rand(x.shape, generator=generator, device=x.device)
+                 * (upper_bound - lower_bound) + lower_bound).to(x.dtype)
+        return torch.where(x > 0, x, s * x)
+    raise MXNetError(f"unknown leaky_relu act_type '{act_type}'")
 
 
 def erf_gelu(x):
@@ -231,12 +304,44 @@ def convolution(x, weight, bias=None, stride=1, dilate=1, pad=0,
     return y
 
 
+def deconvolution(x, weight, bias=None, stride=1, dilate=1, pad=0, adj=0,
+                  num_group: int = 1, no_bias: bool = False, layout=None):
+    """2-D transposed convolution (``mxnet_tpu/ops/nn.py:121``): ``x``
+    NCHW with an (in, out / groups, kh, kw) ``weight``, or NHWC with
+    its channel-last form (in, kh, kw, out / groups).  The output is
+    ``(in - 1) * stride - 2 * pad + dilate * (k - 1) + 1 + adj`` wide,
+    for any ``adj`` (PyTorch's ``output_padding`` must stay below the
+    stride), as the JAX op's extra padding gives: the transposed
+    convolution runs unpadded, and the output is its window from ``pad``
+    on, zeros past its end."""
+    last = is_channel_last(layout, x.ndim)
+    if x.dtype != weight.dtype:
+        raise MXNetError(f"deconvolution of a {x.dtype} input with a "
+                         f"{weight.dtype} weight: the types must match")
+    w = weight.permute(0, 3, 1, 2) if last else weight
+    y = F.conv_transpose2d(_nchw(x, last), w, None, stride=_pair(stride),
+                           dilation=_pair(dilate), groups=int(num_group))
+    (ph, pw), (ah, aw) = _pair(pad), _pair(adj)
+    hw = [y.shape[2] - 2 * ph + ah, y.shape[3] - 2 * pw + aw]
+    y = F.pad(y, (0, max(0, pw + hw[1] - y.shape[3]),
+                  0, max(0, ph + hw[0] - y.shape[2])))
+    y = y[:, :, ph:ph + hw[0], pw:pw + hw[1]]
+    if bias is not None and not no_bias:
+        y = y + bias.reshape(1, -1, 1, 1)
+    return _back(y, last)
+
+
 def pooling(x, kernel=1, pool_type: str = "max", stride=None, pad=0,
             global_pool: bool = False, count_include_pad: bool = True,
             pooling_convention: str = "valid", layout=None):
     """2-D max / avg pooling and their global forms; padding is implicit
     (-inf for max; for avg counted in the divisor when
-    ``count_include_pad``), as the JAX package pads its reduce window."""
+    ``count_include_pad``), as the JAX package pads its reduce window.
+    ``pooling_convention="full"`` (the layers' ``ceil_mode=True``) pads
+    the high edge by ``pad + stride - 1`` as the JAX op does, and an avg
+    window counts that padding when ``count_include_pad`` (the JAX
+    op's divisor is the window's size), unlike PyTorch's ``ceil_mode``,
+    which clips the last window."""
     last = is_channel_last(layout, x.ndim)
     if pool_type not in ("max", "avg"):
         raise MXNetError(f"pool_type {pool_type!r} is not ported (max, avg "
@@ -246,13 +351,24 @@ def pooling(x, kernel=1, pool_type: str = "max", stride=None, pad=0,
         if pool_type == "max":
             return x.amax(dim=axes, keepdim=True)
         return x.mean(dim=axes, keepdim=True)
-    if pooling_convention != "valid":
-        raise MXNetError(f"pooling_convention={pooling_convention!r} is not "
-                         "ported ('valid' is); ROADMAP A6, long tail")
+    if pooling_convention not in ("valid", "full"):
+        raise MXNetError(f"pooling_convention={pooling_convention!r} is "
+                         "unknown ('valid', 'full')")
     ks = _pair(kernel)
     st = _pair(stride if stride is not None else kernel)
     pd = _pair(pad)
     xc = _nchw(x, last)
+    if pooling_convention == "full":
+        edges = (pd[1], pd[1] + st[1] - 1, pd[0], pd[0] + st[0] - 1)
+        if pool_type == "max":
+            y = F.max_pool2d(F.pad(xc, edges, value=-math.inf), ks, st)
+        elif count_include_pad:
+            y = F.avg_pool2d(F.pad(xc, edges), ks, st)
+        else:
+            ones = F.pad(torch.ones_like(xc[:1, :1]), edges)
+            y = F.avg_pool2d(F.pad(xc, edges), ks, st) / \
+                F.avg_pool2d(ones, ks, st)
+        return _back(y, last)
     if pool_type == "max":
         y = F.max_pool2d(xc, ks, st, pd)
     else:

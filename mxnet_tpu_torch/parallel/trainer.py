@@ -181,7 +181,7 @@ from .. import autograd as _ag
 from .. import optimizer as _opt_mod
 from .. import random as _random
 from .. import telemetry as _tel
-from ..base import MXNetError, get_env
+from ..base import DeferredInitializationError, MXNetError, get_env
 from ..engine import BoundedInflight
 from ..gluon.block import eager_calls
 from ..kernels import opt_arena as _oa
@@ -339,6 +339,22 @@ class _GatherParam(torch.autograd.Function):
                 g = _coll._reduce_scatter(
                     g, _coll._axis(tuple(keep), mesh), dim)
         return g.contiguous(), None, None, None
+
+
+def _refuse_deferred(net):
+    """The arena, zero1 and the spec plans need every shape: a net with a
+    tensor whose width waits for the first forward raises, naming it, as
+    the JAX trainer's ``Parameter.data()`` does."""
+    from ..gluon.parameter import is_deferred
+
+    for name, t in sorted(list(net.named_parameters())
+                          + list(net.named_buffers())):
+        if is_deferred(t):
+            raise DeferredInitializationError(
+                f"ShardedTrainer: parameter '{name}' has not been "
+                "initialized yet because its initialization was deferred "
+                "(a width of 0); run the block once on a batch, net(x), "
+                "so every shape is known, then build the trainer")
 
 
 def shard_params(net, mesh, spec_fn: Callable = replicated_spec_fn):
@@ -1259,6 +1275,7 @@ class ShardedTrainer:
             from .pipeline import split_stages
 
             self._pp_stages = split_stages(net, self._dp.pp)
+        _refuse_deferred(net)
         # sorted by name, as the JAX trainer orders them: the index an
         # optimizer sees, the order of the checkpoint's leaves and the
         # arena's layout are the JAX package's

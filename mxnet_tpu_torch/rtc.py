@@ -137,7 +137,7 @@ def register(name: str, fn: Callable, grad: Optional[Callable] = None,
     if attach_npx:
         from . import numpy_extension as npx
 
-        if hasattr(npx, name):
+        if name in vars(npx):  # not __getattr__'s not-ported names
             raise MXNetError(f"op '{name}' already exists in npx")
         setattr(npx, name, op)
     _KERNELS[name] = op

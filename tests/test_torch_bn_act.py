@@ -376,8 +376,8 @@ def test_pooling_matches_jax(layout, kw):
 
 def test_unported_pooling_and_layouts_raise():
     x = torch.zeros(1, 4, 4, 2)
-    for kw in (dict(pool_type="lp"), dict(pooling_convention="full"),
-               dict(layout="NCDHW")):
+    for kw in (dict(pool_type="lp"), dict(pool_type="sum"),
+               dict(pooling_convention="same"), dict(layout="NCDHW")):
         with pytest.raises(MXNetError):
             tnn.pooling(x, kernel=2, **kw)
     with pytest.raises(MXNetError, match="2-D"):

@@ -3122,3 +3122,94 @@ def test_moe_world_on_the_card(dev, axes_world):
     for r in range(2):
         assert ranks[r]["moe"]["aux"] == pytest.approx(sum(auxes) / 2,
                                                        rel=1e-5)
+
+
+# ------------------------------------------------ deferred shapes (A6c)
+def _deferred_net(device):
+    from mxnet_tpu_torch.gluon import nn
+
+    return nn.HybridSequential().add(
+        nn.Conv2D(16, 3, padding=1, device=device),
+        nn.BatchNorm(device=device), nn.Activation("relu"),
+        nn.GroupNorm(4, device=device), nn.PReLU(device=device),
+        nn.AvgPool2D(3, 2, ceil_mode=True),
+        nn.Conv2DTranspose(8, 2, strides=2, device=device),
+        nn.Dense(10, device=device))
+
+
+def test_deferred_block_captured_after_its_eager_first_call(dev):
+    """A net built on the CPU with its widths deferred, moved to the card
+    by ``initialize(device=)`` before its first call (the tensors
+    materialize there), hybridized: the eager first call infers the
+    widths, the next captures, and the captured scores, the recorded
+    forward and the gradients equal the eager ones within 1e-6 x max."""
+    import mxnet_tpu_torch as tmx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.parameter import is_deferred
+
+    net = _deferred_net("cpu")
+    tmx.random.seed(26)
+    net.initialize(tmx.init.Xavier(), device=dev)
+    assert all(is_deferred(p) for p in (net[0].weight, net[7].weight))
+    assert net[0].weight.device == dev and net[1].running_var.device == dev
+    x = torch.rand(4, 3, 15, 15, generator=torch.Generator().manual_seed(0))
+    x = x.to(dev)
+
+    def run(record):
+        if not record:
+            with torch.no_grad():
+                return [net(x)]
+        with autograd.record():
+            y = net(x)
+        y.square().sum().backward()
+        out = [y.detach()] + [p.grad.clone() for p in net.parameters()]
+        net.zero_grad()
+        return out
+
+    net.hybridize()
+    first = run(False)                          # the eager first call
+    assert not any(is_deferred(t) for t in net.state_dict().values())
+    assert all(t.device == dev for t in net.state_dict().values())
+    got = [run(False) for _ in range(2)][-1]    # capture, then replay
+    stats = [b.clone() for b in net.buffers()]
+    got_rec = [run(True) for _ in range(2)][-1]
+    for b, s in zip(net.buffers(), stats):      # put the statistics back
+        b.copy_(s)
+    assert len(net._cached_op._traced) >= 2
+    net.hybridize(False)
+    want = run(False)
+    want_rec = [run(True) for _ in range(2)][-1]
+    for g, w in zip(first + got + got_rec, want + want + want_rec):
+        scale = float(w.float().abs().max()) or 1.0
+        assert float((g.float() - w.float()).abs().max()) <= 1e-6 * scale
+
+
+def test_inception_v3_bf16_scores_match_the_cpu(dev):
+    """``inception_v3`` cast to bf16 on the card against the same values
+    on the CPU at B = 2 on 299^2, at ``chip_smoke.py`` phase 38's bar:
+    the larger of 2^-4 x max|cpu| and 3 x the CPU's own bf16-f32
+    distance; the card's f32 scores within 1e-4 x max of the CPU's."""
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+
+    net = get_model("inceptionv3", classes=100, layout="NHWC", device=dev)
+    xavier_init(net, 3)
+    xs = np.random.RandomState(1).rand(2, 299, 299, 3).astype(np.float32)
+    with torch.no_grad():
+        got32 = net(torch.from_numpy(xs).to(dev)).cpu()
+    cpu = convert.load_into(
+        get_model("inceptionv3", classes=100, layout="NHWC", device="cpu"),
+        {k: v.cpu().numpy() for k, v in net.state_dict().items()})
+    net.cast(torch.bfloat16)
+    with torch.no_grad():
+        got = net(torch.from_numpy(xs).to(dev).to(torch.bfloat16))
+        ref32 = cpu(torch.from_numpy(xs))
+        ref16 = cpu.cast(torch.bfloat16)(
+            torch.from_numpy(xs).to(torch.bfloat16)).float()
+    got = got.float().cpu()
+    assert float((got32 - ref32).abs().max()) <= \
+        1e-4 * float(ref32.abs().max())
+    own = float((ref16 - ref32).abs().max())
+    bar = max(2.0 ** -4 * float(ref16.abs().max()), 3 * own)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref16).abs().max()) <= bar

@@ -35,6 +35,7 @@ import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import autograd, convert, gluon, library, telemetry
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon import nn as tnn
+from mxnet_tpu_torch.gluon.parameter import is_deferred
 from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from mxnet_tpu_torch.gluon.model_zoo import get_model
 from mxnet_tpu_torch.kernels import registry
@@ -326,7 +327,8 @@ def test_dense_takes_the_reference_signature():
     """``Dense(units, activation=None, use_bias=True, flatten=True, ...,
     in_units=0)`` as the reference orders it: ``Dense(10, "relu")`` right
     after a convolution, with no ``Flatten``, matches JAX; ``flatten=False``
-    keeps the leading axes; ``in_units=0`` raises (deferred shapes)."""
+    keeps the leading axes; ``in_units=0`` (the default) defers the
+    weight until the first input gives its width."""
     x = np.random.RandomState(3).rand(4, 2, 8, 8).astype("f4") - 0.5
     jnet = mx.gluon.nn.HybridSequential()
     jnet.add(mx.gluon.nn.Conv2D(3, 3, in_channels=2),
@@ -350,8 +352,10 @@ def test_dense_takes_the_reference_signature():
     keep = tnn.Dense(7, flatten=False, in_units=6, use_bias=False,
                      device="cpu")
     assert keep.bias is None and keep(torch.ones(2, 3, 6)).shape == (2, 3, 7)
-    with pytest.raises(MXNetError, match="A6"):
-        tnn.Dense(10, "relu", device="cpu")
+    late = tnn.Dense(10, "relu", device="cpu").initialize(tmx.init.Xavier())
+    assert is_deferred(late.weight) and tuple(late.bias.shape) == (10,)
+    assert late(torch.from_numpy(x)).shape == (4, 10)
+    assert tuple(late.weight.shape) == (10, 2 * 8 * 8)
 
 
 def test_embedding_casts_float_ids_as_jax_does():
@@ -370,8 +374,13 @@ def test_embedding_casts_float_ids_as_jax_does():
         np.testing.assert_array_equal(got.detach().numpy(), want)
     assert tnn.Embedding(5, 3, torch.bfloat16,
                          device="cpu").weight.dtype == torch.bfloat16
-    with pytest.raises(MXNetError, match="A6"):
-        tnn.Embedding(5, 3, sparse_grad=True, device="cpu")
+    # sparse_grad=True takes a dense gradient of the JAX values (ROADMAP
+    # C; tests/test_torch_gluon_layers.py holds it to the JAX layer)
+    sparse = tnn.Embedding(5, 3, sparse_grad=True, device="cpu")
+    convert.load_into(sparse, {n: p.data().asnumpy()
+                               for n, p in jemb.collect_params().items()})
+    np.testing.assert_array_equal(
+        sparse(torch.from_numpy(ids)).detach().numpy(), want)
 
 
 @pytest.mark.parametrize("center,scale", [(True, True), (False, True),
@@ -380,8 +389,9 @@ def test_layer_norm_takes_the_reference_signature(center, scale):
     """``LayerNorm(axis=-1, epsilon=1e-5, center=True, scale=True,
     beta_initializer, gamma_initializer, in_channels=0)`` as the reference
     orders it: outputs within 1e-5 of the JAX layer's, beta / gamma fixed
-    (no gradient) when ``center`` / ``scale`` is False; ``axis=0`` and
-    ``in_channels=0`` raise."""
+    (no gradient) when ``center`` / ``scale`` is False; ``axis=0``
+    normalizes over axis 0 and ``in_channels=0`` defers the width to the
+    first input."""
     rs = np.random.RandomState(4)
     x = rs.rand(3, 4, 6).astype("f4") - 0.5
     jln = mx.gluon.nn.LayerNorm(-1, 1e-3, center, scale, in_channels=6)
@@ -416,10 +426,16 @@ def test_layer_norm_takes_the_reference_signature(center, scale):
             getattr(jfresh, name).data().asnumpy())
     assert not fresh.beta.detach().any()
     assert torch.equal(fresh.gamma.detach(), torch.ones(6))
-    with pytest.raises(MXNetError, match="A6"):
-        tnn.LayerNorm(axis=0, in_channels=6, device="cpu")
-    with pytest.raises(MXNetError, match="in_channels"):
-        tnn.LayerNorm(device="cpu")
+    jfirst = mx.gluon.nn.LayerNorm(axis=0, center=center, scale=scale)
+    jfirst.initialize(mx.init.Xavier())
+    first = tnn.LayerNorm(axis=0, center=center, scale=scale, device="cpu")
+    first.initialize(tmx.init.Xavier())
+    x0 = x.reshape(3, 24)
+    np.testing.assert_allclose(
+        first(torch.from_numpy(x0)).detach().numpy(),
+        jfirst(mx.np.array(x0)).asnumpy(), rtol=1e-5, atol=1e-5)
+    assert tuple(first.gamma.shape) == (3,)
+    assert is_deferred(tnn.LayerNorm(device="cpu").gamma)
 
 
 def test_softmax_ce_picks_the_label_along_a_non_last_axis():
@@ -509,8 +525,17 @@ def test_layers_take_the_reference_arguments(name):
 
 
 def test_max_pool_ceil_mode_raises_naming_a6():
+    """``ceil_mode=True`` is ported (the JAX "full" convention, held to
+    the JAX layer here and in tests/test_torch_gluon_layers.py); a pool
+    of another rank still raises naming A6."""
+    x = np.random.RandomState(7).rand(2, 3, 7, 7).astype("f4")
+    want = mx.gluon.nn.MaxPool2D(2, 2, ceil_mode=True)(
+        mx.np.array(x)).asnumpy()
+    got = tnn.MaxPool2D(2, 2, ceil_mode=True)(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, 3, 4, 4)
+    np.testing.assert_array_equal(got, want)
     with pytest.raises(MXNetError, match="A6"):
-        tnn.MaxPool2D(2, 2, ceil_mode=True)
+        tmx.npx.pooling(torch.zeros(1, 2, 4, 4, 4), kernel=2)
 
 
 def test_dropout_axes_shares_its_mask_as_jax_does():

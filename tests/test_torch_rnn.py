@@ -456,14 +456,10 @@ def test_unknown_activation_raises():
 
 # -------------------------------------------------------------- not ported
 @pytest.mark.parametrize("make", [
-    lambda: trnn.LSTM(H, device="cpu"),
-    lambda: trnn.GRU(H, num_layers=2, device="cpu"),
-    lambda: trnn.LSTMCell(H, device="cpu"),
     lambda: trnn.Conv2DLSTMCell((3, 8, 8), 4),
     lambda: trnn.Conv1DRNNCell((3, 8), 4),
     lambda: trnn.Conv3DGRUCell((3, 4, 8, 8), 4),
-], ids=["lstm_input_size_0", "gru_input_size_0", "cell_input_size_0",
-        "conv2d_lstm_cell", "conv1d_rnn_cell", "conv3d_gru_cell"])
+], ids=["conv2d_lstm_cell", "conv1d_rnn_cell", "conv3d_gru_cell"])
 def test_not_ported_raises_naming_a6(make):
     with pytest.raises(MXNetError, match="A6"):
         make()
